@@ -1,0 +1,93 @@
+"""Boundaries of the PyTorch port.
+
+The port and ``chip_smoke.py`` import neither JAX nor the JAX package (the
+GPU machine has no JAX), and the port's entry points run on the card
+unless asked for the CPU: with no card they raise, they never fall back.
+"""
+from __future__ import annotations
+
+import ast
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "turborc_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "turborc_tpu")
+
+
+def _imports(path: Path) -> list[str]:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+        elif isinstance(node, ast.Call) and node.args \
+                and isinstance(node.args[0], ast.Constant) \
+                and isinstance(node.args[0].value, str) \
+                and getattr(node.func, "attr", getattr(node.func, "id", "")) \
+                in ("import_module", "__import__"):
+            names.append(node.args[0].value)
+    return names
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_jax_imports(path):
+    bad = [n for n in _imports(path) if _forbidden(n)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_import_closure_has_no_jax():
+    """Importing the whole port loads no JAX module."""
+    code = ("import sys, turborc_tpu_torch.api, turborc_tpu_torch.convert, "
+            "turborc_tpu_torch.ops.build, chip_smoke; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'turborc_tpu')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_no_device_means_cuda_and_raises(monkeypatch):
+    from turborc_tpu_torch import CodecConfig, api
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = CodecConfig(codec="rans-cdf-o0-p")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.compress(b"abc", cfg)
+    blob = api.compress(b"abc", cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.decompress(blob)
+    assert api.decompress(blob, device="cpu") == b"abc"
+
+
+def test_convert_no_device_means_cuda_and_raises(monkeypatch):
+    from turborc_tpu_torch import convert
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = (np.zeros((16, 2)), np.zeros((16, 16, 2)), np.zeros((2, 128)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.kernel_args_from_jax(*args)
+    hi, lo, init = convert.kernel_args_from_jax(*args, device="cpu")
+    assert {t.device.type for t in (hi, lo, init)} == {"cpu"}
+
+
+def test_chip_smoke_alone_fails_without_result(tmp_path):
+    """chip_smoke.py in a directory holding nothing else of the repo exits
+    non-zero and prints no result line (here it also finds no card)."""
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path)
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout

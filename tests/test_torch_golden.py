@@ -1,0 +1,146 @@
+"""Golden containers of rans-cdf-o0-p, frozen from the JAX package.
+
+``turborc_tpu_torch/golden/o0p.json`` holds
+  small: whole containers (hex) of small inputs at tiny geometries;
+  large: sha256 + length of two full-size containers (textbwt 64 MB at
+         the bench geometry, textbwt 16 MB at the default configuration),
+         which ``chip_smoke.py`` checks on the GPU, where there is no JAX.
+
+The JAX package registers id 57 only off the CPU, so the oracle here is
+its XLA twin, ``rans_pallas.encode_block(..., use_pallas_encoder=False)``,
+wrapped in the container exactly as ``turborc_tpu.api.compress`` does.
+Every comparison is exact (byte-identical).
+
+Regenerate (about two minutes of CPU for the large cases):
+
+    JAX_PLATFORMS=cpu python tests/test_torch_golden.py --regen
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+DATA = ROOT / "turborc_tpu" / "bench" / "_data"
+GOLDEN = ROOT / "turborc_tpu_torch" / "golden" / "o0p.json"
+
+SMALL = [
+    dict(name="textbwt3000_g2s8", file="textbwt_32768.bin", offset=0,
+         n=3000, geom="g2c2s8y2l4a16r4", block_size=1 << 22),
+    dict(name="skewed6000_g2s1", seed=7, n=6000, geom="g2c2s1y2l4a16r4",
+         block_size=1 << 22),
+    dict(name="textbwt10000_g2a4_3blocks", file="textbwt_32768.bin",
+         offset=8192, n=10000, geom="g2c2s8y2l4a4r4", block_size=4096),
+    dict(name="seedonly300_g2s8", file="textbwt_32768.bin", offset=20000,
+         n=300, geom="g2c2s8y2l4a16r4", block_size=1 << 22),
+    dict(name="empty_g2s8", seed=0, n=0, geom="g2c2s8y2l4a16r4",
+         block_size=1 << 22),
+]
+LARGE = [
+    dict(name="textbwt_67108864_bench", file="textbwt_67108864.bin",
+         geom="g64c8s8y8l32a4r4", block_size=1 << 26),
+    dict(name="textbwt_16777216_default", file="textbwt_16777216.bin",
+         geom=None, block_size=1 << 22),
+]
+
+
+def case_data(case: dict) -> np.ndarray:
+    """The input bytes of a case: a corpus slice, or seeded skewed bytes."""
+    if "file" in case:
+        raw = np.fromfile(DATA / case["file"], np.uint8)
+        off = case.get("offset", 0)
+        return raw[off:off + case["n"]] if "n" in case else raw
+    rng = np.random.default_rng(case["seed"])
+    p = 1.0 / np.arange(1, 257) ** 1.3
+    return rng.choice(256, size=case["n"], p=p / p.sum()).astype(np.uint8)
+
+
+def jax_container(data: np.ndarray, spec: str | None,
+                  block_size: int) -> bytes:
+    """The container ``turborc_tpu.api.compress`` writes for codec 57
+    (default CodecConfig fields), its payloads from the XLA twin."""
+    from turborc_tpu.codecs import rans_pallas
+    from turborc_tpu.container import format as fmt
+    from turborc_tpu.ops.pallas.geom import Geom
+    geom = Geom.parse(spec) if spec else Geom()
+    out = [fmt.write_header(57, 512, 256, block_size, data.shape[0], 5, 8,
+                            8, geom=geom)]
+    for off in range(0, max(data.shape[0], 1), block_size):
+        blk = data[off:off + block_size]
+        payload = rans_pallas.encode_block(blk, use_pallas_encoder=False,
+                                           geom=geom)
+        stored = len(payload) >= blk.shape[0]
+        out.append(fmt.write_block(blk.tobytes() if stored else payload,
+                                   blk, stored))
+    return b"".join(out)
+
+
+def port_config(case: dict):
+    from turborc_tpu_torch import CodecConfig, Geom
+    return CodecConfig(codec="rans-cdf-o0-p", block_size=case["block_size"],
+                       geom=Geom.parse(case["geom"]) if case["geom"] else None)
+
+
+@pytest.fixture(scope="module")
+def golden():
+    return json.loads(GOLDEN.read_text())
+
+
+@pytest.mark.parametrize("case", SMALL, ids=[c["name"] for c in SMALL])
+def test_small_golden_rederives_from_jax(case, golden):
+    """Exact: the JAX package still writes the committed container."""
+    want = {c["name"]: c for c in golden["small"]}[case["name"]]
+    got = jax_container(case_data(case), case["geom"], case["block_size"])
+    assert got.hex() == want["hex"]
+
+
+@pytest.mark.parametrize("case", SMALL, ids=[c["name"] for c in SMALL])
+def test_small_golden_port_writes_and_reads(case, golden):
+    """Exact: the port writes the committed container byte for byte and
+    decodes it back to the input."""
+    from turborc_tpu_torch import api
+    want = bytes.fromhex({c["name"]: c
+                          for c in golden["small"]}[case["name"]]["hex"])
+    data = case_data(case)
+    assert api.compress(data, port_config(case), device="cpu") == want
+    assert api.decompress(want, device="cpu") == data.tobytes()
+
+
+def test_large_golden_entries(golden):
+    """The full-size entries chip_smoke.py checks name existing corpora and
+    hold a sha256 and a length."""
+    assert [c["name"] for c in golden["large"]] == [c["name"] for c in LARGE]
+    for entry, case in zip(golden["large"], LARGE):
+        assert {k: entry[k] for k in case} == case
+        assert (DATA / case["file"]).is_file()
+        assert len(entry["sha256"]) == 64 and 0 < entry["length"]
+
+
+def regen() -> None:
+    doc = {"about": "rans-cdf-o0-p containers written by the JAX package "
+                    "(XLA twin); regenerate with "
+                    "python tests/test_torch_golden.py --regen",
+           "small": [], "large": []}
+    for case in SMALL:
+        c = jax_container(case_data(case), case["geom"], case["block_size"])
+        doc["small"].append(dict(case, length=len(c), hex=c.hex()))
+    for case in LARGE:
+        data = case_data(case)
+        c = jax_container(data, case["geom"], case["block_size"])
+        doc["large"].append(dict(case, length=len(c),
+                                 sha256=hashlib.sha256(c).hexdigest(),
+                                 ratio=len(c) / data.size))
+        print(case["name"], len(c), flush=True)
+    GOLDEN.write_text(json.dumps(doc, indent=1) + "\n")
+
+
+if __name__ == "__main__":
+    if sys.argv[1:] != ["--regen"]:
+        sys.exit("usage: python tests/test_torch_golden.py --regen")
+    sys.path.insert(0, str(ROOT))
+    regen()

@@ -1,0 +1,14 @@
+"""TurboRC on PyTorch + CUDA: the port of ``turborc_tpu`` to an NVIDIA H100.
+
+The JAX package ``turborc_tpu`` stays the reference; this package writes
+the same container bytes.  It imports torch and numpy only, never JAX and
+nothing of ``turborc_tpu``.  Ported so far: the flagship codec
+``rans-cdf-o0-p`` (id 57) on four hand-written CUDA kernels
+(``ops/csrc/rans_kernel.cu``), built by nvcc at first use.
+"""
+from turborc_tpu_torch.api import compress, decompress
+from turborc_tpu_torch.ops.geom import Geom
+from turborc_tpu_torch.utils.config import CodecConfig
+
+__all__ = ["compress", "decompress", "CodecConfig", "Geom"]
+__version__ = "0.1.0"

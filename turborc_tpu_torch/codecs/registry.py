@@ -1,0 +1,43 @@
+"""Codec registry: name <-> id <-> implementation.
+
+Counterpart of ``turborc_tpu/codecs/registry.py``, holding only what the
+port has: the flagship ``rans-cdf-o0-p`` (id 57), on every device.  A
+name or id the JAX package knows but the port does not raises KeyError.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+from turborc_tpu_torch.codecs import rans_cdf_o0_p
+
+
+@dataclasses.dataclass(frozen=True)
+class Codec:
+    codec_id: int
+    name: str
+    encode_block: Callable
+    decode_block: Callable
+
+
+_CODECS = (
+    # flagship adaptive CDF16 nibble-pair rANS, share-span models,
+    # group-interleaved streams, on the hand-written CUDA kernels
+    Codec(57, "rans-cdf-o0-p", rans_cdf_o0_p.encode_block,
+          rans_cdf_o0_p.decode_block),
+)
+_BY_NAME = {c.name: c for c in _CODECS}
+_BY_ID = {c.codec_id: c for c in _CODECS}
+
+
+def get(name_or_id) -> Codec:
+    table = _BY_ID if isinstance(name_or_id, int) else _BY_NAME
+    try:
+        return table[name_or_id]
+    except KeyError:
+        raise KeyError(f"codec {name_or_id!r} is not ported to "
+                       f"turborc_tpu_torch yet (ported: {names()})") from None
+
+
+def names() -> list[str]:
+    return [c.name for c in _CODECS]

@@ -1,0 +1,306 @@
+"""The flagship's four kernels: wrappers, launch counts and plain versions.
+
+Counterpart of ``turborc_tpu/ops/pallas/rans_kernel.py``.  Tiles are
+``[*, G, 128]``: G = ``Geom.groups`` groups of 128 lanes.  Each group owns
+one stream of u16 words (held in int32) in consumption order: rows 0/1 are
+the lanes' flush states (hi16, lo16), data words follow from word 256 in
+the order the group's lanes renormalise, step-major and lane-minor.
+
+Kernel (CUDA, ``csrc/rans_kernel.cu``)   replaces (TPU)        plain version
+  model   K2: bytes -> slot probs         _make_model_kernel    model_plain
+  coder   K3: backward rANS               _make_coder_kernel    coder_plain
+  place   K4: words -> group streams      _make_place_kernel    place_plain
+  decode  K1: group streams -> bytes      _make_decode_kernel   decode_plain
+
+A wrapper validates its inputs, then runs the plain version when they lie
+on the CPU and launches the kernel when they lie on a CUDA device; there
+is no fallback from one to the other.  ``launches[name]`` counts kernel
+launches only.  The plain versions follow the JAX package's XLA twin
+(``encode_tile`` / ``_group_stitch``) step for step; the decoder has no
+XLA twin there and is written from the decode kernel's semantics.
+"""
+from __future__ import annotations
+
+import torch
+
+from turborc_tpu_torch.codecs import rans_cdf_s8 as S8
+from turborc_tpu_torch.models import cdf16
+from turborc_tpu_torch.ops import rans
+from turborc_tpu_torch.ops.geom import DEFAULT, Geom
+
+GLANES = 128
+
+launches = dict.fromkeys(("model", "coder", "place", "decode"), 0)
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain versions (torch, any device)
+# ---------------------------------------------------------------------------
+
+def _lane_tables(hi_tbl: torch.Tensor, lo_tbl: torch.Tensor):
+    """Per-group warm tables hi [16, G], lo [16, 16, G] -> per-lane
+    hi [L, 16], lo [L, 16, 16] int64 (lane l is in group l // 128)."""
+    hi = hi_tbl.to(torch.int64).T.repeat_interleave(GLANES, 0)
+    lo = lo_tbl.to(torch.int64).permute(2, 0, 1).repeat_interleave(GLANES, 0)
+    return hi, lo
+
+
+def _rejoin(t: int, g: Geom, hi, lo, start_hi, start_lo):
+    """Cross-lane re-joins after byte t (hot every sync bytes, cold every
+    lsync bytes), as the XLA twin's win/fwd scans order them."""
+    if g.share == 1:
+        return hi, lo, start_hi, start_lo
+    if t % g.sync == g.sync - 1:
+        hi = S8._sync(hi, start_hi, g.share)
+        start_hi = hi
+        lo, start_lo = S8._sync_lo_hot(lo, start_lo, g.share, g.srows)
+    if (t + 1) % g.lsync == 0:
+        if g.arows > g.srows:
+            lo = S8._sync_lo_cold(lo, start_lo, g.share, g.srows)
+        start_lo = lo
+    return hi, lo, start_hi, start_lo
+
+
+def model_plain(cols: torch.Tensor, hi_tbl: torch.Tensor,
+                lo_tbl: torch.Tensor, geom: Geom = DEFAULT) -> torch.Tensor:
+    """cols [K, G, 128] bytes -> probs [2K, G, 128] int32 ((low<<16)|freq;
+    hi nibble at slot 2t, lo nibble at 2t+1)."""
+    K, G, _ = cols.shape
+    L = G * GLANES
+    hi, lo = _lane_tables(hi_tbl, lo_tbl)
+    start_hi, start_lo = hi, lo
+    probs = torch.empty((2 * K, L), dtype=torch.int64, device=cols.device)
+    for t in range(K):
+        hi, lo, low_h, fr_h, low_l, fr_l = S8._code_byte(
+            hi, lo, cols[t].reshape(L).to(torch.int64), geom.arows,
+            geom.rate)
+        probs[2 * t] = (low_h << 16) | fr_h
+        probs[2 * t + 1] = (low_l << 16) | fr_l
+        hi, lo, start_hi, start_lo = _rejoin(t, geom, hi, lo, start_hi,
+                                             start_lo)
+    return probs.reshape(2 * K, G, GLANES).to(torch.int32)
+
+
+def coder_plain(probs: torch.Tensor, init_states: torch.Tensor):
+    """probs [S, G, 128], init [G, 128] -> (words [S, G, 128] int32, emit
+    [S, G, 128] uint8, flush states [G, 128] int32)."""
+    S, G, _ = probs.shape
+    p = probs.reshape(S, G * GLANES).to(torch.int64)
+    words, emit, state = rans.encode_backward(p >> 16, p & 0xFFFF,
+                                              init_states.reshape(-1))
+    return (words.reshape(S, G, GLANES).to(torch.int32),
+            emit.reshape(S, G, GLANES).to(torch.uint8),
+            state.reshape(G, GLANES).to(torch.int32))
+
+
+def place_plain(words: torch.Tensor, emit: torch.Tensor,
+                state: torch.Tensor, geom: Geom = DEFAULT):
+    """words/emit [S, G, 128], flush states [G, 128] -> (gstreams
+    [G, R, 128] int32, glens [G] int32), R = S + 2 + wrows (JAX
+    ``_group_stitch``)."""
+    S, G, _ = words.shape
+    R = S + 2 + geom.wrows
+    dev = words.device
+    e = emit.to(torch.int64).permute(1, 0, 2).reshape(G, S * GLANES)
+    pos = 256 + torch.cumsum(e, 1) - e
+    w = words.to(torch.int32).permute(1, 0, 2).reshape(G, S * GLANES)
+    m = e != 0
+    gi = torch.arange(G, device=dev)[:, None].expand(G, S * GLANES)
+    out = torch.zeros((G, R * GLANES), dtype=torch.int32, device=dev)
+    out[gi[m], pos[m]] = w[m]
+    st = state.to(torch.int64).reshape(G, GLANES) & rans.MASK32
+    out[:, :GLANES] = (st >> 16).to(torch.int32)
+    out[:, GLANES:2 * GLANES] = (st & 0xFFFF).to(torch.int32)
+    glens = (256 + e.sum(1)).to(torch.int32)
+    return out.reshape(G, R, GLANES), glens
+
+
+def decode_plain(gstreams: torch.Tensor, K: int, hi_tbl: torch.Tensor,
+                 lo_tbl: torch.Tensor, geom: Geom = DEFAULT):
+    """gstreams [G, R, 128] -> (bytes [K, G, 128] uint8, final states
+    [G, 128] int32).  Per nibble: search, state transition, then lanes
+    with state < 2^15 take the next word of their group's stream in lane
+    order across all 128 lanes (reads past R*128 words give 0)."""
+    G, R, _ = gstreams.shape
+    L = G * GLANES
+    dev = gstreams.device
+    flat = gstreams.reshape(G, R * GLANES).to(torch.int64)
+    limit = R * GLANES
+    state = ((flat[:, :GLANES] << 16) | flat[:, GLANES:2 * GLANES]) \
+        & rans.MASK32
+    state = state.reshape(L)
+    pos = torch.full((G, 1), 256, dtype=torch.int64, device=dev)
+
+    def fetch(state, pos):
+        need = (state < rans.ANS_LOW).reshape(G, GLANES).to(torch.int64)
+        idx = pos + torch.cumsum(need, 1) - need
+        word = torch.gather(flat, 1, idx.clamp(max=limit - 1))
+        word = torch.where(idx < limit, word, 0).reshape(L)
+        pos_next = pos + need.sum(1, keepdim=True)
+        return rans.dec_renorm(state, word), pos_next
+
+    hi, lo = _lane_tables(hi_tbl, lo_tbl)
+    start_hi, start_lo = hi, lo
+    out = torch.empty((K, L), dtype=torch.uint8, device=dev)
+    for t in range(K):
+        hs, low_h, fr_h = cdf16.search(hi, state & rans.MASK15)
+        state = rans.dec_update(state, low_h, fr_h)
+        state, pos = fetch(state, pos)
+        hi = cdf16.update_rate(hi, low_h, geom.rate)
+        row = S8._lo_row(lo, hs)
+        ls, low_l, fr_l = cdf16.search(row, state & rans.MASK15)
+        state = rans.dec_update(state, low_l, fr_l)
+        state, pos = fetch(state, pos)
+        new_row = cdf16.update_rate(row, low_l, geom.rate)
+        if geom.arows < 16:
+            new_row = torch.where((hs < geom.arows)[:, None], new_row, row)
+        lo = S8._lo_put(lo, hs, new_row)
+        out[t] = ((hs << 4) | ls).to(torch.uint8)
+        hi, lo, start_hi, start_lo = _rejoin(t, geom, hi, lo, start_hi,
+                                             start_lo)
+    return (out.reshape(K, G, GLANES),
+            state.reshape(G, GLANES).to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def _check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(x).__name__}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name}: dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(x.shape)}, expected "
+                         f"{tuple(shape)}")
+    if x.device != device:
+        raise ValueError(f"{name}: on {x.device}, expected {device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _check_tables(hi_tbl, lo_tbl, G: int, device) -> None:
+    _check("hi_tbl", hi_tbl, torch.int32, (16, G), device)
+    _check("lo_tbl", lo_tbl, torch.int32, (16, 16, G), device)
+
+
+def require_ported(geom: Geom) -> None:
+    """Raise NotImplementedError for a geometry no kernel here serves."""
+    if geom.nstates != 1:
+        raise NotImplementedError("split-state (nstates=2) kernels are not "
+                                  "ported yet")
+
+
+def _check_geom(geom: Geom, G: int) -> None:
+    if geom.groups != G:
+        raise ValueError(f"tile has {G} groups, geometry {geom.spec} "
+                         f"has {geom.groups}")
+    require_ported(geom)
+
+
+def _launch(name: str, fn: str, *args) -> None:
+    """Launch C entry ``fn`` on the current stream (tensors are passed as
+    device pointers), raise on a CUDA error, count the launch."""
+    from turborc_tpu_torch.ops import build
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    err = getattr(build.load(), fn)(*args,
+                                    torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    launches[name] += 1
+
+
+def model(cols: torch.Tensor, hi_tbl: torch.Tensor, lo_tbl: torch.Tensor,
+          geom: Geom = DEFAULT) -> torch.Tensor:
+    """K2: cols [K, G, 128] uint8 -> probs [2K, G, 128] int32."""
+    K, G = cols.shape[0], geom.groups
+    _check("cols", cols, torch.uint8, (K, G, GLANES), cols.device)
+    _check_tables(hi_tbl, lo_tbl, G, cols.device)
+    _check_geom(geom, G)
+    if not cols.is_cuda:
+        return model_plain(cols, hi_tbl, lo_tbl, geom)
+    probs = torch.empty((2 * K, G, GLANES), dtype=torch.int32,
+                        device=cols.device)
+    _launch("model", "trc_model", cols, hi_tbl, lo_tbl, probs, K, G,
+            geom.share, geom.sync, geom.lsync, geom.arows, geom.srows,
+            geom.rate)
+    return probs
+
+
+def coder(probs: torch.Tensor, init_states: torch.Tensor):
+    """K3: probs [S, G, 128] int32, init [G, 128] int32 -> (words int32,
+    emit uint8, flush states int32)."""
+    S, G = probs.shape[0], probs.shape[1]
+    _check("probs", probs, torch.int32, (S, G, GLANES), probs.device)
+    _check("init_states", init_states, torch.int32, (G, GLANES),
+           probs.device)
+    if not probs.is_cuda:
+        return coder_plain(probs, init_states)
+    words = torch.empty((S, G, GLANES), dtype=torch.int32,
+                        device=probs.device)
+    emit = torch.empty((S, G, GLANES), dtype=torch.uint8,
+                       device=probs.device)
+    state = torch.empty((G, GLANES), dtype=torch.int32, device=probs.device)
+    _launch("coder", "trc_coder", probs, init_states, words, emit, state,
+            S, G)
+    return words, emit, state
+
+
+def place(words: torch.Tensor, emit: torch.Tensor, state: torch.Tensor,
+          geom: Geom = DEFAULT):
+    """K4: words [S, G, 128] int32, emit uint8, flush states [G, 128] ->
+    (gstreams [G, R, 128] int32, glens [G] int32)."""
+    S, G = words.shape[0], geom.groups
+    dev = words.device
+    _check("words", words, torch.int32, (S, G, GLANES), dev)
+    _check("emit", emit, torch.uint8, (S, G, GLANES), dev)
+    _check("state", state, torch.int32, (G, GLANES), dev)
+    if not words.is_cuda:
+        return place_plain(words, emit, state, geom)
+    R = S + 2 + geom.wrows
+    if R * GLANES >= 1 << 31:  # glens and stream positions are int32
+        raise ValueError(f"{S} slots exceed the int32 stream positions")
+    gstreams = torch.empty((G, R, GLANES), dtype=torch.int32, device=dev)
+    glens = torch.empty((G,), dtype=torch.int32, device=dev)
+    _launch("place", "trc_place", words, emit, state, gstreams, glens, S,
+            G, R)
+    return gstreams, glens
+
+
+def decode_tile(gstreams: torch.Tensor, K: int, hi_tbl: torch.Tensor,
+                lo_tbl: torch.Tensor, geom: Geom = DEFAULT):
+    """K1: gstreams [G, R, 128] int32 -> (bytes [K, G, 128] uint8, final
+    states [G, 128] int32; the final states carry the 15-bit seeds)."""
+    G, R = geom.groups, gstreams.shape[1]
+    dev = gstreams.device
+    _check("gstreams", gstreams, torch.int32, (G, R, GLANES), dev)
+    _check_tables(hi_tbl, lo_tbl, G, dev)
+    _check_geom(geom, G)
+    if R < 2:
+        raise ValueError("gstreams: needs the two flush-state rows")
+    if not gstreams.is_cuda:
+        return decode_plain(gstreams, K, hi_tbl, lo_tbl, geom)
+    out = torch.empty((K, G, GLANES), dtype=torch.uint8, device=dev)
+    fstates = torch.empty((G, GLANES), dtype=torch.int32, device=dev)
+    _launch("decode", "trc_decode", gstreams, hi_tbl, lo_tbl, out, fstates,
+            K, G, R, geom.share, geom.sync, geom.lsync, geom.arows,
+            geom.srows, geom.rate)
+    return out, fstates
+
+
+def encode_tile(block: torch.Tensor, K: int, hi_tbl: torch.Tensor,
+                lo_tbl: torch.Tensor, init_states: torch.Tensor,
+                geom: Geom = DEFAULT):
+    """block [L, K] bytes in kernel lane order -> (gstreams [G, R, 128],
+    glens [G]): model, then coder, then place (JAX ``encode_tile``)."""
+    cols = block.to(torch.uint8).T.contiguous().reshape(K, geom.groups,
+                                                        GLANES)
+    probs = model(cols, hi_tbl, lo_tbl, geom)
+    words, emit, state = coder(probs, init_states)
+    return place(words, emit, state, geom)

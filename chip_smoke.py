@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels with nvcc, holds each kernel against its
-plain PyTorch version, round-trips two corpora through the port's
-``compress``/``decompress`` and checks the containers against the golden
+Builds the port's CUDA kernels with nvcc (one process per source, in
+parallel), holds each kernel against its plain PyTorch version, drives
+both flagship paths through the port's ``compress``/``decompress``
+(``rans-cdf-o0-p`` on K1-K4, ``rans-cdf-r1-p`` on K7, K3, K4 and K6,
+and ``rans-auto`` over both), checks every container against the golden
 hashes the JAX package wrote, then times the kernels.  It imports no JAX
 and nothing of ``turborc_tpu``; the corpora under
 ``turborc_tpu/bench/_data/`` are read as files.
@@ -32,17 +34,26 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 DATA = ROOT / "turborc_tpu" / "bench" / "_data"
 GOLDEN = ROOT / "turborc_tpu_torch" / "golden" / "o0p.json"
+GOLDEN_R1 = ROOT / "turborc_tpu_torch" / "golden" / "r1p.json"
 BUDGET_S = 600
 BENCH_GEOM = "g64c8s8y8l32a4r4"
 CHILD_FLAG = "--child"
 CHILD_DONE = "chip_smoke: all phases passed"
-SOURCE = "turborc_tpu_torch/ops/csrc/rans_kernel.cu"
+CSRC = "turborc_tpu_torch/ops/csrc/"
+SOURCE = {k: CSRC + "rans_kernel.cu"
+          for k in ("model", "coder", "place", "decode")}
+SOURCE.update({k: CSRC + "rans_o1_kernel.cu"
+               for k in ("o1_model", "o1_decode")})
 REPLACES = {
     "model": "turborc_tpu/ops/pallas/rans_kernel.py:807",
     "coder": "turborc_tpu/ops/pallas/rans_kernel.py:883",
     "place": "turborc_tpu/ops/pallas/rans_kernel.py:1017",
     "decode": "turborc_tpu/ops/pallas/rans_kernel.py:407",
+    "o1_model": "turborc_tpu/ops/pallas/rans_o1_kernel.py:266",
+    "o1_decode": "turborc_tpu/ops/pallas/rans_o1_kernel.py:124",
 }
+O0_KERNELS = ("model", "coder", "place", "decode")
+O1_KERNELS = ("o1_model", "coder", "place", "o1_decode")
 # H100 SXM peaks: HBM3 bytes/s, and the float32 rate outside the tensor
 # cores, used for 32-bit integer ops (taking the higher of the two rates
 # keeps this a lower bound).
@@ -76,26 +87,27 @@ def _smi() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def phase_build() -> dict:
+def phase_build() -> None:
     import torch
     from turborc_tpu_torch.ops import build
     phase("build")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
-    info = build.build()
+    infos = build.build()
     build.load()
-    log(f"build: {info['path']} built={info['built']} "
-        f"nvcc {info['seconds']:.2f} s")
-    # ptxas -v: "Compiling entry function 'X'" then "Used N registers ..."
-    fn = None
-    for line in info["ptxas"].splitlines():
-        m = re.search(r"Compiling entry function '\w*?"
-                      r"(model|coder|place|decode)_kernel", line)
-        if m:
-            fn = m.group(1)
-        elif "Used" in line and fn:
-            log(f"ptxas {fn}: {line.split(':', 1)[-1].strip()}")
-    return info
+    for info in infos:
+        log(f"build: {info['path']} built={info['built']} "
+            f"nvcc {info['seconds']:.2f} s (sources in parallel)")
+        # ptxas -v: "Compiling entry function 'X'" then "Used N registers"
+        fn = None
+        for line in info["ptxas"].splitlines():
+            m = re.search(r"Compiling entry function '\w*?"
+                          r"(o1_model|o1_decode|model|coder|place|decode)"
+                          r"_kernel", line)
+            if m:
+                fn = m.group(1)
+            elif "Used" in line and fn:
+                log(f"ptxas {fn}: {line.split(':', 1)[-1].strip()}")
 
 
 def _corpus(name: str, n: int | None = None):
@@ -110,24 +122,32 @@ def _max_abs(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
-def _run_path(args, geom, kernels: bool):
-    """model -> coder -> place -> decode on one block's arguments, through
-    the kernels (``kernels``) or their plain versions; returns every
-    output and the per-stage seconds (CUDA events)."""
-    import torch
+def _stages(order1: bool, args, geom, kernels: bool):
+    """The encode-decode chain of one block's arguments: model -> coder ->
+    place -> decode, order 0 (K2, K3, K4, K1) or order 1 (K7, K3, K4,
+    K6), through the kernels (``kernels``) or their plain versions."""
     from turborc_tpu_torch.ops import rans_kernel as K_
+    from turborc_tpu_torch.ops import rans_o1_kernel as K1
     G, K = geom.groups, args.K
     cols = args.block.T.contiguous().reshape(K, G, 128)
-    stages = (
-        ("model", K_.model if kernels else K_.model_plain,
+    mod = K1 if order1 else K_
+    m, d = ("o1_model", "o1_decode") if order1 else ("model", "decode")
+    return (
+        (m, mod.model if kernels else mod.model_plain,
          lambda o: (cols, args.hi_tbl, args.lo_tbl, geom)),
         ("coder", K_.coder if kernels else K_.coder_plain,
-         lambda o: (o["model"], args.init_states)),
+         lambda o: (o[m], args.init_states)),
         ("place", K_.place if kernels else K_.place_plain,
          lambda o: (*o["coder"], geom)),
-        ("decode", K_.decode_tile if kernels else K_.decode_plain,
+        (d, mod.decode_tile if kernels else mod.decode_plain,
          lambda o: (o["place"][0], K, args.hi_tbl, args.lo_tbl, geom)),
     )
+
+
+def _run_path(stages):
+    """Run the stages in order; returns every output and the per-stage
+    milliseconds (CUDA events)."""
+    import torch
     outs, ms = {}, {}
     for name, fn, mk in stages:
         a = mk(outs)
@@ -155,16 +175,30 @@ def _compare(kern: dict, plain: dict) -> dict:
     return err
 
 
-# Geometries that drive the kernels' other branches at 64 KB: per-lane
+def _check_block(label: str, args, outs: dict, decode: str) -> None:
+    import torch
+    out, fstates = outs[decode]
+    if not (torch.equal(out.reshape(args.K, -1).T, args.block)
+            and torch.equal(fstates, args.init_states)):
+        raise AssertionError(f"kernels {label}: decode did not return the "
+                             "block and the seeded states")
+
+
+# Geometries that drive the o0 kernels' other branches at 64 KB: per-lane
 # models (share 1), a full-warp set, shared-memory set sums (share 64,
 # 128), static lo rows (arows 4, 0), srows > arows, and rate 9.
 BRANCH_GEOMS = ("g2c2s1y2l4a16r4", "g4c4s32y4l8a0r0", "g1c8s64y8l32a16r4",
                 "g1c8s128y8l32a8r2u9", "g2c2s8y2l4a4r4", "g2c8s16y8l16a16r20")
+# The o1 kernels at the default geometry (1 MB: 4 warm-table segments)
+# and at three small ones: groups 1, 2 and 4, chunk 2 and 8, the 600 KB
+# case with two segments over two groups.
+O1_GEOMS = ((None, 1 << 20), ("g1c2s8y2l4a16r4", 1 << 16),
+            ("g2c8s8y4l32a16r4", 600_000), ("g4c2s8y2l4a16r4", 1 << 16))
 
 
 def phase_kernels(dev) -> None:
-    import torch
-    from turborc_tpu_torch.codecs import rans_cdf_o0_p as C
+    from turborc_tpu_torch.codecs import rans_cdf_o0_p as C0
+    from turborc_tpu_torch.codecs import rans_cdf_r1_p as C1
     from turborc_tpu_torch.ops.geom import Geom
     phase("kernels-vs-plain")
     full = _corpus("textbwt_16777216.bin", 1 << 20)
@@ -172,35 +206,56 @@ def phase_kernels(dev) -> None:
         (spec, full[:1 << 16]) for spec in BRANCH_GEOMS]
     for spec, data in cases:
         geom = Geom.parse(spec)
-        args = C.encode_args(data, geom, dev)
-        kern, _ = _run_path(args, geom, kernels=True)
-        plain, _ = _run_path(args, geom, kernels=False)
+        args = C0.encode_args(data, geom, dev)
+        kern, _ = _run_path(_stages(False, args, geom, kernels=True))
+        plain, _ = _run_path(_stages(False, args, geom, kernels=False))
         err = _compare(kern, plain)
-        out, fstates = kern["decode"]
-        if not (torch.equal(out.reshape(args.K, -1).T, args.block)
-                and torch.equal(fstates, args.init_states)):
-            raise AssertionError(f"kernels {spec}: decode did not return the "
-                                 "block and the seeded states")
+        _check_block(spec, args, kern, "decode")
         log(f"kernels {geom.spec} K={args.K}: equal to plain, tolerance 0 "
             f"(max abs err {err}); decode returns the block")
+    phase("o1-kernels-vs-plain")
+    real = _corpus("realsrcbwt_16777216.bin", 1 << 20)
+    for spec, n in O1_GEOMS:
+        geom = Geom.parse(spec) if spec else Geom()
+        args = C1.encode_args(real[:n], geom, dev)
+        kern, _ = _run_path(_stages(True, args, geom, kernels=True))
+        plain, _ = _run_path(_stages(True, args, geom, kernels=False))
+        err = _compare(kern, plain)
+        _check_block(geom.spec, args, kern, "o1_decode")
+        log(f"o1 kernels {geom.spec} n={n} K={args.K}: equal to plain, "
+            f"tolerance 0 (max abs err {err}); decode returns the block")
 
 
-def _golden() -> dict:
-    return {c["name"]: c for c in json.loads(GOLDEN.read_text())["large"]}
+def _golden(path: Path) -> dict:
+    return {c["name"]: c for c in json.loads(path.read_text())["large"]}
 
 
-def _roundtrip(label: str, case: dict, dev) -> dict:
-    import numpy as np
-    from turborc_tpu_torch import api
+def _launch_counts() -> dict:
     from turborc_tpu_torch.ops import rans_kernel as K_
+    from turborc_tpu_torch.ops import rans_o1_kernel as K1
+    return {**K_.launches, **K1.launches}
+
+
+def _reset_launches() -> None:
+    from turborc_tpu_torch.ops import rans_kernel as K_
+    from turborc_tpu_torch.ops import rans_o1_kernel as K1
+    K_.reset_launches()
+    K1.reset_launches()
+
+
+def _roundtrip(label: str, case: dict, needs: tuple, dev) -> dict:
+    """One path through api.compress/decompress, with every launch count
+    set to 0 just before it and read just after; the kernels in ``needs``
+    must have launched."""
+    from turborc_tpu_torch import api
     from turborc_tpu_torch.ops.geom import Geom
     from turborc_tpu_torch.utils.config import CodecConfig
     phase(label)
     data = _corpus(case["file"])
     geom = Geom.parse(case["geom"]) if case["geom"] else None
-    cfg = CodecConfig(codec="rans-cdf-o0-p", block_size=case["block_size"],
-                      geom=geom)
-    K_.reset_launches()
+    cfg = CodecConfig(codec=case.get("codec", "rans-cdf-o0-p"),
+                      block_size=case["block_size"], geom=geom)
+    _reset_launches()
     t0 = time.perf_counter()
     comp = api.compress(data, cfg, device=dev)
     _sync()
@@ -208,7 +263,7 @@ def _roundtrip(label: str, case: dict, dev) -> dict:
     back = api.decompress(comp, device=dev)
     _sync()
     t2 = time.perf_counter()
-    counts = dict(K_.launches)
+    counts = _launch_counts()
     if back != data.tobytes():
         raise AssertionError(f"{label}: decompress(compress(x)) != x")
     sha = hashlib.sha256(comp).hexdigest()
@@ -216,10 +271,10 @@ def _roundtrip(label: str, case: dict, dev) -> dict:
         raise AssertionError(
             f"{label}: container {len(comp)} B sha256 {sha} differs from the "
             f"JAX golden {case['length']} B {case['sha256']}")
-    missing = [k for k, v in counts.items() if v == 0]
+    missing = [k for k in needs if counts[k] == 0]
     if missing:
         raise AssertionError(f"{label}: kernels not launched: {missing}")
-    res = dict(bytes=int(data.size), comp=len(comp),
+    res = dict(codec=cfg.codec, bytes=int(data.size), comp=len(comp),
                ratio=len(comp) / data.size,
                encode_s=t1 - t0, decode_s=t2 - t1, launches=counts,
                geom=(geom or Geom()).spec)
@@ -228,27 +283,33 @@ def _roundtrip(label: str, case: dict, dev) -> dict:
     return res
 
 
-def _bound_ms(name: str, geom, args, glens_sum: int) -> tuple[float, str]:
+def _bound_ms(name: str, geom, K: int, glens_sum: int) -> tuple[float, str]:
     """Least time for the same work: max(bytes / HBM rate, ops / peak).
 
     Bytes count each input read once and each output written once; only
-    the words the streams hold are read (by the decoder) or placed (by
-    place, which reads the words of emitting lanes alone).  Ops count the
-    algorithm's integer operations per lane and step: a CDF16 lookup is 32
-    selects, a search 30, an update 80 (5 per entry), a state step 6, a
-    word fetch or placement 6, a re-join 16 entries x (2 log2(share) + 6)
-    per table row."""
+    the words the streams hold are read (by the decoders) or placed (by
+    place, which reads the words of emitting lanes alone); the o1
+    kernels' per-lane table rows are scratch, not input or output.  Ops
+    count the algorithm's integer operations per lane and step: a CDF16
+    lookup is 32 selects, a search 30, an update 80 (5 per entry), a state
+    step 6, a word fetch or placement 6, a re-join 16 entries x
+    (2 log2(share) + 6) per table row, an o1 hi context 12 and lo context
+    6 per byte."""
     import math
-    G, K = geom.groups, args.K
-    L, S = G * 128, 2 * args.K
+    G = geom.groups
+    L, S = G * 128, 2 * K
     R = S + 2 + geom.wrows
-    tables = (16 + 256) * G * 4
-    rejoin = 16 * (2 * int(math.log2(geom.share)) + 6) if geom.share > 1 \
-        else 0
-    hot = (K // geom.sync) * (1 + geom.hrows) * rejoin
-    cold = (K // geom.lsync) * max(geom.arows - geom.srows, 0) * rejoin
-    model_ops = K * 2 * (32 + 80) + hot + cold
-    if name == "model":
+    if name.startswith("o1_"):
+        tables = (64 + 48) * 16 * G * 4
+        model_ops = K * (2 * (32 + 80) + 12 + 6)
+    else:
+        tables = (16 + 256) * G * 4
+        rejoin = 16 * (2 * int(math.log2(geom.share)) + 6) \
+            if geom.share > 1 else 0
+        hot = (K // geom.sync) * (1 + geom.hrows) * rejoin
+        cold = (K // geom.lsync) * max(geom.arows - geom.srows, 0) * rejoin
+        model_ops = K * 2 * (32 + 80) + hot + cold
+    if name in ("model", "o1_model"):
         nbytes = K * L + S * L * 4 + tables
         ops = L * model_ops
     elif name == "coder":
@@ -266,35 +327,46 @@ def _bound_ms(name: str, geom, args, glens_sum: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_timing(dev, main_launches: dict) -> None:
+def _time_path(label: str, order1: bool, corpus: str, geom, dev) -> dict:
+    """Kernel times on one block of ``corpus`` (CUDA events, 3 reps on
+    distinct rotations after a warm-up), each kernel against its plain
+    version at these shapes, and end-to-end MB/s of the codec."""
     import numpy as np
     import torch
     from turborc_tpu_torch import api
-    from turborc_tpu_torch.codecs import rans_cdf_o0_p as C
-    from turborc_tpu_torch.ops.geom import Geom
+    from turborc_tpu_torch.codecs import rans_cdf_o0_p as C0
+    from turborc_tpu_torch.codecs import rans_cdf_r1_p as C1
     from turborc_tpu_torch.utils.config import CodecConfig
-    phase("timing")
-    geom = Geom.parse(BENCH_GEOM)
-    base = _corpus("textbwt_67108864.bin")
-    # Distinct inputs per repetition (the corpus rotated).  The warm-up's
-    # outputs are freed before the timed runs, so every buffer they need
-    # is in the allocator's cache and no cudaMalloc lands in a timed span.
-    _run_path(C.encode_args(np.roll(base, 1), geom, dev), geom, kernels=True)
-    ms = {k: [] for k in REPLACES}
+    phase(label)
+    codec = C1 if order1 else C0
+    names = O1_KERNELS if order1 else O0_KERNELS
+    base = _corpus(corpus)
+    # The warm-up's outputs are freed before the timed runs, so every
+    # buffer they need is in the allocator's cache and no cudaMalloc lands
+    # in a timed span.
+    _run_path(_stages(order1, codec.encode_args(np.roll(base, 1), geom,
+                                                dev), geom, kernels=True))
+    ms = {k: [] for k in names}
+    prep = []  # host half of encode_block, to the block on the card
     for r in range(3):
-        args = C.encode_args(np.roll(base, 7919 * (r + 1)), geom, dev)
-        _, t = _run_path(args, geom, kernels=True)
+        x = np.roll(base, 7919 * (r + 1))
+        t0 = time.perf_counter()
+        args = codec.encode_args(x, geom, dev)
+        _sync()
+        prep.append(time.perf_counter() - t0)
+        _, t = _run_path(_stages(order1, args, geom, kernels=True))
         for k, v in t.items():
             ms[k].append(v)
-    # each kernel against its plain version at the main path's shapes
-    kern, _ = _run_path(args, geom, kernels=True)
-    plain, plain_ms = _run_path(args, geom, kernels=False)
+    kern, _ = _run_path(_stages(order1, args, geom, kernels=True))
+    plain, plain_ms = _run_path(_stages(order1, args, geom, kernels=False))
     err = _compare(kern, plain)
     log(f"kernels {geom.spec} K={args.K}: equal to plain, tolerance 0 "
         f"(max abs err {err})")
     glens_sum = int(kern["place"][1].to(torch.int64).sum())
     del kern, plain
-    cfg = CodecConfig(codec="rans-cdf-o0-p", block_size=1 << 26, geom=geom)
+    cfg = CodecConfig(codec="rans-cdf-r1-p" if order1 else "rans-cdf-o0-p",
+                      block_size=1 << (base.size - 1).bit_length(),
+                      geom=geom)  # one block
     enc, dec, ratios = [], [], []
     for r in range(3):  # rep 0 is the warm-up
         x = np.roll(base, 104729 * (r + 1))
@@ -306,36 +378,41 @@ def phase_timing(dev, main_launches: dict) -> None:
         _sync()
         t2 = time.perf_counter()
         if back != x.tobytes():
-            raise AssertionError("timing: round trip failed")
+            raise AssertionError(f"{label}: round trip failed")
         if r:
             enc.append(t1 - t0)
             dec.append(t2 - t1)
             ratios.append(len(comp) / x.size)
     mb = base.size / 1e6
     kms = {k: sum(v) / len(v) for k, v in ms.items()}
-    log("timing end-to-end " + json.dumps(dict(
-        geom=geom.spec, bytes=int(base.size), reps=len(enc),
+    log(f"{label} end-to-end " + json.dumps(dict(
+        codec=cfg.codec, corpus=corpus, geom=geom.spec,
+        bytes=int(base.size), K=args.K, reps=len(enc),
         encode_MBps=[mb / s for s in enc], decode_MBps=[mb / s for s in dec],
-        ratio=ratios,
-        encode_kernel_share=[(kms["model"] + kms["coder"] + kms["place"])
-                             / 1e3 / s for s in enc],
-        decode_kernel_share=[kms["decode"] / 1e3 / s for s in dec],
-        kernel_ms_reps=ms)))
-    log("card (nvidia-smi name, power.limit):")
-    log(_smi())
+        ratio=ratios, encode_args_s=prep,
+        encode_kernel_share=[sum(kms[k] for k in names[:3]) / 1e3 / s
+                             for s in enc],
+        decode_kernel_share=[kms[names[3]] / 1e3 / s for s in dec],
+        kernel_ms_reps=ms, plain_ms=plain_ms)))
+    return dict(ms=kms, plain_ms=plain_ms, err=err, K=args.K,
+                glens_sum=glens_sum)
+
+
+def _rows(names, timed: dict, geom, launches: dict) -> list:
     rows = []
-    for k in REPLACES:
-        bound, by = _bound_ms(k, geom, args, glens_sum)
+    for k in names:
+        bound, by = _bound_ms(k, geom, timed["K"], timed["glens_sum"])
         rows.append(dict(
-            name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
-            launches=main_launches[k], max_abs_err=err[k],
-            ms=kms[k], plain_ms=plain_ms[k],
+            name=k, route="cuda", source=SOURCE[k], replaces=REPLACES[k],
+            launches=launches[k], max_abs_err=timed["err"][k],
+            ms=timed["ms"][k], plain_ms=timed["plain_ms"][k],
             bound_ms=bound, bound_by=by, library_ms=None))
-    log(json.dumps({"kernels": rows}))
+    return rows
 
 
 def child() -> int:
     import torch
+    from turborc_tpu_torch.ops.geom import Geom
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device")
         return 2
@@ -344,12 +421,29 @@ def child() -> int:
                                     count=torch.cuda.device_count())))
     phase_build()
     phase_kernels(dev)
-    golden = _golden()
+    golden, golden_r1 = _golden(GOLDEN), _golden(GOLDEN_R1)
     main = _roundtrip("roundtrip-64MB-bench-geom",
-                      golden["textbwt_67108864_bench"], dev)
+                      golden["textbwt_67108864_bench"], O0_KERNELS, dev)
     _roundtrip("roundtrip-16MB-default-config",
-               golden["textbwt_16777216_default"], dev)
-    phase_timing(dev, main["launches"])
+               golden["textbwt_16777216_default"], O0_KERNELS, dev)
+    main_r1 = _roundtrip("roundtrip-r1p-16MB-one-block",
+                         golden_r1["realsrcbwt_16777216_r1p"], O1_KERNELS,
+                         dev)
+    _roundtrip("roundtrip-auto-realsrcbwt-16MB",
+               golden_r1["realsrcbwt_16777216_auto"], O1_KERNELS, dev)
+    _roundtrip("roundtrip-auto-textbwt-16MB",
+               golden_r1["textbwt_16777216_auto"],
+               O0_KERNELS + O1_KERNELS, dev)
+    bench = Geom.parse(BENCH_GEOM)
+    t0 = _time_path("timing", False, "textbwt_67108864.bin", bench, dev)
+    t1 = _time_path("timing-o1", True, "realsrcbwt_16777216.bin", Geom(),
+                    dev)
+    rows = (_rows(O0_KERNELS, t0, bench, main["launches"])
+            + _rows(("o1_model", "o1_decode"), t1, Geom(),
+                    main_r1["launches"]))
+    log("card (nvidia-smi name, power.limit):")
+    log(_smi())
+    log(json.dumps({"kernels": rows}))
     log(CHILD_DONE)
     return 0
 

@@ -91,3 +91,31 @@ def test_chip_smoke_alone_fails_without_result(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+@pytest.mark.parametrize("codec", ["rans-cdf-r1-p", "rans-auto"])
+def test_o1_codecs_no_device_means_cuda_and_raises(codec, monkeypatch):
+    """The order-1 codec and the dispatch default to the card too."""
+    from turborc_tpu_torch import CodecConfig, api
+    from turborc_tpu_torch.codecs import registry
+    from turborc_tpu_torch.ops.geom import Geom
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = CodecConfig(codec=codec, geom=Geom.parse("g1c2s8y2l4a16r4"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.compress(b"abc", cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        registry.get(codec).encode_block(np.zeros(10, np.uint8))
+    blob = api.compress(b"abc", cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.decompress(blob)
+    assert api.decompress(blob, device="cpu") == b"abc"
+
+
+def test_o1_convert_no_device_means_cuda_and_raises(monkeypatch):
+    from turborc_tpu_torch import convert
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = (np.zeros((64, 16, 2)), np.zeros((48, 16, 2)), np.zeros((2, 128)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.o1_kernel_args_from_jax(*args)
+    hi, lo, init = convert.o1_kernel_args_from_jax(*args, device="cpu")
+    assert (hi.shape, lo.shape) == ((64, 16, 2), (48, 16, 2))

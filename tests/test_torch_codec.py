@@ -130,8 +130,14 @@ def test_split_state_not_ported():
 
 
 def test_registry_has_only_the_flagship():
-    assert registry.get(57) is registry.get("rans-cdf-o0-p")
-    for key in ("rans-cdf-o0", 56, "rc-p", 60):
+    """The registry holds the ported codecs, the flagships 57 and 60 and
+    the dispatch between them, 61, and nothing else."""
+    assert registry.names() == ["rans-cdf-o0-p", "rans-cdf-r1-p",
+                                "rans-auto"]
+    for cid, name in ((57, "rans-cdf-o0-p"), (60, "rans-cdf-r1-p"),
+                      (61, "rans-auto")):
+        assert registry.get(cid) is registry.get(name)
+    for key in ("rans-cdf-o0", 56, "rc-p", 8, "rans-cdf-r1", 59):
         with pytest.raises(KeyError, match="not ported"):
             registry.get(key)
     with pytest.raises(KeyError):

@@ -107,6 +107,39 @@ def _round_rows(rows_needed: int, cap: int) -> int:
     return min(cap, -(-rows_needed // 256) * 256)
 
 
+def stream_bytes(gstreams: torch.Tensor, glens: torch.Tensor) -> bytes:
+    """Group streams [G, R, 128] and their lengths [G] -> the payload's
+    tail: glens <u4, then each group's first glens words <u2."""
+    G = gstreams.shape[0]
+    glens_np = glens.cpu().numpy().astype(np.int64)
+    rows = _round_rows(-(-int(glens_np.max()) // 128), gstreams.shape[1])
+    gs = gstreams[:, :rows, :].reshape(G, rows * 128)
+    pos = torch.arange(rows * 128, device=gs.device)
+    keep = pos[None, :] < glens.to(torch.int64)[:, None]
+    flat = gs[keep].cpu().numpy().astype("<u2")
+    return glens_np.astype("<u4").tobytes() + flat.tobytes()
+
+
+def read_streams(buf: bytes, G: int, R: int, device) -> torch.Tensor:
+    """Inverse of ``stream_bytes`` into R rows per group: group streams
+    [G, R, 128] int32 on ``device``, zero past each group's words.
+    Raises ValueError when the length table does not fit the words or
+    R rows."""
+    glens = np.frombuffer(buf[:4 * G], "<u4").astype(np.int64)
+    flat = np.frombuffer(buf[4 * G:len(buf) & ~1], "<u2")
+    if glens.size != G or glens.max() > R * 128 or glens.min() < 256 \
+            or glens.sum() != flat.size:
+        raise ValueError("corrupt payload: group length table inconsistent")
+    glens_t = torch.from_numpy(glens).to(device)
+    gid = torch.repeat_interleave(torch.arange(G, device=device), glens_t)
+    starts = torch.cumsum(glens_t, 0) - glens_t
+    within = torch.arange(flat.size, device=device) - starts[gid]
+    gstreams = torch.zeros((G, R * 128), dtype=torch.int32, device=device)
+    gstreams[gid, within] = torch.from_numpy(flat.astype(np.int32)).to(
+        device)
+    return gstreams.reshape(G, R, 128)
+
+
 class EncodeArgs(NamedTuple):
     """What the kernels of one block take (see ``encode_args``)."""
     perm: np.ndarray          # [256] u8 rank permutation
@@ -152,14 +185,8 @@ def encode_block(data: np.ndarray, geom: Geom | None = None, device=None,
     a = encode_args(data, g, dev)
     gstreams, glens = K_.encode_tile(a.block, a.K, a.hi_tbl, a.lo_tbl,
                                      a.init_states, g)
-    glens_np = glens.cpu().numpy().astype(np.int64)
-    rows = _round_rows(-(-int(glens_np.max()) // 128), gstreams.shape[1])
-    gs = gstreams[:, :rows, :].reshape(g.groups, rows * 128)
-    pos = torch.arange(rows * 128, device=dev)
-    keep = pos[None, :] < glens.to(torch.int64)[:, None]
-    flat = gs[keep].cpu().numpy().astype("<u2")
     return (a.perm.tobytes() + _bio.pack_codes(a.codes)
-            + glens_np.astype("<u4").tobytes() + flat.tobytes())
+            + stream_bytes(gstreams, glens))
 
 
 def decode_block(payload: bytes, n: int, geom: Geom | None = None,
@@ -174,24 +201,10 @@ def decode_block(payload: bytes, n: int, geom: Geom | None = None,
     perm = np.frombuffer(payload[:256], np.uint8)
     codes, consumed = _bio.unpack_codes(payload[256:], g.groups)
     hi_q, lo_q = _bio.codes_to_tables(codes)
-    off = 256 + consumed
-    G = g.groups
-    glens = np.frombuffer(payload[off:off + 4 * G], "<u4").astype(np.int64)
-    flat = np.frombuffer(payload[off + 4 * G:len(payload) & ~1], "<u2")
-    R = 2 * K + 2 + g.wrows
-    if glens.size != G or glens.max() > R * 128 or glens.min() < 256 \
-            or glens.sum() != flat.size:
-        raise ValueError("corrupt payload: group length table inconsistent")
-    # group streams [G, R*128]: each group's words at its front, zeros after
-    glens_t = torch.from_numpy(glens).to(dev)
-    gid = torch.repeat_interleave(torch.arange(G, device=dev), glens_t)
-    starts = torch.cumsum(glens_t, 0) - glens_t
-    within = torch.arange(flat.size, device=dev) - starts[gid]
-    gstreams = torch.zeros((G, R * 128), dtype=torch.int32, device=dev)
-    gstreams[gid, within] = torch.from_numpy(flat.astype(np.int32)).to(dev)
+    gstreams = read_streams(payload[256 + consumed:], g.groups,
+                            2 * K + 2 + g.wrows, dev)
     hi_tbl, lo_tbl = _cum_args(hi_q, lo_q, dev)
-    out, fstates = K_.decode_tile(gstreams.reshape(G, R, 128), K, hi_tbl,
-                                  lo_tbl, g)
+    out, fstates = K_.decode_tile(gstreams, K, hi_tbl, lo_tbl, g)
     perm_t = torch.from_numpy(perm.copy()).to(dev)
     flat_bytes = _post_decode(out, perm_t, K, g.lanes // g.share,
                               g.share)[:n - s_len].cpu().numpy()

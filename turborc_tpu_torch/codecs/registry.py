@@ -1,15 +1,18 @@
 """Codec registry: name <-> id <-> implementation.
 
 Counterpart of ``turborc_tpu/codecs/registry.py``, holding only what the
-port has: the flagship ``rans-cdf-o0-p`` (id 57), on every device.  A
-name or id the JAX package knows but the port does not raises KeyError.
+port has, on every device (the kernels on the card, their plain versions
+on the CPU): the flagships ``rans-cdf-o0-p`` (id 57) and
+``rans-cdf-r1-p`` (id 60), and ``rans-auto`` (id 61), which picks between
+them per block.  A name or id the JAX package knows but the port does
+not raises KeyError.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
 
-from turborc_tpu_torch.codecs import rans_cdf_o0_p
+from turborc_tpu_torch.codecs import rans_auto, rans_cdf_o0_p, rans_cdf_r1_p
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,6 +28,12 @@ _CODECS = (
     # group-interleaved streams, on the hand-written CUDA kernels
     Codec(57, "rans-cdf-o0-p", rans_cdf_o0_p.encode_block,
           rans_cdf_o0_p.decode_block),
+    # order-1 flagship: rank-quantized previous-byte contexts, contiguous
+    # spans, per-group conditional warm tables, same stream format
+    Codec(60, "rans-cdf-r1-p", rans_cdf_r1_p.encode_block,
+          rans_cdf_r1_p.decode_block),
+    # per-block dispatch between ids 57 and 60 (1-byte tag)
+    Codec(61, "rans-auto", rans_auto.encode_block, rans_auto.decode_block),
 )
 _BY_NAME = {c.name: c for c in _CODECS}
 _BY_ID = {c.codec_id: c for c in _CODECS}

@@ -2,15 +2,17 @@
 
 This codec has no weights: its parameters are the per-group warm tables
 and the seeded initial coder states that both packages derive from the
-block.  The JAX kernels take them as int32 arrays hi [16, G],
-lo [16, 16, G] and init [G, 128] (uint32 bits); the port's kernels take
-the same layout as torch int32 tensors.
+block.  The JAX kernels take them as int32 arrays (init [G, 128] as
+uint32 bits): for the order-0 kernels hi [16, G] and lo [16, 16, G], for
+the order-1 kernels hi [64, 16, G] and lo [48, 16, G].  The port's
+kernels take the same layouts as torch int32 tensors.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from turborc_tpu_torch.codecs import rans_cdf_r1 as R1
 from turborc_tpu_torch.utils.config import resolve_device
 
 
@@ -21,16 +23,28 @@ def _int32(a) -> np.ndarray:
     return a.astype(np.int32)
 
 
-def kernel_args_from_jax(hi_tbl, lo_tbl, init_states, device=None):
-    """JAX kernel args (numpy or array-like) -> (hi, lo, init) int32
-    tensors on ``device`` (None: the CUDA card, as in ``api``), with their
-    layouts checked."""
+def _convert(hi_tbl, lo_tbl, init_states, hi_rows: tuple, lo_rows: tuple,
+             device):
     hi, lo, init = (_int32(a) for a in (hi_tbl, lo_tbl, init_states))
     G = hi.shape[-1]
-    for name, a, shape in (("hi_tbl", hi, (16, G)),
-                           ("lo_tbl", lo, (16, 16, G)),
+    for name, a, shape in (("hi_tbl", hi, (*hi_rows, G)),
+                           ("lo_tbl", lo, (*lo_rows, G)),
                            ("init_states", init, (G, 128))):
         if a.shape != shape:
             raise ValueError(f"{name}: shape {a.shape}, expected {shape}")
     dev = resolve_device(device)
     return tuple(torch.from_numpy(a).to(dev) for a in (hi, lo, init))
+
+
+def kernel_args_from_jax(hi_tbl, lo_tbl, init_states, device=None):
+    """JAX order-0 kernel args (numpy or array-like) -> (hi [16, G],
+    lo [16, 16, G], init [G, 128]) int32 tensors on ``device`` (None: the
+    CUDA card, as in ``api``), with their layouts checked."""
+    return _convert(hi_tbl, lo_tbl, init_states, (16,), (16, 16), device)
+
+
+def o1_kernel_args_from_jax(hi_tbl, lo_tbl, init_states, device=None):
+    """JAX order-1 kernel args -> (hi [64, 16, G], lo [48, 16, G],
+    init [G, 128]) int32 tensors on ``device`` (None: the CUDA card)."""
+    return _convert(hi_tbl, lo_tbl, init_states, (R1.NCTX, 16),
+                    (R1.LROWS, 16), device)

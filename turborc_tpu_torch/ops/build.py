@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 The sources under ``ops/csrc`` have a plain C interface, so ``nvcc``
-compiles them in seconds (no PyTorch headers).  The shared library lands
-in ``turborc_tpu_torch/_build/`` (git-ignored), named by a hash of the
-sources and flags, so a changed source rebuilds and an unchanged one
-loads at once.  A failed build raises; nothing falls back.
+compiles each in seconds (no PyTorch headers).  Every source becomes its
+own shared library in ``turborc_tpu_torch/_build/`` (git-ignored), named
+by a hash of the sources, the shared header and the flags, so a changed
+source rebuilds and an unchanged one loads at once.  The sources that
+need building are compiled in parallel, one ``nvcc`` each.  A failed
+build raises; nothing falls back.
 
     python -m turborc_tpu_torch.ops.build    # build and print the ptxas report
 """
@@ -21,19 +23,26 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("rans_kernel.cu",)
+HEADERS = ("rans_common.cuh",)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry points: every pointer and the stream are c_void_p.
+# C entry points of each source: every pointer and the stream are c_void_p.
 SIGNATURES = {
-    "trc_model": [_P, _P, _P, _P] + [_I] * 8 + [_P],
-    "trc_decode": [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
-    "trc_coder": [_P] * 5 + [_I] * 2 + [_P],
-    "trc_place": [_P] * 5 + [_I] * 3 + [_P],
+    "rans_kernel.cu": {
+        "trc_model": [_P, _P, _P, _P] + [_I] * 8 + [_P],
+        "trc_decode": [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
+        "trc_coder": [_P] * 5 + [_I] * 2 + [_P],
+        "trc_place": [_P] * 5 + [_I] * 3 + [_P],
+    },
+    "rans_o1_kernel.cu": {
+        "trc_o1_model": [_P] * 5 + [_I] * 3 + [_P],
+        "trc_o1_decode": [_P] * 6 + [_I] * 4 + [_P],
+    },
 }
+SOURCES = tuple(SIGNATURES)
 
 
 def nvcc() -> str:
@@ -46,49 +55,72 @@ def nvcc() -> str:
 
 def _tag() -> str:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> dict:
-    """Compile the kernels if this source hash has no library yet.
+def build() -> list[dict]:
+    """Compile every source that has no library for this hash yet, all
+    at once, one ``nvcc`` each.
 
-    Returns {"path", "seconds", "built", "ptxas"}: ``ptxas`` is the
-    compiler's register/shared-memory report (kept beside the library)."""
+    Returns one {"source", "path", "seconds", "built", "ptxas"} per
+    source: ``ptxas`` is the compiler's register/shared-memory report
+    (kept beside the library), ``seconds`` the wall time of the parallel
+    build (0 when nothing was built)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = _tag()
-    lib = BUILD_DIR / f"librans_kernel_{tag}.so"
-    log = BUILD_DIR / f"librans_kernel_{tag}.log"
-    if lib.exists():
-        return dict(path=str(lib), seconds=0.0, built=False,
+    infos, jobs = [], []
+    for src in SOURCES:
+        stem = src.rsplit(".", 1)[0]
+        lib = BUILD_DIR / f"lib{stem}_{tag}.so"
+        log = BUILD_DIR / f"lib{stem}_{tag}.log"
+        info = dict(source=src, path=str(lib), seconds=0.0, built=False,
                     ptxas=log.read_text() if log.exists() else "")
-    tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}.tmp"
-    cmd = [nvcc(), *FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+        infos.append(info)
+        if not lib.exists():
+            tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}.tmp"
+            cmd = [nvcc(), *FLAGS, "-I", str(CSRC), "-o", str(tmp),
+                   str(CSRC / src)]
+            jobs.append((info, lib, log, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    failed = []
+    for info, lib, log, tmp, proc in jobs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{info['source']} ({proc.returncode}):\n{err}")
+            continue
+        log.write_text(out + err)
+        os.replace(tmp, lib)
+        info.update(built=True, ptxas=out + err)
     seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    report = res.stdout + res.stderr
-    log.write_text(report)
-    os.replace(tmp, lib)
-    return dict(path=str(lib), seconds=seconds, built=True, ptxas=report)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    for info, *_ in jobs:
+        info["seconds"] = seconds
+    return infos
 
 
 @functools.cache
-def load() -> ctypes.CDLL:
-    """Build at first use and load the library with typed entry points."""
-    lib = ctypes.CDLL(build()["path"])
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+def load() -> dict:
+    """Build at first use and load the libraries; returns the typed C
+    entry points by name."""
+    fns = {}
+    for info in build():
+        lib = ctypes.CDLL(info["path"])
+        for name, argtypes in SIGNATURES[info["source"]].items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            fns[name] = fn
+    return fns
 
 
 if __name__ == "__main__":
-    info = build()
-    print(f"{info['path']} built={info['built']} {info['seconds']:.1f}s")
-    print(info["ptxas"])
+    for info in build():
+        print(f"{info['path']} built={info['built']} "
+              f"{info['seconds']:.1f}s")
+        print(info["ptxas"])

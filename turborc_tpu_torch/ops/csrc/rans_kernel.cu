@@ -32,18 +32,9 @@
 // out-of-bounds access or a hang.  Each C entry point returns
 // cudaGetLastError() after its launch.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "rans_common.cuh"
 
 namespace {
-
-constexpr int kLanes = 128;
-constexpr int kWarps = kLanes / 32;
-constexpr int kTotal = 1 << 15;
-constexpr uint32_t kAnsLow = 1u << 15;
-constexpr int kIC = 10;
-constexpr int kMixd = 32736;  // (kTotal - 1) & ~31
-constexpr unsigned kFull = 0xffffffffu;
 
 // Shared-memory layout of the model and decode kernels.
 constexpr int kRedInts = kWarps * 16;   // set_sum16 cross-warp partials
@@ -57,36 +48,6 @@ struct Geo {
 size_t model_smem_bytes(int share) {
   return (kRedInts + kRankInts) * sizeof(int) +
          (share > 1 ? 2 : 1) * kTableU16 * sizeof(uint16_t);
-}
-
-// ---- CDF16 table math (models/cdf16.py); a table is 16 ints in registers
-
-__device__ __forceinline__ int cdf_search(const int (&c)[16], int value) {
-  int sym = 0;
-#pragma unroll
-  for (int i = 1; i < 16; ++i) sym += (c[i] <= value) ? 1 : 0;
-  return sym;
-}
-
-__device__ __forceinline__ void cdf_lookup(const int (&c)[16], int sym,
-                                           int& low, int& freq) {
-  int lo = 0, nx = kTotal;
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    lo = (i == sym) ? c[i] : lo;
-    nx = (i == sym + 1) ? c[i] : nx;
-  }
-  low = lo;
-  freq = nx - lo;
-}
-
-// Single-symbol staircase update.  No repair or clamp: for rate >= 7 and a
-// strictly increasing table they are the identity (rans_kernel.py:194-204);
-// the re-join's summed diffs are repaired below.
-__device__ __forceinline__ void cdf_update(int (&c)[16], int low, int rate) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i)
-    c[i] += (i * kIC - c[i] + (c[i] > low ? kMixd : 0)) >> rate;
 }
 
 __device__ __forceinline__ void repair16(int (&c)[16]) {
@@ -128,29 +89,6 @@ __device__ __forceinline__ void set_sum16(int (&x)[16], int share, int* red) {
     }
     __syncthreads();
   }
-}
-
-// Lane-order rank of the flagged lanes of the CTA: rank = flagged lanes
-// before this one, total = flagged lanes in the CTA.  One __syncthreads; the
-// partials are double-buffered so the next call cannot overwrite them while
-// a slow warp still reads.
-__device__ __forceinline__ void block_rank(bool flag, int* wsum, int& buf,
-                                           int& rank, int& total) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const unsigned bal = __ballot_sync(kFull, flag);
-  int* ws = wsum + buf * kWarps;
-  if (lane == 0) ws[warp] = __popc(bal);
-  __syncthreads();
-  int off = 0, tot = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    const int c = ws[w];
-    off += (w < warp) ? c : 0;
-    tot += c;
-  }
-  rank = off + __popc(bal & ((1u << lane) - 1u));
-  total = tot;
-  buf ^= 1;
 }
 
 // Lo tables: [row 16][entry 16][lane 128] u16, one column per thread.
@@ -283,20 +221,6 @@ model_kernel(const uint8_t* __restrict__ cols, const int* __restrict__ hi_tbl,
 // ---- K1: decode.  streams [G, R, 128] int32 (rows 0/1 = initial state
 // hi16/lo16, words from 256 in consumption order) -> bytes [K, G, 128] u8,
 // final states [G, 128].
-__device__ __forceinline__ void fetch(uint32_t& state, const int* s,
-                                      long long limit, long long& base,
-                                      int* wsum, int& buf) {
-  const bool need = state < kAnsLow;
-  int rank, total;
-  block_rank(need, wsum, buf, rank, total);
-  if (need) {
-    const long long p = base + rank;
-    const uint32_t word = p < limit ? uint32_t(s[p]) : 0u;
-    state = (state << 16) | word;
-  }
-  base += total;
-}
-
 __global__ void __launch_bounds__(kLanes)
 decode_kernel(const int* __restrict__ streams, const int* __restrict__ hi_tbl,
               const int* __restrict__ lo_tbl, uint8_t* __restrict__ out,

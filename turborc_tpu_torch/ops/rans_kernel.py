@@ -120,42 +120,50 @@ def place_plain(words: torch.Tensor, emit: torch.Tensor,
     return out.reshape(G, R, GLANES), glens
 
 
-def decode_plain(gstreams: torch.Tensor, K: int, hi_tbl: torch.Tensor,
-                 lo_tbl: torch.Tensor, geom: Geom = DEFAULT):
-    """gstreams [G, R, 128] -> (bytes [K, G, 128] uint8, final states
-    [G, 128] int32).  Per nibble: search, state transition, then lanes
-    with state < 2^15 take the next word of their group's stream in lane
-    order across all 128 lanes (reads past R*128 words give 0)."""
+def stream_reader(gstreams: torch.Tensor):
+    """Group streams [G, R, 128] -> (initial states [G*128] int64,
+    fetch): ``fetch(state)`` renormalises the lanes with state < 2^15,
+    each taking the next word of its group's stream in lane order across
+    all 128 lanes (reads past R*128 words give 0), and returns the new
+    states.  The decoders' plain versions share it."""
     G, R, _ = gstreams.shape
-    L = G * GLANES
-    dev = gstreams.device
     flat = gstreams.reshape(G, R * GLANES).to(torch.int64)
     limit = R * GLANES
     state = ((flat[:, :GLANES] << 16) | flat[:, GLANES:2 * GLANES]) \
         & rans.MASK32
-    state = state.reshape(L)
-    pos = torch.full((G, 1), 256, dtype=torch.int64, device=dev)
+    pos = torch.full((G, 1), 256, dtype=torch.int64, device=flat.device)
 
-    def fetch(state, pos):
+    def fetch(state):
+        nonlocal pos
         need = (state < rans.ANS_LOW).reshape(G, GLANES).to(torch.int64)
         idx = pos + torch.cumsum(need, 1) - need
         word = torch.gather(flat, 1, idx.clamp(max=limit - 1))
-        word = torch.where(idx < limit, word, 0).reshape(L)
-        pos_next = pos + need.sum(1, keepdim=True)
-        return rans.dec_renorm(state, word), pos_next
+        word = torch.where(idx < limit, word, 0).reshape(-1)
+        pos = pos + need.sum(1, keepdim=True)
+        return rans.dec_renorm(state, word)
 
+    return state.reshape(-1), fetch
+
+
+def decode_plain(gstreams: torch.Tensor, K: int, hi_tbl: torch.Tensor,
+                 lo_tbl: torch.Tensor, geom: Geom = DEFAULT):
+    """gstreams [G, R, 128] -> (bytes [K, G, 128] uint8, final states
+    [G, 128] int32).  Per nibble: search, state transition, then the
+    group-ordered word fetch of ``stream_reader``."""
+    G = gstreams.shape[0]
+    L = G * GLANES
+    dev = gstreams.device
+    state, fetch = stream_reader(gstreams)
     hi, lo = _lane_tables(hi_tbl, lo_tbl)
     start_hi, start_lo = hi, lo
     out = torch.empty((K, L), dtype=torch.uint8, device=dev)
     for t in range(K):
         hs, low_h, fr_h = cdf16.search(hi, state & rans.MASK15)
-        state = rans.dec_update(state, low_h, fr_h)
-        state, pos = fetch(state, pos)
+        state = fetch(rans.dec_update(state, low_h, fr_h))
         hi = cdf16.update_rate(hi, low_h, geom.rate)
         row = S8._lo_row(lo, hs)
         ls, low_l, fr_l = cdf16.search(row, state & rans.MASK15)
-        state = rans.dec_update(state, low_l, fr_l)
-        state, pos = fetch(state, pos)
+        state = fetch(rans.dec_update(state, low_l, fr_l))
         new_row = cdf16.update_rate(row, low_l, geom.rate)
         if geom.arows < 16:
             new_row = torch.where((hs < geom.arows)[:, None], new_row, row)
@@ -204,16 +212,16 @@ def _check_geom(geom: Geom, G: int) -> None:
     require_ported(geom)
 
 
-def _launch(name: str, fn: str, *args) -> None:
+def launch(name: str, fn: str, *args, counts: dict = launches) -> None:
     """Launch C entry ``fn`` on the current stream (tensors are passed as
-    device pointers), raise on a CUDA error, count the launch."""
+    device pointers), raise on a CUDA error, count the launch in
+    ``counts[name]``."""
     from turborc_tpu_torch.ops import build
     args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    err = getattr(build.load(), fn)(*args,
-                                    torch.cuda.current_stream().cuda_stream)
+    err = build.load()[fn](*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    launches[name] += 1
+    counts[name] += 1
 
 
 def model(cols: torch.Tensor, hi_tbl: torch.Tensor, lo_tbl: torch.Tensor,
@@ -227,7 +235,7 @@ def model(cols: torch.Tensor, hi_tbl: torch.Tensor, lo_tbl: torch.Tensor,
         return model_plain(cols, hi_tbl, lo_tbl, geom)
     probs = torch.empty((2 * K, G, GLANES), dtype=torch.int32,
                         device=cols.device)
-    _launch("model", "trc_model", cols, hi_tbl, lo_tbl, probs, K, G,
+    launch("model", "trc_model", cols, hi_tbl, lo_tbl, probs, K, G,
             geom.share, geom.sync, geom.lsync, geom.arows, geom.srows,
             geom.rate)
     return probs
@@ -247,7 +255,7 @@ def coder(probs: torch.Tensor, init_states: torch.Tensor):
     emit = torch.empty((S, G, GLANES), dtype=torch.uint8,
                        device=probs.device)
     state = torch.empty((G, GLANES), dtype=torch.int32, device=probs.device)
-    _launch("coder", "trc_coder", probs, init_states, words, emit, state,
+    launch("coder", "trc_coder", probs, init_states, words, emit, state,
             S, G)
     return words, emit, state
 
@@ -268,7 +276,7 @@ def place(words: torch.Tensor, emit: torch.Tensor, state: torch.Tensor,
         raise ValueError(f"{S} slots exceed the int32 stream positions")
     gstreams = torch.empty((G, R, GLANES), dtype=torch.int32, device=dev)
     glens = torch.empty((G,), dtype=torch.int32, device=dev)
-    _launch("place", "trc_place", words, emit, state, gstreams, glens, S,
+    launch("place", "trc_place", words, emit, state, gstreams, glens, S,
             G, R)
     return gstreams, glens
 
@@ -288,7 +296,7 @@ def decode_tile(gstreams: torch.Tensor, K: int, hi_tbl: torch.Tensor,
         return decode_plain(gstreams, K, hi_tbl, lo_tbl, geom)
     out = torch.empty((K, G, GLANES), dtype=torch.uint8, device=dev)
     fstates = torch.empty((G, GLANES), dtype=torch.int32, device=dev)
-    _launch("decode", "trc_decode", gstreams, hi_tbl, lo_tbl, out, fstates,
+    launch("decode", "trc_decode", gstreams, hi_tbl, lo_tbl, out, fstates,
             K, G, R, geom.share, geom.sync, geom.lsync, geom.arows,
             geom.srows, geom.rate)
     return out, fstates

@@ -15,7 +15,8 @@ class CodecConfig:
     """Configuration written into the container header.
 
     Attributes:
-      codec:      registered codec name (only "rans-cdf-o0-p" is ported).
+      codec:      registered codec name (ported: "rans-cdf-o0-p",
+                  "rans-cdf-r1-p", "rans-auto").
       lanes:      lane count recorded in the header (power of two).
       block_size: bytes per independently decodable block.
       step_quant: per-lane symbol-count alignment recorded in the header.

@@ -5,10 +5,12 @@
 
 Builds the port's CUDA kernels with nvcc (one process per source, in
 parallel), holds each kernel against its plain PyTorch version, drives
-both flagship paths through the port's ``compress``/``decompress``
-(``rans-cdf-o0-p`` on K1-K4, ``rans-cdf-r1-p`` on K7, K3, K4 and K6,
-and ``rans-auto`` over both), checks every container against the golden
-hashes the JAX package wrote, then times the kernels.  It imports no JAX
+every ported path through the port's ``compress``/``decompress``
+(``rans-cdf-o0-p`` on K1-K4 and, split-state, on K2, K3, K4 and K5;
+``rans-cdf-r1-p`` on K7, K3, K4 and K6; ``rans-auto`` over both
+flagships; the bit-tree ``rc-p`` on K9, K3, K4 and K8), checks every
+container against the golden hashes the JAX package wrote, then times
+the kernels.  It imports no JAX
 and nothing of ``turborc_tpu``; the corpora under
 ``turborc_tpu/bench/_data/`` are read as files.
 
@@ -35,15 +37,20 @@ ROOT = Path(__file__).resolve().parent
 DATA = ROOT / "turborc_tpu" / "bench" / "_data"
 GOLDEN = ROOT / "turborc_tpu_torch" / "golden" / "o0p.json"
 GOLDEN_R1 = ROOT / "turborc_tpu_torch" / "golden" / "r1p.json"
+GOLDEN_RCP = ROOT / "turborc_tpu_torch" / "golden" / "rcp.json"
+GOLDEN_X2 = ROOT / "turborc_tpu_torch" / "golden" / "o0p_x2.json"
 BUDGET_S = 600
 BENCH_GEOM = "g64c8s8y8l32a4r4"
+BENCH_GEOM_X2 = BENCH_GEOM + "x2"
 CHILD_FLAG = "--child"
 CHILD_DONE = "chip_smoke: all phases passed"
 CSRC = "turborc_tpu_torch/ops/csrc/"
 SOURCE = {k: CSRC + "rans_kernel.cu"
-          for k in ("model", "coder", "place", "decode")}
+          for k in ("model", "coder", "place", "decode", "decode_x2")}
 SOURCE.update({k: CSRC + "rans_o1_kernel.cu"
                for k in ("o1_model", "o1_decode")})
+SOURCE.update({k: CSRC + "bittree_kernel.cu"
+               for k in ("tree_model", "tree_decode")})
 REPLACES = {
     "model": "turborc_tpu/ops/pallas/rans_kernel.py:807",
     "coder": "turborc_tpu/ops/pallas/rans_kernel.py:883",
@@ -51,9 +58,15 @@ REPLACES = {
     "decode": "turborc_tpu/ops/pallas/rans_kernel.py:407",
     "o1_model": "turborc_tpu/ops/pallas/rans_o1_kernel.py:266",
     "o1_decode": "turborc_tpu/ops/pallas/rans_o1_kernel.py:124",
+    "decode_x2": "turborc_tpu/ops/pallas/rans_kernel.py:569",
+    "tree_decode": "turborc_tpu/ops/pallas/bittree_kernel.py:203",
+    "tree_model": "turborc_tpu/ops/pallas/bittree_kernel.py:333",
 }
-O0_KERNELS = ("model", "coder", "place", "decode")
-O1_KERNELS = ("o1_model", "coder", "place", "o1_decode")
+# Each path's kernels in stage order: model, coder, place, decode.
+KERNELS = {"o0": ("model", "coder", "place", "decode"),
+           "o1": ("o1_model", "coder", "place", "o1_decode"),
+           "x2": ("model", "coder", "place", "decode_x2"),
+           "tree": ("tree_model", "coder", "place", "tree_decode")}
 # H100 SXM peaks: HBM3 bytes/s, and the float32 rate outside the tensor
 # cores, used for 32-bit integer ops (taking the higher of the two rates
 # keeps this a lower bound).
@@ -102,8 +115,8 @@ def phase_build() -> None:
         fn = None
         for line in info["ptxas"].splitlines():
             m = re.search(r"Compiling entry function '\w*?"
-                          r"(o1_model|o1_decode|model|coder|place|decode)"
-                          r"_kernel", line)
+                          r"(tree_model|tree_decode|decode_x2|o1_model|"
+                          r"o1_decode|model|coder|place|decode)_kernel", line)
             if m:
                 fn = m.group(1)
             elif "Used" in line and fn:
@@ -122,26 +135,63 @@ def _max_abs(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
-def _stages(order1: bool, args, geom, kernels: bool):
+def _codec(kind: str):
+    """The codec module whose ``encode_args`` feeds path ``kind``."""
+    from turborc_tpu_torch.codecs import rans_cdf_o0_p as C0
+    from turborc_tpu_torch.codecs import rans_cdf_r1_p as C1
+    from turborc_tpu_torch.codecs import rc_tree as CT
+    return {"o0": C0, "x2": C0, "o1": C1, "tree": CT}[kind]
+
+
+def _stages(kind: str, args, geom, kernels: bool):
     """The encode-decode chain of one block's arguments: model -> coder ->
-    place -> decode, order 0 (K2, K3, K4, K1) or order 1 (K7, K3, K4,
-    K6), through the kernels (``kernels``) or their plain versions."""
+    place -> decode of path ``kind`` (``KERNELS``), through the kernels
+    (``kernels``) or their plain versions.  Split-state (x2) runs coder
+    and place once per stream set, on the even and the odd slots; its
+    stages then return both sets' outputs in one flat tuple."""
+    import torch
+    from turborc_tpu_torch.ops import bittree_kernel as B
     from turborc_tpu_torch.ops import rans_kernel as K_
     from turborc_tpu_torch.ops import rans_o1_kernel as K1
     G, K = geom.groups, args.K
     cols = args.block.T.contiguous().reshape(K, G, 128)
-    mod = K1 if order1 else K_
-    m, d = ("o1_model", "o1_decode") if order1 else ("model", "decode")
-    return (
-        (m, mod.model if kernels else mod.model_plain,
-         lambda o: (cols, args.hi_tbl, args.lo_tbl, geom)),
-        ("coder", K_.coder if kernels else K_.coder_plain,
-         lambda o: (o[m], args.init_states)),
-        ("place", K_.place if kernels else K_.place_plain,
-         lambda o: (*o["coder"], geom)),
-        (d, mod.decode_tile if kernels else mod.decode_plain,
-         lambda o: (o["place"][0], K, args.hi_tbl, args.lo_tbl, geom)),
-    )
+    m, _, _, d = KERNELS[kind]
+    coder = K_.coder if kernels else K_.coder_plain
+    place = K_.place if kernels else K_.place_plain
+    if kind == "tree":
+        model = ((lambda c: B.tree_model(c, args.tree, geom)) if kernels
+                 else (lambda c: B.tree_model_plain(c, args.tree)))
+        decode = ((lambda gs: B.tree_decode_tile(gs, K, args.tree, geom))
+                  if kernels else
+                  (lambda gs: B.tree_decode_plain(gs, K, args.tree)))
+    else:
+        mod = K1 if kind == "o1" else K_
+        mfn = mod.model if kernels else mod.model_plain
+        model = lambda c: mfn(c, args.hi_tbl, args.lo_tbl, geom)  # noqa: E731
+        dfn = {"o0": (K_.decode_tile, K_.decode_plain),
+               "x2": (K_.decode_tile_x2, K_.decode_x2_plain),
+               "o1": (K1.decode_tile, K1.decode_plain)}[kind][not kernels]
+        decode = lambda gs: dfn(gs, K, args.hi_tbl,  # noqa: E731
+                                args.lo_tbl, geom)
+    if kind != "x2":
+        return ((m, model, lambda o: (cols,)),
+                ("coder", coder, lambda o: (o[m], args.init_states)),
+                ("place", place, lambda o: (*o["coder"], geom)),
+                (d, decode, lambda o: (o["place"][0],)))
+
+    def coder2(probs_h, init_h, probs_l, init_l):
+        return (*coder(probs_h, init_h), *coder(probs_l, init_l))
+
+    def place2(words_h, emit_h, state_h, words_l, emit_l, state_l):
+        return (*place(words_h, emit_h, state_h, geom),
+                *place(words_l, emit_l, state_l, geom))
+
+    return ((m, model, lambda o: (cols,)),
+            ("coder", coder2,
+             lambda o: (o[m][0::2].contiguous(), args.init_states[0],
+                        o[m][1::2].contiguous(), args.init_states[1])),
+            ("place", place2, lambda o: o["coder"]),
+            (d, decode, lambda o: (torch.stack(o["place"][0::2]),)))
 
 
 def _run_path(stages):
@@ -196,51 +246,65 @@ O1_GEOMS = ((None, 1 << 20), ("g1c2s8y2l4a16r4", 1 << 16),
             ("g2c8s8y4l32a16r4", 600_000), ("g4c2s8y2l4a16r4", 1 << 16))
 
 
+# The bit-tree kernels at groups 1, 2 and 4, chunk 2 and 8, K of 16 to
+# 1168 byte steps, and at the default geometry on 1 MB.
+TREE_GEOMS = (("g1c2s8y2l4a16r4", 1 << 16), ("g2c8s8y4l32a16r4", 300_000),
+              ("g4c2s8y2l4a16r4", 1 << 16), (None, 1 << 20))
+
+
+def _kernel_cases(label: str, kind: str, cases, dev) -> None:
+    """Each case (geometry, bytes) through path ``kind``'s kernels and
+    their plain versions: every output equal, and the decode gives the
+    block and the seeded states back."""
+    phase(label)
+    for geom, data in cases:
+        args = _codec(kind).encode_args(data, geom, dev)
+        kern, _ = _run_path(_stages(kind, args, geom, kernels=True))
+        plain, _ = _run_path(_stages(kind, args, geom, kernels=False))
+        err = _compare(kern, plain)
+        _check_block(geom.spec, args, kern, KERNELS[kind][3])
+        log(f"{kind} kernels {geom.spec} n={data.size} K={args.K}: equal to "
+            f"plain, tolerance 0 (max abs err {err}); decode returns the "
+            "block")
+
+
 def phase_kernels(dev) -> None:
-    from turborc_tpu_torch.codecs import rans_cdf_o0_p as C0
-    from turborc_tpu_torch.codecs import rans_cdf_r1_p as C1
+    import dataclasses
     from turborc_tpu_torch.ops.geom import Geom
-    phase("kernels-vs-plain")
     full = _corpus("textbwt_16777216.bin", 1 << 20)
-    cases = [(BENCH_GEOM, full), (Geom().spec, full)] + [
-        (spec, full[:1 << 16]) for spec in BRANCH_GEOMS]
-    for spec, data in cases:
-        geom = Geom.parse(spec)
-        args = C0.encode_args(data, geom, dev)
-        kern, _ = _run_path(_stages(False, args, geom, kernels=True))
-        plain, _ = _run_path(_stages(False, args, geom, kernels=False))
-        err = _compare(kern, plain)
-        _check_block(spec, args, kern, "decode")
-        log(f"kernels {geom.spec} K={args.K}: equal to plain, tolerance 0 "
-            f"(max abs err {err}); decode returns the block")
-    phase("o1-kernels-vs-plain")
     real = _corpus("realsrcbwt_16777216.bin", 1 << 20)
-    for spec, n in O1_GEOMS:
-        geom = Geom.parse(spec) if spec else Geom()
-        args = C1.encode_args(real[:n], geom, dev)
-        kern, _ = _run_path(_stages(True, args, geom, kernels=True))
-        plain, _ = _run_path(_stages(True, args, geom, kernels=False))
-        err = _compare(kern, plain)
-        _check_block(geom.spec, args, kern, "o1_decode")
-        log(f"o1 kernels {geom.spec} n={n} K={args.K}: equal to plain, "
-            f"tolerance 0 (max abs err {err}); decode returns the block")
+    o0 = [(Geom.parse(BENCH_GEOM), full), (Geom(), full)] + [
+        (Geom.parse(spec), full[:1 << 16]) for spec in BRANCH_GEOMS]
+    _kernel_cases("kernels-vs-plain", "o0", o0, dev)
+    _kernel_cases("o1-kernels-vs-plain", "o1",
+                  [(Geom.parse(spec) if spec else Geom(), real[:n])
+                   for spec, n in O1_GEOMS], dev)
+    _kernel_cases("x2-kernels-vs-plain", "x2",
+                  [(dataclasses.replace(g, nstates=2), d) for g, d in o0],
+                  dev)
+    _kernel_cases("tree-kernels-vs-plain", "tree",
+                  [(Geom.parse(spec) if spec else Geom(), full[:n])
+                   for spec, n in TREE_GEOMS], dev)
 
 
 def _golden(path: Path) -> dict:
     return {c["name"]: c for c in json.loads(path.read_text())["large"]}
 
 
-def _launch_counts() -> dict:
+def _kernel_modules():
+    from turborc_tpu_torch.ops import bittree_kernel as B
     from turborc_tpu_torch.ops import rans_kernel as K_
     from turborc_tpu_torch.ops import rans_o1_kernel as K1
-    return {**K_.launches, **K1.launches}
+    return K_, K1, B
+
+
+def _launch_counts() -> dict:
+    return {k: v for mod in _kernel_modules() for k, v in mod.launches.items()}
 
 
 def _reset_launches() -> None:
-    from turborc_tpu_torch.ops import rans_kernel as K_
-    from turborc_tpu_torch.ops import rans_o1_kernel as K1
-    K_.reset_launches()
-    K1.reset_launches()
+    for mod in _kernel_modules():
+        mod.reset_launches()
 
 
 def _roundtrip(label: str, case: dict, needs: tuple, dev) -> dict:
@@ -289,19 +353,28 @@ def _bound_ms(name: str, geom, K: int, glens_sum: int) -> tuple[float, str]:
     Bytes count each input read once and each output written once; only
     the words the streams hold are read (by the decoders) or placed (by
     place, which reads the words of emitting lanes alone); the o1
-    kernels' per-lane table rows are scratch, not input or output.  Ops
+    kernels' per-lane table rows are scratch, not input or output.  Under
+    a split-state geometry coder and place run once per stream set, each
+    over S = K slots (else S = 2K), and ``glens_sum`` sums both sets.  Ops
     count the algorithm's integer operations per lane and step: a CDF16
     lookup is 32 selects, a search 30, an update 80 (5 per entry), a state
     step 6, a word fetch or placement 6, a re-join 16 entries x
     (2 log2(share) + 6) per table row, an o1 hi context 12 and lo context
-    6 per byte."""
+    6 per byte, a bit-tree level 16 (load and clamp, split, bit, interval,
+    counter update, child) and 8 levels per byte."""
     import math
     G = geom.groups
-    L, S = G * 128, 2 * K
+    L, sets = G * 128, geom.nstates
+    S = 2 * K // sets
     R = S + 2 + geom.wrows
+    search = 30
     if name.startswith("o1_"):
         tables = (64 + 48) * 16 * G * 4
         model_ops = K * (2 * (32 + 80) + 12 + 6)
+    elif name.startswith("tree_"):
+        tables = 256 * 4
+        model_ops = K * 8 * 16
+        search = 0  # the descent is the search
     else:
         tables = (16 + 256) * G * 4
         rejoin = 16 * (2 * int(math.log2(geom.share)) + 6) \
@@ -309,43 +382,48 @@ def _bound_ms(name: str, geom, K: int, glens_sum: int) -> tuple[float, str]:
         hot = (K // geom.sync) * (1 + geom.hrows) * rejoin
         cold = (K // geom.lsync) * max(geom.arows - geom.srows, 0) * rejoin
         model_ops = K * 2 * (32 + 80) + hot + cold
-    if name in ("model", "o1_model"):
-        nbytes = K * L + S * L * 4 + tables
+    if name in ("model", "o1_model", "tree_model"):
+        nbytes = K * L + 2 * K * L * 4 + tables
         ops = L * model_ops
     elif name == "coder":
-        nbytes = S * L * (4 + 4 + 1) + 2 * L * 4
-        ops = L * S * 10
+        nbytes = sets * (S * L * (4 + 4 + 1) + 2 * L * 4)
+        ops = sets * L * S * 10
     elif name == "place":
-        words = glens_sum - 256 * G  # emitted words = sum(emit)
-        nbytes = S * L + words * 4 + L * 4 + G * R * 128 * 4 + G * 4
-        ops = L * S * 6
+        words = glens_sum - 256 * G * sets  # emitted words = sum(emit)
+        nbytes = (sets * (S * L + L * 4 + G * R * 128 * 4 + G * 4)
+                  + words * 4)
+        ops = sets * L * S * 6
     else:
-        nbytes = glens_sum * 4 + tables + K * L + L * 4
-        ops = L * (model_ops + K * 2 * (30 + 6 + 6))
+        nbytes = glens_sum * 4 + tables + K * L + sets * L * 4
+        ops = L * (model_ops + K * 2 * (search + 6 + 6))
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = ops / PEAK_OPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _time_path(label: str, order1: bool, corpus: str, geom, dev) -> dict:
+CODEC_NAME = {"o0": "rans-cdf-o0-p", "x2": "rans-cdf-o0-p",
+              "o1": "rans-cdf-r1-p", "tree": "rc-p"}
+
+
+def _time_path(label: str, kind: str, corpus: str, geom, dev) -> dict:
     """Kernel times on one block of ``corpus`` (CUDA events, 3 reps on
     distinct rotations after a warm-up), each kernel against its plain
-    version at these shapes, and end-to-end MB/s of the codec."""
+    version at these shapes, and end-to-end MB/s of the codec.  Under a
+    split-state geometry the coder and place times cover both sets'
+    launches."""
     import numpy as np
     import torch
     from turborc_tpu_torch import api
-    from turborc_tpu_torch.codecs import rans_cdf_o0_p as C0
-    from turborc_tpu_torch.codecs import rans_cdf_r1_p as C1
     from turborc_tpu_torch.utils.config import CodecConfig
     phase(label)
-    codec = C1 if order1 else C0
-    names = O1_KERNELS if order1 else O0_KERNELS
+    codec = _codec(kind)
+    names = KERNELS[kind]
     base = _corpus(corpus)
     # The warm-up's outputs are freed before the timed runs, so every
     # buffer they need is in the allocator's cache and no cudaMalloc lands
     # in a timed span.
-    _run_path(_stages(order1, codec.encode_args(np.roll(base, 1), geom,
-                                                dev), geom, kernels=True))
+    _run_path(_stages(kind, codec.encode_args(np.roll(base, 1), geom, dev),
+                      geom, kernels=True))
     ms = {k: [] for k in names}
     prep = []  # host half of encode_block, to the block on the card
     for r in range(3):
@@ -354,17 +432,18 @@ def _time_path(label: str, order1: bool, corpus: str, geom, dev) -> dict:
         args = codec.encode_args(x, geom, dev)
         _sync()
         prep.append(time.perf_counter() - t0)
-        _, t = _run_path(_stages(order1, args, geom, kernels=True))
+        _, t = _run_path(_stages(kind, args, geom, kernels=True))
         for k, v in t.items():
             ms[k].append(v)
-    kern, _ = _run_path(_stages(order1, args, geom, kernels=True))
-    plain, plain_ms = _run_path(_stages(order1, args, geom, kernels=False))
+    kern, _ = _run_path(_stages(kind, args, geom, kernels=True))
+    plain, plain_ms = _run_path(_stages(kind, args, geom, kernels=False))
     err = _compare(kern, plain)
     log(f"kernels {geom.spec} K={args.K}: equal to plain, tolerance 0 "
         f"(max abs err {err})")
-    glens_sum = int(kern["place"][1].to(torch.int64).sum())
+    glens_sum = sum(int(gl.to(torch.int64).sum())
+                    for gl in kern["place"][1::2])
     del kern, plain
-    cfg = CodecConfig(codec="rans-cdf-r1-p" if order1 else "rans-cdf-o0-p",
+    cfg = CodecConfig(codec=CODEC_NAME[kind],
                       block_size=1 << (base.size - 1).bit_length(),
                       geom=geom)  # one block
     enc, dec, ratios = [], [], []
@@ -393,7 +472,9 @@ def _time_path(label: str, order1: bool, corpus: str, geom, dev) -> dict:
         encode_kernel_share=[sum(kms[k] for k in names[:3]) / 1e3 / s
                              for s in enc],
         decode_kernel_share=[kms[names[3]] / 1e3 / s for s in dec],
-        kernel_ms_reps=ms, plain_ms=plain_ms)))
+        kernel_ms_reps=ms, plain_ms=plain_ms,
+        bound_ms={k: _bound_ms(k, geom, args.K, glens_sum)[0]
+                  for k in names})))
     return dict(ms=kms, plain_ms=plain_ms, err=err, K=args.K,
                 glens_sum=glens_sum)
 
@@ -422,25 +503,38 @@ def child() -> int:
     phase_build()
     phase_kernels(dev)
     golden, golden_r1 = _golden(GOLDEN), _golden(GOLDEN_R1)
+    golden_rcp, golden_x2 = _golden(GOLDEN_RCP), _golden(GOLDEN_X2)
     main = _roundtrip("roundtrip-64MB-bench-geom",
-                      golden["textbwt_67108864_bench"], O0_KERNELS, dev)
+                      golden["textbwt_67108864_bench"], KERNELS["o0"], dev)
     _roundtrip("roundtrip-16MB-default-config",
-               golden["textbwt_16777216_default"], O0_KERNELS, dev)
+               golden["textbwt_16777216_default"], KERNELS["o0"], dev)
     main_r1 = _roundtrip("roundtrip-r1p-16MB-one-block",
-                         golden_r1["realsrcbwt_16777216_r1p"], O1_KERNELS,
+                         golden_r1["realsrcbwt_16777216_r1p"], KERNELS["o1"],
                          dev)
     _roundtrip("roundtrip-auto-realsrcbwt-16MB",
-               golden_r1["realsrcbwt_16777216_auto"], O1_KERNELS, dev)
+               golden_r1["realsrcbwt_16777216_auto"], KERNELS["o1"], dev)
     _roundtrip("roundtrip-auto-textbwt-16MB",
                golden_r1["textbwt_16777216_auto"],
-               O0_KERNELS + O1_KERNELS, dev)
-    bench = Geom.parse(BENCH_GEOM)
-    t0 = _time_path("timing", False, "textbwt_67108864.bin", bench, dev)
-    t1 = _time_path("timing-o1", True, "realsrcbwt_16777216.bin", Geom(),
+               KERNELS["o0"] + KERNELS["o1"], dev)
+    main_x2 = _roundtrip("roundtrip-o0p-x2-64MB",
+                         golden_x2["textbwt_67108864_x2"], KERNELS["x2"], dev)
+    main_rcp = _roundtrip("roundtrip-rcp-16MB-one-block",
+                          golden_rcp["textbwt_16777216_rcp"],
+                          KERNELS["tree"], dev)
+    bench, bench_x2 = Geom.parse(BENCH_GEOM), Geom.parse(BENCH_GEOM_X2)
+    t0 = _time_path("timing", "o0", "textbwt_67108864.bin", bench, dev)
+    t1 = _time_path("timing-o1", "o1", "realsrcbwt_16777216.bin", Geom(),
                     dev)
-    rows = (_rows(O0_KERNELS, t0, bench, main["launches"])
+    tx = _time_path("timing-x2", "x2", "textbwt_67108864.bin", bench_x2,
+                    dev)
+    tt = _time_path("timing-tree", "tree", "textbwt_16777216.bin", Geom(),
+                    dev)
+    rows = (_rows(KERNELS["o0"], t0, bench, main["launches"])
             + _rows(("o1_model", "o1_decode"), t1, Geom(),
-                    main_r1["launches"]))
+                    main_r1["launches"])
+            + _rows(("decode_x2",), tx, bench_x2, main_x2["launches"])
+            + _rows(("tree_model", "tree_decode"), tt, Geom(),
+                    main_rcp["launches"]))
     log("card (nvidia-smi name, power.limit):")
     log(_smi())
     log(json.dumps({"kernels": rows}))

@@ -52,7 +52,8 @@ def test_no_jax_imports(path):
 def test_import_closure_has_no_jax():
     """Importing the whole port loads no JAX module."""
     code = ("import sys, turborc_tpu_torch.api, turborc_tpu_torch.convert, "
-            "turborc_tpu_torch.ops.build, chip_smoke; "
+            "turborc_tpu_torch.ops.build, turborc_tpu_torch.codecs.rc_tree, "
+            "turborc_tpu_torch.ops.bittree_kernel, chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'turborc_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -119,3 +120,32 @@ def test_o1_convert_no_device_means_cuda_and_raises(monkeypatch):
         convert.o1_kernel_args_from_jax(*args)
     hi, lo, init = convert.o1_kernel_args_from_jax(*args, device="cpu")
     assert (hi.shape, lo.shape) == ((64, 16, 2), (48, 16, 2))
+
+
+def test_rcp_no_device_means_cuda_and_raises(monkeypatch):
+    """The bit-tree codec, and split-state id 57, default to the card."""
+    from turborc_tpu_torch import CodecConfig, api
+    from turborc_tpu_torch.codecs import registry
+    from turborc_tpu_torch.ops.geom import Geom
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for codec, spec in (("rc-p", "g1c2s8y2l4a16r4"),
+                        ("rans-cdf-o0-p", "g1c2s8y2l4a16r4x2")):
+        cfg = CodecConfig(codec=codec, geom=Geom.parse(spec))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            api.compress(b"abc", cfg)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            registry.get(codec).encode_block(np.zeros(10, np.uint8),
+                                             geom=Geom.parse(spec))
+        blob = api.compress(b"abc", cfg, device="cpu")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            api.decompress(blob)
+        assert api.decompress(blob, device="cpu") == b"abc"
+
+
+def test_tree_convert_no_device_means_cuda_and_raises(monkeypatch):
+    from turborc_tpu_torch import convert
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tree = np.full(256, 16384, np.int32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.tree_from_jax(tree)
+    assert convert.tree_from_jax(tree, device="cpu").device.type == "cpu"

@@ -121,23 +121,26 @@ def test_corrupt_container_raises():
 
 
 def test_split_state_not_ported():
-    """Both driver entry points raise the kernel module's error up front."""
+    """The split-state (x2) geometry is ported now: both codec entry
+    points round-trip a block with seed bytes, several K and both stream
+    sets (byte identity with the JAX package: tests/test_torch_x2.py)."""
     g = Geom.parse("g2c2s8y2l4a16r4x2")
-    with pytest.raises(NotImplementedError, match="split-state"):
-        T.encode_block(TEXT[:100], geom=g, device="cpu")
-    with pytest.raises(NotImplementedError, match="split-state"):
-        T.decode_block(b"\0" * 600, 100, geom=g, device="cpu")
+    data = TEXT[:3001]
+    payload = T.encode_block(data, geom=g, device="cpu")
+    assert np.array_equal(T.decode_block(payload, data.size, geom=g,
+                                         device="cpu"), data)
 
 
 def test_registry_has_only_the_flagship():
-    """The registry holds the ported codecs, the flagships 57 and 60 and
-    the dispatch between them, 61, and nothing else."""
+    """The registry holds the ported codecs, the flagships 57 and 60, the
+    dispatch between them, 61, and the bit-tree codec 8, and nothing
+    else."""
     assert registry.names() == ["rans-cdf-o0-p", "rans-cdf-r1-p",
-                                "rans-auto"]
+                                "rans-auto", "rc-p"]
     for cid, name in ((57, "rans-cdf-o0-p"), (60, "rans-cdf-r1-p"),
-                      (61, "rans-auto")):
+                      (61, "rans-auto"), (8, "rc-p")):
         assert registry.get(cid) is registry.get(name)
-    for key in ("rans-cdf-o0", 56, "rc-p", 8, "rans-cdf-r1", 59):
+    for key in ("rans-cdf-o0", 56, "rc-o0", 1, "rans-cdf-r1", 59):
         with pytest.raises(KeyError, match="not ported"):
             registry.get(key)
     with pytest.raises(KeyError):

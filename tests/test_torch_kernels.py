@@ -154,8 +154,11 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         TK.coder(torch.zeros((8, 2, 128), dtype=torch.int32)[:, :, ::2],
                  init)
-    with pytest.raises(NotImplementedError):
-        TK.model(cols, hi, lo, Geom.parse("g2c2s8y2l4a16r4x2"))
+    x2 = Geom.parse("g2c2s8y2l4a16r4x2")
+    assert TK.model(cols, hi, lo, x2).shape == (8, 2, 128)  # one model
+    with pytest.raises(ValueError, match="decode_tile_x2"):
+        TK.decode_tile(torch.zeros((2, 20, 128), dtype=torch.int32), 4, hi,
+                       lo, x2)
     with pytest.raises(ValueError):
         convert.kernel_args_from_jax(np.zeros((16, 2)), np.zeros((16, 16, 3)),
                                      np.zeros((2, 128)), device="cpu")

@@ -17,7 +17,8 @@ half of up to eight 64 KB windows and scored on the second) reaches
 ``RUN_THRESHOLD`` and the caller's geometry shares lanes, else tag 0.
 The arms are always the kernel codecs 57 and 60, which is the JAX
 package's choice off the CPU; its CPU arms (ids 58/59) are another
-format.
+format.  Under a split-state geometry (``x2``) the o0 arms code two
+states a lane and the o1 arm raises ValueError, as in the JAX package.
 """
 from __future__ import annotations
 

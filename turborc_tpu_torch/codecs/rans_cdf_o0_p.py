@@ -10,9 +10,11 @@ same bytes:
 
 Lanes are ``G`` groups of 128; ``share`` adjacent lanes model one
 contiguous ``share*K``-byte span with lane j taking bytes t*share + j.
-The first ``15 * lanes / 8`` (remapped) bytes of a block ride in the
-encoder's initial states (``2^15 | seed15``) and come back as the
-decoder's final states.  Only ``nstates == 1`` is ported.
+The first ``15 * lanes * nstates / 8`` (remapped) bytes of a block ride
+in the encoder's initial states (``2^15 | seed15``) and come back as the
+decoder's final states.  Under a split-state geometry (``nstates == 2``)
+there are two stream sets, the hi nibbles' and then the lo nibbles', so
+``glens`` has 2G entries and the words 2G streams in that order.
 """
 from __future__ import annotations
 
@@ -40,14 +42,16 @@ def _seed_bytes(g: Geom) -> int:
 
 
 def _split_seed(data: np.ndarray, g: Geom = DEFAULT) -> np.ndarray:
-    """Remapped seed bytes -> encoder initial states [G, 128] int32
-    (``2^15 | seed15``; missing bytes are zero)."""
+    """Remapped seed bytes -> encoder initial states int32 (``2^15 |
+    seed15``; missing bytes are zero): [G, 128], or [2, G, 128] for a
+    split-state geometry (state 0's seeds first)."""
     buf = np.zeros(_seed_bytes(g), np.uint8)
     buf[:data.shape[0]] = data
-    bits = np.unpackbits(buf).reshape(g.lanes, SEED_BITS)
+    bits = np.unpackbits(buf).reshape(g.nstates * g.lanes, SEED_BITS)
     pw = (1 << np.arange(SEED_BITS - 1, -1, -1)).astype(np.int64)
     seeds = bits.astype(np.int64) @ pw
-    return (seeds | (1 << SEED_BITS)).astype(np.int32).reshape(g.groups, 128)
+    shape = (g.groups, 128) if g.nstates == 1 else (2, g.groups, 128)
+    return (seeds | (1 << SEED_BITS)).astype(np.int32).reshape(shape)
 
 
 def _join_seed(fstates: np.ndarray, s_len: int) -> np.ndarray:
@@ -146,7 +150,7 @@ class EncodeArgs(NamedTuple):
     codes: np.ndarray         # [G, 272] u8 warm-table codes
     hi_tbl: torch.Tensor      # [16, G] int32 warm cdfs
     lo_tbl: torch.Tensor      # [16, 16, G] int32 warm cdfs
-    init_states: torch.Tensor  # [G, 128] int32 seeded coder states
+    init_states: torch.Tensor  # [G, 128] (x2: [2, G, 128]) int32 seeds
     block: torch.Tensor       # [L, K] u8 remapped bytes, kernel lane order
     K: int
 
@@ -180,19 +184,19 @@ def encode_args(data: np.ndarray, g: Geom, device) -> EncodeArgs:
 def encode_block(data: np.ndarray, geom: Geom | None = None, device=None,
                  **_unused) -> bytes:
     g = geom or DEFAULT
-    K_.require_ported(g)  # the seed split and tables assume nstates == 1
     dev = resolve_device(device)
     a = encode_args(data, g, dev)
     gstreams, glens = K_.encode_tile(a.block, a.K, a.hi_tbl, a.lo_tbl,
                                      a.init_states, g)
+    nst = g.nstates * g.groups  # x2: the hi set's streams, then the lo's
     return (a.perm.tobytes() + _bio.pack_codes(a.codes)
-            + stream_bytes(gstreams, glens))
+            + stream_bytes(gstreams.reshape(nst, *gstreams.shape[-2:]),
+                           glens.reshape(nst)))
 
 
 def decode_block(payload: bytes, n: int, geom: Geom | None = None,
                  device=None, **_unused) -> np.ndarray:
     g = geom or DEFAULT
-    K_.require_ported(g)  # the payload's layout depends on nstates
     dev = resolve_device(device)
     s_len = min(n, _seed_bytes(g))
     K = _K_for(n - s_len, g)
@@ -201,10 +205,16 @@ def decode_block(payload: bytes, n: int, geom: Geom | None = None,
     perm = np.frombuffer(payload[:256], np.uint8)
     codes, consumed = _bio.unpack_codes(payload[256:], g.groups)
     hi_q, lo_q = _bio.codes_to_tables(codes)
-    gstreams = read_streams(payload[256 + consumed:], g.groups,
-                            2 * K + 2 + g.wrows, dev)
+    R = 2 * K // g.nstates + 2 + g.wrows  # slots per stream + 2 + window
+    gstreams = read_streams(payload[256 + consumed:], g.nstates * g.groups,
+                            R, dev)
     hi_tbl, lo_tbl = _cum_args(hi_q, lo_q, dev)
-    out, fstates = K_.decode_tile(gstreams, K, hi_tbl, lo_tbl, g)
+    if g.nstates == 1:
+        out, fstates = K_.decode_tile(gstreams, K, hi_tbl, lo_tbl, g)
+    else:
+        out, fstates = K_.decode_tile_x2(gstreams.reshape(2, g.groups, R,
+                                                          128),
+                                         K, hi_tbl, lo_tbl, g)
     perm_t = torch.from_numpy(perm.copy()).to(dev)
     flat_bytes = _post_decode(out, perm_t, K, g.lanes // g.share,
                               g.share)[:n - s_len].cpu().numpy()

@@ -3,16 +3,18 @@
 Counterpart of ``turborc_tpu/codecs/registry.py``, holding only what the
 port has, on every device (the kernels on the card, their plain versions
 on the CPU): the flagships ``rans-cdf-o0-p`` (id 57) and
-``rans-cdf-r1-p`` (id 60), and ``rans-auto`` (id 61), which picks between
-them per block.  A name or id the JAX package knows but the port does
-not raises KeyError.
+``rans-cdf-r1-p`` (id 60), ``rans-auto`` (id 61), which picks between
+them per block, and the bit-tree codec ``rc-p`` (id 8).  The JAX package
+registers ids 57, 60 and 8 only off the CPU.  A name or id the JAX
+package knows but the port does not raises KeyError.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
 
-from turborc_tpu_torch.codecs import rans_auto, rans_cdf_o0_p, rans_cdf_r1_p
+from turborc_tpu_torch.codecs import (rans_auto, rans_cdf_o0_p, rans_cdf_r1_p,
+                                      rc_tree)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,6 +36,8 @@ _CODECS = (
           rans_cdf_r1_p.decode_block),
     # per-block dispatch between ids 57 and 60 (1-byte tag)
     Codec(61, "rans-auto", rans_auto.encode_block, rans_auto.decode_block),
+    # bit-tree model (the reference rc family's), coded a nibble at a time
+    Codec(8, "rc-p", rc_tree.encode_block, rc_tree.decode_block),
 )
 _BY_NAME = {c.name: c for c in _CODECS}
 _BY_ID = {c.codec_id: c for c in _CODECS}

@@ -5,7 +5,9 @@ and the seeded initial coder states that both packages derive from the
 block.  The JAX kernels take them as int32 arrays (init [G, 128] as
 uint32 bits): for the order-0 kernels hi [16, G] and lo [16, 16, G], for
 the order-1 kernels hi [64, 16, G] and lo [48, 16, G].  The port's
-kernels take the same layouts as torch int32 tensors.
+kernels take the same layouts as torch int32 tensors.  The bit-tree
+kernels take one warm tree, [256] int32 (row 0 unused, rows 1..255 in
+[1, 32767]).
 """
 from __future__ import annotations
 
@@ -48,3 +50,14 @@ def o1_kernel_args_from_jax(hi_tbl, lo_tbl, init_states, device=None):
     init [G, 128]) int32 tensors on ``device`` (None: the CUDA card)."""
     return _convert(hi_tbl, lo_tbl, init_states, (R1.NCTX, 16),
                     (R1.LROWS, 16), device)
+
+
+def tree_from_jax(tree, device=None) -> torch.Tensor:
+    """JAX bit-tree warm tree [256] int32 -> the port's [256] int32 tensor
+    on ``device`` (None: the CUDA card), with its layout checked."""
+    t = _int32(tree)
+    if t.shape != (256,):
+        raise ValueError(f"tree: shape {t.shape}, expected (256,)")
+    if t[1:].min() < 1 or t[1:].max() > (1 << 15) - 1:
+        raise ValueError("tree: rows 1..255 must lie in [1, 32767]")
+    return torch.from_numpy(t).to(resolve_device(device))

@@ -34,12 +34,17 @@ SIGNATURES = {
     "rans_kernel.cu": {
         "trc_model": [_P, _P, _P, _P] + [_I] * 8 + [_P],
         "trc_decode": [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
+        "trc_decode_x2": [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
         "trc_coder": [_P] * 5 + [_I] * 2 + [_P],
         "trc_place": [_P] * 5 + [_I] * 3 + [_P],
     },
     "rans_o1_kernel.cu": {
         "trc_o1_model": [_P] * 5 + [_I] * 3 + [_P],
         "trc_o1_decode": [_P] * 6 + [_I] * 4 + [_P],
+    },
+    "bittree_kernel.cu": {
+        "trc_tree_model": [_P] * 3 + [_I] * 2 + [_P],
+        "trc_tree_decode": [_P] * 4 + [_I] * 3 + [_P],
     },
 }
 SOURCES = tuple(SIGNATURES)

@@ -1,11 +1,12 @@
 // Flagship rANS kernels (codec rans-cdf-o0-p) for Hopper, sm_90a.
 //
-// Replaces the four Pallas TPU kernels of
+// Replaces the five Pallas TPU kernels of
 // turborc_tpu/ops/pallas/rans_kernel.py:
 //   model_kernel   <- _make_model_kernel  (:807)  forward model pass
 //   coder_kernel   <- _make_coder_kernel  (:883)  backward rANS pass
 //   place_kernel   <- _make_place_kernel  (:1017) stream compaction
 //   decode_kernel  <- _make_decode_kernel (:407)  o0 share-span decode
+//   decode_x2_kernel <- _make_decode_kernel_x2 (:569)  split-state decode
 //
 // Design: one CTA = one 128-lane group = 4 warps, one thread per lane, and a
 // loop over byte steps inside the CTA (the TPU grid's sequential dimension).
@@ -38,7 +39,7 @@ namespace {
 
 // Shared-memory layout of the model and decode kernels.
 constexpr int kRedInts = kWarps * 16;   // set_sum16 cross-warp partials
-constexpr int kRankInts = 2 * kWarps;   // block_rank double buffer
+constexpr int kRankInts = 4 * kWarps;   // rank double buffer, 2 stream sets
 constexpr int kTableU16 = 16 * 16 * kLanes;  // one lo table set, u16
 
 struct Geo {
@@ -268,6 +269,103 @@ decode_kernel(const int* __restrict__ streams, const int* __restrict__ hi_tbl,
   fstate[col] = int(state);
 }
 
+// K5's renormalisation of both states: the lanes that need a word in each
+// stream set are ranked with one barrier (two ballots, one exchange of the
+// per-warp counts), then each takes the next word of its set in lane order,
+// as fetch does for one set (rans_common.cuh).  Double-buffered like
+// block_rank.
+__device__ __forceinline__ void fetch_pair(uint32_t (&state)[2],
+                                           const int* const (&s)[2],
+                                           long long limit,
+                                           long long (&base)[2], int* wsum,
+                                           int& buf) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int* ws = wsum + buf * 2 * kWarps;
+  unsigned bal[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    bal[k] = __ballot_sync(kFull, state[k] < kAnsLow);
+    if (lane == 0) ws[k * kWarps + warp] = __popc(bal[k]);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    int off = 0, tot = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const int c = ws[k * kWarps + w];
+      off += (w < warp) ? c : 0;
+      tot += c;
+    }
+    if (state[k] < kAnsLow) {
+      const long long p = base[k] + off + __popc(bal[k] & ((1u << lane) - 1u));
+      const uint32_t word = p < limit ? uint32_t(s[k][p]) : 0u;
+      state[k] = (state[k] << 16) | word;
+    }
+    base[k] += tot;
+  }
+  buf ^= 1;
+}
+
+// ---- K5: split-state decode.  streams [2, G, R, 128] int32 (set 0 feeds
+// state 0, which decodes hi nibbles; set 1 feeds state 1, lo nibbles; each
+// set is laid out as K1's) -> bytes [K, G, 128] u8, final states
+// [2, G, 128].  One shared model and re-join, as K1's.  The lo search on
+// state 1 needs only the hi symbol, not state 0's fetch, so both states step
+// before one fetch_pair.
+__global__ void __launch_bounds__(kLanes)
+decode_x2_kernel(const int* __restrict__ streams,
+                 const int* __restrict__ hi_tbl,
+                 const int* __restrict__ lo_tbl, uint8_t* __restrict__ out,
+                 int* __restrict__ fstate, int K, int G, int R, Geo m) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Smem sm = carve(smem_raw);
+  const int g = blockIdx.x;
+  const size_t plane = size_t(G) * kLanes;
+  const size_t col = size_t(g) * kLanes + threadIdx.x;
+  const int* const s[2] = {streams + size_t(g) * R * kLanes,
+                           streams + (size_t(G) + g) * R * kLanes};
+  const long long limit = (long long)R * kLanes;
+  int hi[16], start_hi[16];
+  init_tables(hi_tbl, lo_tbl, G, g, m.share, hi, start_hi, sm.lo_s, sm.st_s);
+  uint32_t state[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    state[k] = (uint32_t(s[k][threadIdx.x]) << 16) |
+               uint32_t(s[k][kLanes + threadIdx.x]);
+  long long base[2] = {2 * kLanes, 2 * kLanes};
+  int buf = 0;
+
+  for (int t = 0; t < K; ++t) {
+    uint32_t value = state[0] & (kTotal - 1);
+    const int hs = cdf_search(hi, int(value));
+    int low_h, fr_h;
+    cdf_lookup(hi, hs, low_h, fr_h);
+    state[0] = uint32_t(fr_h) * (state[0] >> 15) + value - uint32_t(low_h);
+
+    int row[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) row[i] = sm.lo_s[lo_at(hs, i)];
+    value = state[1] & (kTotal - 1);
+    const int ls = cdf_search(row, int(value));
+    int low_l, fr_l;
+    cdf_lookup(row, ls, low_l, fr_l);
+    state[1] = uint32_t(fr_l) * (state[1] >> 15) + value - uint32_t(low_l);
+    fetch_pair(state, s, limit, base, sm.wsum, buf);
+
+    cdf_update(hi, low_h, m.rate);
+    cdf_update(row, low_l, m.rate);
+    if (hs < m.arows) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) sm.lo_s[lo_at(hs, i)] = uint16_t(row[i]);
+    }
+    out[size_t(t) * plane + col] = uint8_t((hs << 4) | ls);
+    rejoin_after(t, m, hi, start_hi, sm.lo_s, sm.st_s, sm.red);
+  }
+  fstate[col] = int(state[0]);
+  fstate[plane + col] = int(state[1]);
+}
+
 // ---- K3: backward rANS pass.  probs [S, L] -> words [S, L] int32 (the low
 // 16 bits of the state at every slot), emit [S, L] u8, flush states [L].
 // Lanes are independent: one thread per lane, no shared memory.
@@ -362,6 +460,23 @@ int trc_decode(const void* streams, const void* hi_tbl, const void* lo_tbl,
       decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return int(e);
   decode_kernel<<<G, kLanes, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(streams), static_cast<const int*>(hi_tbl),
+      static_cast<const int*>(lo_tbl), static_cast<uint8_t*>(out),
+      static_cast<int*>(fstate), K, G, R,
+      make_geo(share, sync, lsync, arows, srows, rate));
+  return int(cudaGetLastError());
+}
+
+int trc_decode_x2(const void* streams, const void* hi_tbl,
+                  const void* lo_tbl, void* out, void* fstate, int K, int G,
+                  int R, int share, int sync, int lsync, int arows, int srows,
+                  int rate, void* stream) {
+  const size_t smem = model_smem_bytes(share);
+  cudaError_t e = cudaFuncSetAttribute(
+      decode_x2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(smem));
+  if (e != cudaSuccess) return int(e);
+  decode_x2_kernel<<<G, kLanes, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(streams), static_cast<const int*>(hi_tbl),
       static_cast<const int*>(lo_tbl), static_cast<uint8_t*>(out),
       static_cast<int*>(fstate), K, G, R,

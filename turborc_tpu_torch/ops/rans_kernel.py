@@ -11,7 +11,14 @@ Kernel (CUDA, ``csrc/rans_kernel.cu``)   replaces (TPU)        plain version
   coder   K3: backward rANS               _make_coder_kernel    coder_plain
   place   K4: words -> group streams      _make_place_kernel    place_plain
   decode  K1: group streams -> bytes      _make_decode_kernel   decode_plain
+  decode_x2  K5: split-state decode       _make_decode_kernel_x2
+                                                                decode_x2_plain
 
+Under a split-state geometry (``Geom.nstates == 2``, spec suffix ``x2``)
+each lane has two coder states: state 0 codes the hi nibbles into stream
+set 0, state 1 the lo nibbles into set 1, one shared model.  The encode
+side runs the same model, then coder and placement once per set on the
+even and odd slots.
 A wrapper validates its inputs, then runs the plain version when they lie
 on the CPU and launches the kernel when they lie on a CUDA device; there
 is no fallback from one to the other.  ``launches[name]`` counts kernel
@@ -30,7 +37,8 @@ from turborc_tpu_torch.ops.geom import DEFAULT, Geom
 
 GLANES = 128
 
-launches = dict.fromkeys(("model", "coder", "place", "decode"), 0)
+launches = dict.fromkeys(("model", "coder", "place", "decode", "decode_x2"),
+                         0)
 
 
 def reset_launches() -> None:
@@ -175,6 +183,37 @@ def decode_plain(gstreams: torch.Tensor, K: int, hi_tbl: torch.Tensor,
             state.reshape(G, GLANES).to(torch.int32))
 
 
+def decode_x2_plain(gstreams: torch.Tensor, K: int, hi_tbl: torch.Tensor,
+                    lo_tbl: torch.Tensor, geom: Geom = DEFAULT):
+    """Split-state decode: gstreams [2, G, R, 128] (hi set first) ->
+    (bytes [K, G, 128] uint8, final states [2, G, 128] int32).  Per byte:
+    the hi search, state step and fetch on state 0 / set 0, then the lo
+    search in the row that hi selects, state step and fetch on state 1 /
+    set 1; model and re-joins as ``decode_plain``."""
+    G = gstreams.shape[1]
+    L = G * GLANES
+    (st_h, fetch_h), (st_l, fetch_l) = map(stream_reader, gstreams)
+    hi, lo = _lane_tables(hi_tbl, lo_tbl)
+    start_hi, start_lo = hi, lo
+    out = torch.empty((K, L), dtype=torch.uint8, device=gstreams.device)
+    for t in range(K):
+        hs, low_h, fr_h = cdf16.search(hi, st_h & rans.MASK15)
+        st_h = fetch_h(rans.dec_update(st_h, low_h, fr_h))
+        hi = cdf16.update_rate(hi, low_h, geom.rate)
+        row = S8._lo_row(lo, hs)
+        ls, low_l, fr_l = cdf16.search(row, st_l & rans.MASK15)
+        st_l = fetch_l(rans.dec_update(st_l, low_l, fr_l))
+        new_row = cdf16.update_rate(row, low_l, geom.rate)
+        if geom.arows < 16:
+            new_row = torch.where((hs < geom.arows)[:, None], new_row, row)
+        lo = S8._lo_put(lo, hs, new_row)
+        out[t] = ((hs << 4) | ls).to(torch.uint8)
+        hi, lo, start_hi, start_lo = _rejoin(t, geom, hi, lo, start_hi,
+                                             start_lo)
+    return (out.reshape(K, G, GLANES),
+            torch.stack([st_h, st_l]).reshape(2, G, GLANES).to(torch.int32))
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -198,18 +237,10 @@ def _check_tables(hi_tbl, lo_tbl, G: int, device) -> None:
     _check("lo_tbl", lo_tbl, torch.int32, (16, 16, G), device)
 
 
-def require_ported(geom: Geom) -> None:
-    """Raise NotImplementedError for a geometry no kernel here serves."""
-    if geom.nstates != 1:
-        raise NotImplementedError("split-state (nstates=2) kernels are not "
-                                  "ported yet")
-
-
 def _check_geom(geom: Geom, G: int) -> None:
     if geom.groups != G:
         raise ValueError(f"tile has {G} groups, geometry {geom.spec} "
                          f"has {geom.groups}")
-    require_ported(geom)
 
 
 def launch(name: str, fn: str, *args, counts: dict = launches) -> None:
@@ -285,20 +316,41 @@ def decode_tile(gstreams: torch.Tensor, K: int, hi_tbl: torch.Tensor,
                 lo_tbl: torch.Tensor, geom: Geom = DEFAULT):
     """K1: gstreams [G, R, 128] int32 -> (bytes [K, G, 128] uint8, final
     states [G, 128] int32; the final states carry the 15-bit seeds)."""
-    G, R = geom.groups, gstreams.shape[1]
+    if geom.nstates != 1:
+        raise ValueError(f"geometry {geom.spec} is split-state: decode it "
+                         "with decode_tile_x2")
+    return _decode(gstreams, K, hi_tbl, lo_tbl, geom)
+
+
+def decode_tile_x2(gstreams: torch.Tensor, K: int, hi_tbl: torch.Tensor,
+                   lo_tbl: torch.Tensor, geom: Geom = DEFAULT):
+    """K5: gstreams [2, G, R, 128] int32 (hi set first) -> (bytes
+    [K, G, 128] uint8, final states [2, G, 128] int32)."""
+    if geom.nstates != 2:
+        raise ValueError(f"geometry {geom.spec} has one state: decode it "
+                         "with decode_tile")
+    return _decode(gstreams, K, hi_tbl, lo_tbl, geom)
+
+
+def _decode(gstreams, K, hi_tbl, lo_tbl, geom):
+    """K1 (one state) or K5 (two): the checks and the dispatch."""
+    G, R, ns = geom.groups, gstreams.shape[-2], geom.nstates
     dev = gstreams.device
-    _check("gstreams", gstreams, torch.int32, (G, R, GLANES), dev)
+    lead = (ns,) if ns == 2 else ()
+    _check("gstreams", gstreams, torch.int32, (*lead, G, R, GLANES), dev)
     _check_tables(hi_tbl, lo_tbl, G, dev)
     _check_geom(geom, G)
     if R < 2:
         raise ValueError("gstreams: needs the two flush-state rows")
+    plain, name = ((decode_plain, "decode") if ns == 1
+                   else (decode_x2_plain, "decode_x2"))
     if not gstreams.is_cuda:
-        return decode_plain(gstreams, K, hi_tbl, lo_tbl, geom)
+        return plain(gstreams, K, hi_tbl, lo_tbl, geom)
     out = torch.empty((K, G, GLANES), dtype=torch.uint8, device=dev)
-    fstates = torch.empty((G, GLANES), dtype=torch.int32, device=dev)
-    launch("decode", "trc_decode", gstreams, hi_tbl, lo_tbl, out, fstates,
-            K, G, R, geom.share, geom.sync, geom.lsync, geom.arows,
-            geom.srows, geom.rate)
+    fstates = torch.empty((*lead, G, GLANES), dtype=torch.int32, device=dev)
+    launch(name, "trc_" + name, gstreams, hi_tbl, lo_tbl, out, fstates,
+           K, G, R, geom.share, geom.sync, geom.lsync, geom.arows,
+           geom.srows, geom.rate)
     return out, fstates
 
 
@@ -306,9 +358,16 @@ def encode_tile(block: torch.Tensor, K: int, hi_tbl: torch.Tensor,
                 lo_tbl: torch.Tensor, init_states: torch.Tensor,
                 geom: Geom = DEFAULT):
     """block [L, K] bytes in kernel lane order -> (gstreams [G, R, 128],
-    glens [G]): model, then coder, then place (JAX ``encode_tile``)."""
+    glens [G]): model, then coder, then place (JAX ``encode_tile``).
+    Split-state: init [2, G, 128] -> (gstreams [2, G, R, 128], glens
+    [2, G]), coder and place once per set, on the hi (even) and the lo
+    (odd) slots."""
     cols = block.to(torch.uint8).T.contiguous().reshape(K, geom.groups,
                                                         GLANES)
     probs = model(cols, hi_tbl, lo_tbl, geom)
-    words, emit, state = coder(probs, init_states)
-    return place(words, emit, state, geom)
+    if geom.nstates == 1:
+        return place(*coder(probs, init_states), geom)
+    sets = [place(*coder(probs[k::2].contiguous(), init_states[k]), geom)
+            for k in range(2)]
+    return (torch.stack([gs for gs, _ in sets]),
+            torch.stack([gl for _, gl in sets]))

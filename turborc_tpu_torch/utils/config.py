@@ -16,7 +16,7 @@ class CodecConfig:
 
     Attributes:
       codec:      registered codec name (ported: "rans-cdf-o0-p",
-                  "rans-cdf-r1-p", "rans-auto").
+                  "rans-cdf-r1-p", "rans-auto", "rc-p").
       lanes:      lane count recorded in the header (power of two).
       block_size: bytes per independently decodable block.
       step_quant: per-lane symbol-count alignment recorded in the header.

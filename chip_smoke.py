@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (turborc_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--before COMMIT]
 
 Builds the port's CUDA kernels with nvcc (one process per source, in
 parallel), holds each kernel against its plain PyTorch version, drives
@@ -10,9 +10,12 @@ every ported path through the port's ``compress``/``decompress``
 ``rans-cdf-r1-p`` on K7, K3, K4 and K6; ``rans-auto`` over both
 flagships; the bit-tree ``rc-p`` on K9, K3, K4 and K8), checks every
 container against the golden hashes the JAX package wrote, then times
-the kernels.  It imports no JAX
-and nothing of ``turborc_tpu``; the corpora under
-``turborc_tpu/bench/_data/`` are read as files.
+the kernels.  The o0 decoders K1 and K5 are also held against their
+plain versions where their shared-memory ring of stream words wraps and
+on corrupt streams and, with ``--before COMMIT``, timed in turns against
+the decoders of a ``git archive COMMIT`` unpacked in
+``_archive/COMMIT/``.  It imports no JAX and nothing of ``turborc_tpu``;
+the corpora under ``turborc_tpu/bench/_data/`` are read as files.
 
 The phases run in a child process under a wall-clock budget, so a kernel
 that hangs becomes a non-zero exit that names the phase.  The last line,
@@ -42,6 +45,16 @@ GOLDEN_X2 = ROOT / "turborc_tpu_torch" / "golden" / "o0p_x2.json"
 BUDGET_S = 600
 BENCH_GEOM = "g64c8s8y8l32a4r4"
 BENCH_GEOM_X2 = BENCH_GEOM + "x2"
+# --before COMMIT: the timing-decode-before-after phase builds the
+# rans_kernel.cu of _archive/COMMIT/ (a git archive of COMMIT unpacked
+# there; its trc_decode / trc_decode_x2 take BEFORE_ARGS ints, the
+# signature of the decoders that read each word from device memory) and
+# times its K1 and K5 against the current ones.  Without it the phase is
+# skipped.
+BEFORE_FLAG = "--before"
+BEFORE_ARGS = 9
+ARCHIVE = ROOT / "_archive"
+CSRC_REL = "turborc_tpu_torch/ops/csrc"
 CHILD_FLAG = "--child"
 CHILD_DONE = "chip_smoke: all phases passed"
 CSRC = "turborc_tpu_torch/ops/csrc/"
@@ -100,12 +113,27 @@ def _smi() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def phase_build() -> None:
+def phase_build(before: str | None):
+    """Build the port's sources and, beside them, the rans_kernel.cu of
+    commit ``before`` (from _archive/<before>/); returns the path of that
+    library, or None without ``before``."""
     import torch
     from turborc_tpu_torch.ops import build
     phase("build")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
+    job = None
+    if before is not None:
+        src = ARCHIVE / before / CSRC_REL
+        if not (src / "rans_kernel.cu").exists():
+            raise FileNotFoundError(f"{BEFORE_FLAG} {before}: no {src}/"
+                                    "rans_kernel.cu (unpack a git archive "
+                                    "of the commit there)")
+        lib = build.BUILD_DIR / f"librans_kernel_{before}.so"
+        job = (lib, subprocess.Popen(
+            [build.nvcc(), *build.FLAGS, "-I", str(src), "-o", str(lib),
+             str(src / "rans_kernel.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
     infos = build.build()
     build.load()
     for info in infos:
@@ -119,8 +147,16 @@ def phase_build() -> None:
                           r"o1_decode|model|coder|place|decode)_kernel", line)
             if m:
                 fn = m.group(1)
-            elif "Used" in line and fn:
+            elif ("Used" in line or "stack frame" in line) and fn:
                 log(f"ptxas {fn}: {line.split(':', 1)[-1].strip()}")
+    if job is None:
+        return None
+    lib, proc = job
+    _, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc of {before} failed:\n{err}")
+    log(f"build: {lib} ({before}'s rans_kernel.cu)")
+    return lib
 
 
 def _corpus(name: str, n: int | None = None):
@@ -252,10 +288,13 @@ TREE_GEOMS = (("g1c2s8y2l4a16r4", 1 << 16), ("g2c8s8y4l32a16r4", 300_000),
               ("g4c2s8y2l4a16r4", 1 << 16), (None, 1 << 20))
 
 
-def _kernel_cases(label: str, kind: str, cases, dev) -> None:
+def _kernel_cases(label: str, kind: str, cases, dev,
+                  min_wraps: int = 0) -> None:
     """Each case (geometry, bytes) through path ``kind``'s kernels and
     their plain versions: every output equal, and the decode gives the
-    block and the seeded states back."""
+    block and the seeded states back.  With ``min_wraps``, every group
+    stream must hold that many times the decoders' ring of words."""
+    from turborc_tpu_torch.ops import rans_kernel as K_
     phase(label)
     for geom, data in cases:
         args = _codec(kind).encode_args(data, geom, dev)
@@ -263,9 +302,76 @@ def _kernel_cases(label: str, kind: str, cases, dev) -> None:
         plain, _ = _run_path(_stages(kind, args, geom, kernels=False))
         err = _compare(kern, plain)
         _check_block(geom.spec, args, kern, KERNELS[kind][3])
+        note = ""
+        if min_wraps:  # words of the longest group stream of each set
+            words = [int(gl.max()) - 256 for gl in kern["place"][1::2]]
+            if max(words) < min_wraps * K_.RING_WORDS:
+                raise AssertionError(f"{label}: {words} words a stream "
+                                     f"set, under {min_wraps} rings")
+            note = (f"; words of the longest group stream per set {words}"
+                    f" = {[round(w / K_.RING_WORDS, 1) for w in words]} "
+                    "rings")
         log(f"{kind} kernels {geom.spec} n={data.size} K={args.K}: equal to "
             f"plain, tolerance 0 (max abs err {err}); decode returns the "
-            "block")
+            f"block{note}")
+
+
+# The decoders' ring wraps: one group at K = 2048 on 256 KB of textbwt,
+# about 11 rings of words in the group stream (4 at least); under x2 the
+# lo set's stream wraps as often, the hi set's (mostly rank-0 nibbles)
+# holds under half a ring.
+RING_GEOMS = ("g1c8s8y8l32a4r4", "g1c8s8y8l32a4r4x2")
+# Corrupt streams for K1 and K5: two groups, K = 256.
+CORRUPT_GEOMS = ("g2c8s8y8l32a4r4", "g2c8s8y8l32a4r4x2")
+
+
+def phase_decode_cases(dev) -> None:
+    """K1 and K5 where the ring wraps many times, and on corrupt streams:
+    flipped words, and streams cut short (fewer rows than the block
+    needs, down to the two state rows).  Each kernel equals its plain
+    version, final states included; a hang would overrun the budget."""
+    import torch
+    from turborc_tpu_torch.ops import rans_kernel as K_
+    from turborc_tpu_torch.ops.geom import Geom
+    text = _corpus("textbwt_16777216.bin", 1 << 18)
+    for spec in RING_GEOMS:
+        g = Geom.parse(spec)
+        _kernel_cases("decode-ring-wrap", "x2" if g.nstates == 2 else "o0",
+                      [(g, text)], dev, min_wraps=4)
+    phase("decode-corrupt")
+    gen = torch.Generator().manual_seed(20261017)
+    for spec in CORRUPT_GEOMS:
+        geom = Geom.parse(spec)
+        kind = "x2" if geom.nstates == 2 else "o0"
+        args = _codec(kind).encode_args(text[:1 << 17], geom, dev)
+        stages = _stages(kind, args, geom, kernels=True)
+        outs, _ = _run_path(stages[:3])
+        gs = stages[3][2](outs)[0]
+        R = gs.shape[-2]
+        used = max(int(gl.max()) for gl in outs["place"][1::2]) // 128
+        flip = gs.clone().reshape(-1, R * 128)
+        at = torch.randint(256, R * 128, (flip.shape[0], 64), generator=gen)
+        bits = torch.randint(1, 1 << 16, at.shape, generator=gen,
+                             dtype=torch.int32)
+        flip.scatter_(1, at.to(dev), flip.gather(1, at.to(dev))
+                      ^ bits.to(dev))
+        cases = {"flipped words": flip.reshape(gs.shape),
+                 f"R cut to {used // 2} of {used} rows":
+                     gs[..., :used // 2, :].contiguous(),
+                 "R cut to 2": gs[..., :2, :].contiguous()}
+        kern_fn, plain_fn = ((K_.decode_tile, K_.decode_plain) if kind == "o0"
+                             else (K_.decode_tile_x2, K_.decode_x2_plain))
+        for what, bad in cases.items():
+            k_out, k_fs = kern_fn(bad, args.K, args.hi_tbl, args.lo_tbl, geom)
+            p_out, p_fs = plain_fn(bad, args.K, args.hi_tbl, args.lo_tbl,
+                                   geom)
+            err = max(_max_abs(k_out, p_out), _max_abs(k_fs, p_fs))
+            if err:
+                raise AssertionError(f"decode-corrupt {spec} {what}: kernel "
+                                     f"differs from plain by {err}")
+            wrong = int((k_out.reshape(args.K, -1).T != args.block).sum())
+            log(f"decode-corrupt {spec} {what}: kernel equals plain "
+                f"(max abs err 0); {wrong} bytes differ from the block")
 
 
 def phase_kernels(dev) -> None:
@@ -479,7 +585,86 @@ def _time_path(label: str, kind: str, corpus: str, geom, dev) -> dict:
                 glens_sum=glens_sum)
 
 
-def _rows(names, timed: dict, geom, launches: dict) -> list:
+def phase_before_after(dev, before: str | None, lib_path) -> dict:
+    """K1 and K5 of commit ``before`` against the current ones on the 64 MB
+    block (id 57 and 57-x2's timing shapes): a warm-up, then 3 repetitions
+    on distinct rotations, the two kernels in turns (before first on odd
+    repetitions), CUDA events around the bare C entry of each (outputs
+    allocated beforehand, so no wrapper work is timed); their outputs must
+    be equal.  Returns {name: {"before": ms per repetition, "after":
+    ...}}, empty when there is no library."""
+    import ctypes
+
+    import numpy as np
+    import torch
+    from turborc_tpu_torch.ops import build
+    from turborc_tpu_torch.ops.geom import Geom
+    phase("timing-decode-before-after")
+    if lib_path is None:
+        log(f"timing-decode-before-after: skipped, no {BEFORE_FLAG} COMMIT")
+        return {}
+    K_ = _kernel_modules()[0]
+    lib = ctypes.CDLL(str(lib_path))
+    for fn in ("trc_decode", "trc_decode_x2"):  # that commit's signature
+        getattr(lib, fn).argtypes = ([ctypes.c_void_p] * 5
+                                     + [ctypes.c_int] * BEFORE_ARGS
+                                     + [ctypes.c_void_p])
+    base = _corpus("textbwt_67108864.bin")
+    res = {}
+    for name, spec, kind in (("decode", BENCH_GEOM, "o0"),
+                             ("decode_x2", BENCH_GEOM_X2, "x2")):
+        geom = Geom.parse(spec)
+        ms = {"before": [], "after": []}
+        for r in range(4):  # rep 0 is the warm-up
+            args = _codec(kind).encode_args(np.roll(base, 7919 * (r + 1)),
+                                            geom, dev)
+            stages = _stages(kind, args, geom, kernels=True)
+            outs, _ = _run_path(stages[:3])
+            gs = stages[3][2](outs)[0]
+            del outs
+            got = {}
+            for who in (("before", "after") if r % 2 else ("after", "before")):
+                out = torch.empty((args.K, geom.groups, 128),
+                                  dtype=torch.uint8, device=dev)
+                fs = torch.empty(gs.shape[:-2] + (128,), dtype=torch.int32,
+                                 device=dev)
+                if who == "after":
+                    fn = build.load()["trc_" + name]
+                    cargs = K_.decode_cargs(gs, args.K, args.hi_tbl,
+                                            args.lo_tbl, geom, out, fs)
+                else:
+                    fn = getattr(lib, "trc_" + name)
+                    cargs = [gs, args.hi_tbl, args.lo_tbl, out, fs, args.K,
+                             geom.groups, gs.shape[-2], geom.share,
+                             geom.sync, geom.lsync, geom.arows, geom.srows,
+                             geom.rate]
+                cargs = [x.data_ptr() if isinstance(x, torch.Tensor) else x
+                         for x in cargs]
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                err = fn(*cargs, torch.cuda.current_stream().cuda_stream)
+                end.record()
+                end.synchronize()
+                if err:
+                    raise RuntimeError(f"{who} {name}: CUDA error {err}")
+                if r:
+                    ms[who].append(start.elapsed_time(end))
+                got[who] = (out, fs)
+            if not all(torch.equal(a, b)
+                       for a, b in zip(got["before"], got["after"])):
+                raise AssertionError(f"{name}: the decoders of {before} "
+                                     "and now differ")
+            del gs, got
+        res[name] = ms
+    log("timing-decode-before-after " + json.dumps(dict(
+        geom=BENCH_GEOM, before=before, ms=res)))
+    return res
+
+
+def _rows(names, timed: dict, geom, launches: dict,
+          before: dict | None = None) -> list:
+    from turborc_tpu_torch.ops import rans_kernel as K_
     rows = []
     for k in names:
         bound, by = _bound_ms(k, geom, timed["K"], timed["glens_sum"])
@@ -488,10 +673,19 @@ def _rows(names, timed: dict, geom, launches: dict) -> list:
             launches=launches[k], max_abs_err=timed["err"][k],
             ms=timed["ms"][k], plain_ms=timed["plain_ms"][k],
             bound_ms=bound, bound_by=by, library_ms=None))
+        if k in ("decode", "decode_x2"):  # the redesigned decoders
+            pair = (before or {}).get(k, {})
+            mean = {w: sum(v) / len(v) if v else None
+                    for w, v in pair.items()}
+            # before_ms / after_ms: bare C entries, in turns, one phase;
+            # T: threads per lane
+            rows[-1].update(before_ms=mean.get("before"),
+                            after_ms=mean.get("after"),
+                            T=K_.decode_launch(geom).threads // K_.GLANES)
     return rows
 
 
-def child() -> int:
+def child(before: str | None) -> int:
     import torch
     from turborc_tpu_torch.ops.geom import Geom
     if not torch.cuda.is_available():
@@ -500,8 +694,9 @@ def child() -> int:
     dev = torch.device("cuda")
     log("device " + json.dumps(dict(kind=torch.cuda.get_device_name(0),
                                     count=torch.cuda.device_count())))
-    phase_build()
+    before_lib = phase_build(before)
     phase_kernels(dev)
+    phase_decode_cases(dev)
     golden, golden_r1 = _golden(GOLDEN), _golden(GOLDEN_R1)
     golden_rcp, golden_x2 = _golden(GOLDEN_RCP), _golden(GOLDEN_X2)
     main = _roundtrip("roundtrip-64MB-bench-geom",
@@ -529,10 +724,12 @@ def child() -> int:
                     dev)
     tt = _time_path("timing-tree", "tree", "textbwt_16777216.bin", Geom(),
                     dev)
-    rows = (_rows(KERNELS["o0"], t0, bench, main["launches"])
+    timed = phase_before_after(dev, before, before_lib)
+    rows = (_rows(KERNELS["o0"], t0, bench, main["launches"], timed)
             + _rows(("o1_model", "o1_decode"), t1, Geom(),
                     main_r1["launches"])
-            + _rows(("decode_x2",), tx, bench_x2, main_x2["launches"])
+            + _rows(("decode_x2",), tx, bench_x2, main_x2["launches"],
+                    timed)
             + _rows(("tree_model", "tree_decode"), tt, Geom(),
                     main_rcp["launches"]))
     log("card (nvidia-smi name, power.limit):")
@@ -546,14 +743,15 @@ def child() -> int:
 # parent: watchdog
 # ---------------------------------------------------------------------------
 
-def main() -> int:
+def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run",
               file=sys.stderr)
         return 2
     proc = subprocess.Popen(
-        [sys.executable, "-u", str(Path(__file__).resolve()), CHILD_FLAG],
+        [sys.executable, "-u", str(Path(__file__).resolve()), CHILD_FLAG,
+         *argv],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         cwd=str(ROOT), start_new_session=True)
     lines: queue.Queue = queue.Queue()
@@ -596,8 +794,19 @@ def main() -> int:
     return 0
 
 
+def _args(argv):
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument(CHILD_FLAG, action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument(BEFORE_FLAG, metavar="COMMIT",
+                    help="also time K1 and K5 of the git archive of COMMIT "
+                    "unpacked in _archive/COMMIT/")
+    return ap.parse_args(argv)
+
+
 if __name__ == "__main__":
-    if CHILD_FLAG in sys.argv[1:]:
+    opt = _args(sys.argv[1:])
+    if opt.child:
         sys.path.insert(0, str(ROOT))
-        sys.exit(child())
-    sys.exit(main())
+        sys.exit(child(opt.before))
+    sys.exit(main([] if opt.before is None else [BEFORE_FLAG, opt.before]))

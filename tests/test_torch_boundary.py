@@ -1,8 +1,9 @@
 """Boundaries of the PyTorch port.
 
-The port and ``chip_smoke.py`` import neither JAX nor the JAX package (the
-GPU machine has no JAX), and the port's entry points run on the card
-unless asked for the CPU: with no card they raise, they never fall back.
+The port, ``chip_smoke.py`` and the GPU tools under ``tools/`` import
+neither JAX nor the JAX package (the GPU machine has no JAX), and the
+port's entry points run on the card unless asked for the CPU: with no
+card they raise, they never fall back.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "turborc_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 
 
 def _forbidden(name: str) -> bool:

@@ -1,0 +1,456 @@
+"""Probe of the o0 decoders K1 and K5 on one GPU: where a byte step's
+cycles go, what ptxas and the SASS say, and what each part of the step
+costs.
+
+    python3 tools/decode_probe.py [--src DIR] [--ablate no-rejoin,...]
+        [--label NAME] [--out FILE]
+
+``--src`` is a ``csrc`` directory: the port's own (the default), or that
+of commit ff11eb3 (a ``git archive ff11eb3`` unpacked into a git-ignored
+directory), whose decoders read each stream word from device memory.
+Which of the two it holds is read from the source (``LAYOUTS``).  For
+that source the probe
+
+1. builds ``rans_kernel.cu`` with ``nvcc -Xptxas -v`` and reports, for
+   ``decode_kernel`` and ``decode_x2_kernel``, registers, stack, spills
+   and barriers; from ``cuobjdump -sass`` the static instruction count of
+   each kernel and of its byte loop (the longest backward branch), by
+   opcode class; and, with ``nvdisasm``, the source lines of every
+   local-memory (stack) access;
+2. builds a copy of the source with ``clock64()`` stamps inserted after
+   fixed source lines of K1's byte loop (the copy lives in the build
+   directory), runs it on one 64 MB block of ``textbwt_67108864.bin`` at
+   ``g64c8s8y8l32a4r4`` and reports the cycles that thread 0 of CTA 0
+   spent in each segment of the byte step, summed over the block and per
+   byte step.  A stamp first adds the segment's result to a sink, so a
+   segment is charged for the latency of its own loads; the stamps cost
+   time themselves, so the stamped kernel's time is reported beside the
+   plain one;
+3. times K1 and K5 (CUDA events around the bare C entry, a warm-up then 3
+   repetitions on distinct rotations of the block), held byte for byte
+   against the port's decoders on the same inputs, and, for the port's
+   source, with the parts named in ``--ablate`` cut out (``ABLATIONS``:
+   timed only, their output is wrong by construction).
+
+A stamp or an ablation whose source line is gone fails the run.  It
+prints one JSON object and writes it to ``--out``, with the SASS of the
+base build beside it.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import re
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from turborc_tpu_torch.ops import build  # noqa: E402
+from turborc_tpu_torch.ops import rans_kernel as K_  # noqa: E402
+from turborc_tpu_torch.ops.geom import Geom  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+CORPUS = ROOT / "turborc_tpu" / "bench" / "_data" / "textbwt_67108864.bin"
+GEOM = "g64c8s8y8l32a4r4"
+WORK = build.BUILD_DIR / "probe"
+
+# The two layouts: "ff11eb3" (K1's loop in decode_kernel, words from
+# device memory) and "ring" (the port's, K1 and K5 on decode_lanes), told
+# apart by the function that holds the byte loop (LOOP_IN).
+# Stamps: (source line after which the stamp goes, occurrence within the
+# byte loop, segment, value the segment produced).  Segment names follow
+# in SEGMENTS.
+STAMPS = {
+    "ff11eb3": [
+        ("state = uint32_t(fr_h) * (state >> 15) + value - uint32_t(low_h);",
+         1, 0, "state"),
+        ("fetch(state, s, limit, base, sm.wsum, buf);", 1, 1, "state"),
+        ("cdf_update(hi, low_h, m.rate);", 1, 2, "hi[15]"),
+        ("for (int i = 0; i < 16; ++i) row[i] = sm.lo_s[lo_at(hs, i)];",
+         1, 3, "row[15]"),
+        ("state = uint32_t(fr_l) * (state >> 15) + value - uint32_t(low_l);",
+         1, 4, "state"),
+        ("fetch(state, s, limit, base, sm.wsum, buf);", 2, 5, "state"),
+        ("out[size_t(t) * plane + col] = uint8_t((hs << 4) | ls);", 1, 6,
+         "row[15]"),
+        ("rejoin_after(t, m, hi, start_hi, sm.lo_s, sm.st_s, sm.red);", 1,
+         7, "hi[15]"),
+    ],
+    "ring": [
+        ("state[0] = uint32_t(fr_h) * (state[0] >> 15) + value - "
+         "uint32_t(low_h);", 1, 0, "state[0]"),
+        ("fetch_post(state, bal, b, buf, nfetch);", 1, 1, "bal[0]"),
+        ("ld_row(rp, row);", 1, 2, "row[0]"),
+        ("cdf_update(hi, low_h, m.rate);", 1, 3, "hi[0]"),
+        ("fetch_take(state, bal, r, limit, b, buf, nfetch);", 1, 4,
+         "state[0]"),
+        ("uint32_t(low_l);", 1, 5, "state[NS - 1]"),
+        ("fetch_post(state, bal, b, buf, nfetch);", 2, 6, "bal[0]"),
+        ("rejoin_batches_after(t, m, b, hi, start_hi);", 1, 7, "hi[0]"),
+        ("fetch_take(state, bal, r, limit, b, buf, nfetch);", 2, 8,
+         "state[NS - 1]"),
+    ],
+}
+LOOP_IN = {"ff11eb3": "decode_kernel(", "ring": "decode_lanes("}
+SEGMENTS = {
+    "ff11eb3": ["hi search+lookup+state", "fetch 1 (ballot, barrier, word)",
+             "hi update", "lo row load", "lo search+lookup+state",
+             "fetch 2 (ballot, barrier, word)",
+             "lo update, store, out byte", "re-join (every 8th byte)"],
+    "ring": ["hi search+lookup+state",
+             "fetch 1 post (ballot, counts, barrier)", "lo row load",
+             "hi update",
+             "fetch 1 take (prefix, word)", "lo search+lookup+state",
+             "fetch 2 post (ballot, counts, barrier)",
+             "lo update, store, out byte, re-join",
+             "fetch 2 take (prefix, word)"],
+}
+PRELUDE = r"""
+__device__ unsigned long long trc_split_acc[16];
+extern "C" int trc_split_read(void* out) {
+  return int(cudaMemcpyFromSymbol(out, trc_split_acc, sizeof(trc_split_acc)));
+}
+#define TRC_SPLIT_BEGIN                                                    \
+  unsigned long long trc_acc[10] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};       \
+  unsigned trc_sink = 0;                                                   \
+  const bool trc_on = blockIdx.x == 0 && threadIdx.x == 0;                 \
+  long long trc_last = clock64();
+#define TRC_STAMP(k, v)                                                    \
+  if (trc_on) {                                                            \
+    trc_sink += unsigned(v);                                               \
+    const long long trc_now = clock64();                                   \
+    trc_acc[k] += trc_now - trc_last;                                      \
+    trc_last = trc_now;                                                    \
+  }
+#define TRC_SPLIT_END                                                      \
+  if (trc_on) {                                                            \
+    for (int k = 0; k < 10; ++k) trc_split_acc[k] = trc_acc[k];            \
+    trc_split_acc[15] = trc_sink;                                          \
+  }
+"""
+
+
+def stamped(source: str, layout: str) -> str:
+    """The source with clock64() stamps in decode_kernel's byte loop."""
+    head, sep, rest = source.partition('#include "rans_common.cuh"\n')
+    if not sep:
+        raise ValueError("rans_common.cuh include not found")
+    start = rest.index(LOOP_IN[layout])
+    loop = rest.index("for (int t = 0; t < K; ++t) {", start)
+    end = rest.index("\n  }\n", loop) + len("\n  }\n")
+    body = rest[loop:end]
+    for anchor, nth, seg, val in STAMPS[layout]:
+        at = -1
+        for _ in range(nth):
+            at = body.index(anchor, at + 1)
+        eol = body.index("\n", at)
+        body = (body[:eol] + f"\n    TRC_STAMP({seg}, {val});"
+                + body[eol:])
+    return (head + sep + PRELUDE + rest[:loop] + "TRC_SPLIT_BEGIN\n  "
+            + body + "  TRC_SPLIT_END\n" + rest[end:])
+
+
+def _ptxas(report: str) -> dict:
+    """Per decode kernel: registers, stack, spills, barriers, smem."""
+    res, fn = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line \
+                or "Function properties for" in line:
+            m = re.search(r"(?:function '|for )\w*?(decode_x2|decode)"
+                          r"_kernel", line)
+            fn = m.group(1) if m else None
+            if fn:
+                res.setdefault(fn, {})
+            continue
+        if fn and fn in res:
+            for key, pat in (("stack_bytes", r"(\d+) bytes stack frame"),
+                             ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads"),
+                             ("registers", r"Used (\d+) registers"),
+                             ("barriers", r"used (\d+) barriers"),
+                             ("smem", r"(\d+) bytes smem")):
+                m3 = re.search(pat, line)
+                if m3:
+                    res[fn][key] = int(m3.group(1))
+    return res
+
+
+def _tool(name: str) -> str | None:
+    cand = Path(build.nvcc()).parent / name
+    return str(cand) if cand.exists() else shutil.which(name)
+
+
+def _sass(lib: Path) -> dict:
+    """Static SASS counts of the decode kernels and their byte loops."""
+    tool = _tool("cuobjdump")
+    if tool is None:
+        return {"error": "cuobjdump not found"}
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True).stdout
+    funcs, cur, keep = {}, None, []
+    for line in text.splitlines():
+        if cur is not None or "Function :" in line:
+            keep.append(line)
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            k = re.search(r"\d(decode_x2|decode)_kernel", m.group(1))
+            cur = k.group(1) if k else None
+            if cur:
+                funcs[cur] = []
+            continue
+        ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if cur is not None and ins:
+            funcs[cur].append((int(ins.group(1), 16), ins.group(2).strip()))
+    out = {}
+    for name, ins in funcs.items():
+        at = {a: i for i, (a, _) in enumerate(ins)}
+        best = (0, 0)  # the longest backward branch: the byte loop
+        for i, (a, op) in enumerate(ins):
+            m = re.search(r"BRA\s+(?:`\(\.L_x_\d+\)|0x([0-9a-f]+))", op)
+            if m and m.group(1):
+                t = int(m.group(1), 16)
+                if t <= a and t in at and i + 1 - at[t] > best[1] - best[0]:
+                    best = (at[t], i + 1)
+        loop = [op for _, op in ins[best[0]:best[1]]]
+
+        def classes(seq):
+            c = {}
+            for op in seq:
+                word = op.split()[1] if op.startswith("@") else op.split()[0]
+                c[word.split(".")[0]] = c.get(word.split(".")[0], 0) + 1
+            return dict(sorted(c.items(), key=lambda kv: -kv[1]))
+        out[name] = {"instructions": len(ins), "loop_instructions": len(loop),
+                     "loop_by_opcode": classes(loop)}
+    (lib.parent / "decode_sass.txt").write_text("\n".join(keep))
+    return out
+
+
+def _stack_lines(lib: Path) -> dict:
+    """Source lines of local-memory accesses (LDL/STL) per decode kernel."""
+    cu, nd = _tool("cuobjdump"), _tool("nvdisasm")
+    if cu is None or nd is None:
+        return {"error": "cuobjdump or nvdisasm not found"}
+    d = lib.parent / (lib.stem + "_cubin")
+    d.mkdir(exist_ok=True)
+    subprocess.run([cu, "-xelf", "all", str(lib)], cwd=d,
+                   capture_output=True)
+    res = {}
+    for cubin in d.glob("*.cubin"):
+        text = subprocess.run([nd, "-g", str(cubin)], capture_output=True,
+                              text=True).stdout
+        fn, line = None, None
+        for row in text.splitlines():
+            m = re.search(r"\.text\.(\S+):", row)
+            if m:
+                k = re.search(r"(decode_x2|decode)_kernel", m.group(1))
+                fn = k.group(1) if k and "o1" not in m.group(1) \
+                    and "tree" not in m.group(1) else None
+                continue
+            m = re.search(r"//## File \"(.*?)\", line (\d+)", row)
+            if m:
+                line = f"{Path(m.group(1)).name}:{m.group(2)}"
+                continue
+            if fn and re.search(r"\b(LDL|STL)\b", row):
+                key = f"{fn} {line}"
+                res[key] = res.get(key, 0) + 1
+    return res
+
+
+def _inputs(dev, geom: Geom, rot: int):
+    from turborc_tpu_torch.codecs import rans_cdf_o0_p as C0
+    data = np.roll(np.fromfile(CORPUS, np.uint8), rot)
+    a = C0.encode_args(data, geom, dev)
+    gs, _ = K_.encode_tile(a.block, a.K, a.hi_tbl, a.lo_tbl, a.init_states,
+                           geom)
+    return a, gs
+
+
+def _cargs(layout: str, name: str, a, gs, geom: Geom):
+    """Outputs and the C entry's arguments for one decode."""
+    out = torch.empty((a.K, geom.groups, 128), dtype=torch.uint8,
+                      device=gs.device)
+    lead = (2,) if name == "decode_x2" else ()
+    fs = torch.empty((*lead, geom.groups, 128), dtype=torch.int32,
+                     device=gs.device)
+    if layout == "ff11eb3":
+        args = [gs, a.hi_tbl, a.lo_tbl, out, fs, a.K, geom.groups,
+                gs.shape[-2], geom.share, geom.sync, geom.lsync, geom.arows,
+                geom.srows, geom.rate]
+    else:
+        args = K_.decode_cargs(gs, a.K, a.hi_tbl, a.lo_tbl, geom, out, fs)
+    return out, fs, [x.data_ptr() if isinstance(x, torch.Tensor) else x
+                     for x in args]
+
+
+def _lib(path: Path, layout: str):
+    lib = ctypes.CDLL(str(path))
+    for fn in ("trc_decode", "trc_decode_x2"):
+        f = getattr(lib, fn)
+        f.argtypes = (([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+                       + [ctypes.c_void_p]) if layout == "ff11eb3"
+                      else build.SIGNATURES["rans_kernel.cu"][fn])
+        f.restype = ctypes.c_int
+    return lib
+
+
+def _run(lib, layout, name, a, gs, geom):
+    out, fs, args = _cargs(layout, name, a, gs, geom)
+    fn = getattr(lib, "trc_" + name)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    end.record()
+    end.synchronize()
+    if err:
+        raise RuntimeError(f"{name}: CUDA error {err}")
+    return out, fs, start.elapsed_time(end)
+
+
+# Ablations (``--ablate``, ring layout only): the decoders with one part
+# cut out, timed only (their output is wrong by construction), to price
+# that part under the real interleaving of warps.  Each replaces every
+# match inside the decoders' section of the source, and must match.
+ABLATIONS = {
+    "no-rejoin": [("rejoin_batches_after(t, m, b, hi, start_hi);", "")],
+    "no-update": [("cdf_update(hi, low_h, m.rate);", ""),
+                  ("cdf_update(row, low_l, m.rate);", "")],
+    "no-word": [("p < limit ? uint32_t(r[k].buf[p & (kRingWords - 1)]) : 0u",
+                 "uint32_t(p) & 0xFFFFu")],
+    "no-topup": [("    if (top) ring_top_up(r[k], limit);\n", ""),
+                 ("  if ((nfetch & (kRingEvery - 1)) == 0) "
+                  "cp_async_wait<kRingLag>();\n", "")],
+    "no-barrier": [("cp_async_wait<kRingLag>();\n  __syncthreads();\n",
+                    "cp_async_wait<kRingLag>();\n")],
+}
+DECODERS = ("// ---- K1 and K5: the decoders", "// ---- K1: decode.")
+
+
+def _layout(source: str) -> str:
+    """"ring" where decode_lanes holds the byte loop, else "ff11eb3"."""
+    for layout in ("ring", "ff11eb3"):
+        if LOOP_IN[layout] in source:
+            return layout
+    raise ValueError("no decoder byte loop of a known layout")
+
+
+def _variants(base: str, layout: str, ablate) -> dict:
+    """name -> (source, held against the port's decoder)."""
+    out = {"base": (base, True), "stamped": (stamped(base, layout), True)}
+    if not ablate:
+        return out
+    if layout != "ring":
+        raise ValueError("--ablate applies to the port's own source")
+    a, b = base.index(DECODERS[0]), base.index(DECODERS[1])
+    for name in ablate:
+        part = base[a:b]
+        for old, new in ABLATIONS[name]:
+            if old not in part:
+                raise ValueError(f"ablation {name}: {old!r} not found")
+            part = part.replace(old, new)
+        out[name] = (base[:a] + part + base[b:], False)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--src", default=str(build.CSRC))
+    ap.add_argument("--ablate", default="")
+    ap.add_argument("--label", default="")
+    ap.add_argument("--out", default="")
+    opt = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("decode_probe: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    src = Path(opt.src).resolve()
+    base = (src / "rans_kernel.cu").read_text()
+    layout = _layout(base)
+    label = opt.label or layout
+    work = WORK / label
+    if work.exists():
+        shutil.rmtree(work)
+    work.mkdir(parents=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    res = {"label": label, "layout": layout, "src": str(src), "card": smi,
+           "geom": GEOM}
+    t0 = time.perf_counter()
+    variants = _variants(base, layout,
+                         [x for x in opt.ablate.split(",") if x])
+    libs, reports, procs = {}, {}, []
+    for name, (text, _) in variants.items():
+        (work / name).mkdir()
+        cu = work / name / "rans_kernel.cu"
+        cu.write_text(text)
+        shutil.copy(src / "rans_common.cuh", work / name)
+        lib = work / name / f"lib{name}.so"
+        cmd = [build.nvcc(), *build.FLAGS, "-I", str(work / name), "-o",
+               str(lib), str(cu)]
+        procs.append((name, lib, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    for name, lib, p in procs:
+        o, e = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc {name} failed:\n{e}")
+        libs[name], reports[name] = lib, o + e
+    res["nvcc_s"] = time.perf_counter() - t0
+    res["ptxas"] = {k: _ptxas(v) for k, v in reports.items()}
+    res["sass"] = {k: _sass(libs[k]) for k in variants}
+    res["stack_lines"] = {k: _stack_lines(libs[k]) for k in variants}
+
+    geom, geom2 = Geom.parse(GEOM), Geom.parse(GEOM + "x2")
+    loaded = {k: _lib(libs[k], layout) for k in variants}
+    times = {f"{k} {n}": [] for k in variants
+             for n in ("decode", "decode_x2")}
+    split, K = None, 0
+    for r in range(4):  # rep 0 is the warm-up
+        for name, g in (("decode", geom), ("decode_x2", geom2)):
+            a, gs = _inputs(dev, g, 7919 * (r + 1))
+            ref_out, ref_fs = (K_.decode_tile if name == "decode"
+                               else K_.decode_tile_x2)(
+                gs, a.K, a.hi_tbl, a.lo_tbl, g)
+            for k, (_, checked) in variants.items():
+                out, fs, ms = _run(loaded[k], layout, name, a, gs, g)
+                if checked and not (torch.equal(out, ref_out)
+                                    and torch.equal(fs, ref_fs)):
+                    raise AssertionError(f"{k} {name} differs from the "
+                                         "port's decoder")
+                if r:
+                    times[f"{k} {name}"].append(ms)
+                if k == "stamped" and name == "decode":
+                    acc = (ctypes.c_ulonglong * 16)()
+                    loaded[k].trc_split_read(ctypes.cast(acc,
+                                                         ctypes.c_void_p))
+                    n = len(SEGMENTS[layout])
+                    split, K = [int(x) for x in acc[:n]], a.K
+            del a, gs, ref_out, ref_fs
+    total = sum(split)
+    res["split"] = {
+        "K": K, "thread": "lane 0 of warp 0 of CTA 0",
+        "cycles_total": total, "cycles_per_byte": total / K,
+        "segments": [{"segment": SEGMENTS[layout][i], "cycles": c,
+                      "per_byte": c / K, "share": c / total}
+                     for i, c in enumerate(split)]}
+    res["ms"] = times
+    res["mean_ms"] = {k: sum(v) / len(v) for k, v in times.items() if v}
+    text = json.dumps(res, indent=1)
+    print(text)
+    if opt.out:
+        Path(opt.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(opt.out).write_text(text)
+        shutil.copy(libs["base"].parent / "decode_sass.txt",
+                    Path(opt.out).with_suffix(".sass.txt"))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -33,8 +33,10 @@ _I = ctypes.c_int
 SIGNATURES = {
     "rans_kernel.cu": {
         "trc_model": [_P, _P, _P, _P] + [_I] * 8 + [_P],
-        "trc_decode": [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
-        "trc_decode_x2": [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
+        # K1 / K5: tile and geometry, then rans_kernel.decode_launch's
+        # threads, shared-memory bytes and six region offsets
+        "trc_decode": [_P] * 5 + [_I] * 17 + [_P],
+        "trc_decode_x2": [_P] * 5 + [_I] * 17 + [_P],
         "trc_coder": [_P] * 5 + [_I] * 2 + [_P],
         "trc_place": [_P] * 5 + [_I] * 3 + [_P],
     },

@@ -28,6 +28,8 @@ XLA twin there and is written from the decode kernel's semantics.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from turborc_tpu_torch.codecs import rans_cdf_s8 as S8
@@ -36,6 +38,19 @@ from turborc_tpu_torch.ops import rans
 from turborc_tpu_torch.ops.geom import DEFAULT, Geom
 
 GLANES = 128
+
+# The decoders' launch (csrc/rans_kernel.cu, K1 and K5): one thread per
+# lane, one CTA per group, and per stream set a ring of RING_WORDS stream
+# words in shared memory, topped up every RING_EVERY fetches with at most
+# RING_LAG top-ups in flight.  The source holds the same numbers
+# (kRingWords, kRingEvery, kRingLag); its C entry refuses a launch that
+# does not carve as decode_launch says.
+RING_WORDS = 4096
+RING_EVERY = 8
+RING_LAG = 1
+FETCH_WORDS = GLANES   # most words one fetch takes from one stream set
+SMEM_MAX = 232_448     # shared-memory bytes a CTA may have on the H100
+REGIONS = ("ring", "lo", "st", "fixed", "red", "rank")
 
 launches = dict.fromkeys(("model", "coder", "place", "decode", "decode_x2"),
                          0)
@@ -332,6 +347,100 @@ def decode_tile_x2(gstreams: torch.Tensor, K: int, hi_tbl: torch.Tensor,
     return _decode(gstreams, K, hi_tbl, lo_tbl, geom)
 
 
+@dataclasses.dataclass(frozen=True)
+class DecodeLaunch:
+    """K1's or K5's launch: threads per CTA, dynamic shared-memory bytes,
+    and the byte offset and size of each region (``REGIONS`` order): the
+    stream rings, the adaptive lo rows per lane, their re-join start
+    copies, the static lo rows (once per group), the cross-warp set sums
+    and the per-warp rank counts (one byte a warp, double-buffered)."""
+    threads: int
+    smem: int
+    offsets: tuple
+    sizes: tuple
+
+
+def decode_launch(geom: Geom) -> DecodeLaunch:
+    """The decoders' launch for ``geom``."""
+    warps = GLANES // 32
+    ns = geom.nstates
+    sizes = (ns * RING_WORDS * 4,
+             geom.arows * GLANES * 32,
+             (geom.arows if geom.share > 1 else 0) * GLANES * 32,
+             (16 - geom.arows) * 32,
+             warps * 16 * 4 if geom.share > 32 else 0,
+             2 * ns * warps)
+    offsets, end = [], 0
+    for size in sizes:
+        offsets.append(end)
+        end += -(-size // 16) * 16
+    return DecodeLaunch(GLANES, end, tuple(offsets), sizes)
+
+
+def ring_top_up(base: int, limit: int, ring: int = RING_WORDS) -> int:
+    """The ring's frontier after a top-up at a fetch that starts at stream
+    position ``base``: every position below it has been requested."""
+    return min((base + ring) & ~3, limit)
+
+
+def ring_check(takes, limit: int, ring: int = RING_WORDS,
+               every: int = RING_EVERY, lag: int = RING_LAG) -> None:
+    """Replay the decoders' ring on one stream set (a mirror of
+    ``csrc/rans_kernel.cu``'s ``Ring``): ``takes[f]`` words (0-128) are
+    read at fetch f from a stream of ``limit`` words.  Raises
+    AssertionError where a fetch would read a word that has not arrived,
+    or a top-up would overwrite a word that a fetch may still read.
+
+    The kernel prefills positions [256, 256 + ring).  Fetch f is a top-up
+    fetch when f % every == 0: before its barrier the CTA waits until at
+    most ``lag`` of its copy groups are in flight.  The lanes read
+    [base, base + take) after the barrier (positions at or past ``limit``
+    read 0 and need no slot); a top-up fetch then requests
+    [frontier, ring_top_up(base)) as one group; base advances."""
+    slot = {}        # ring slot -> stream position it holds
+    arrived = set()  # slots whose word is visible to every thread
+    hi = min(256 + ring, limit)
+    for p in range(256, hi):
+        slot[p % ring] = p
+        arrived.add(p % ring)
+    base, groups = 256, []
+    for f, take in enumerate(takes):
+        assert 0 <= take <= FETCH_WORDS
+        top = f % every == 0
+        if top:
+            while len(groups) > lag:
+                arrived.update(groups.pop(0))
+        for p in range(base, min(base + take, limit)):
+            s = p % ring
+            assert slot.get(s) == p and s in arrived, \
+                f"position {p} read before it arrived"
+        if top:
+            to = ring_top_up(base, limit, ring)
+            assert to - hi <= FETCH_WORDS * every, "top-up too large"
+            group = []
+            for q in range(hi, to):
+                s = q % ring
+                assert slot.get(s, -1) < base, \
+                    f"position {q} overwrites unread position {slot[s]}"
+                slot[s] = q
+                arrived.discard(s)
+                group.append(s)
+            groups.append(group)
+            hi = max(hi, to)
+        base = min(base + take, limit)
+
+
+def decode_cargs(gstreams, K: int, hi_tbl, lo_tbl, geom: Geom, out,
+                 fstates) -> list:
+    """The arguments of ``trc_decode`` / ``trc_decode_x2`` (without the
+    stream): the tile, the geometry and ``decode_launch``'s numbers."""
+    ln = decode_launch(geom)
+    return [gstreams, hi_tbl, lo_tbl, out, fstates, K, geom.groups,
+            gstreams.shape[-2], geom.share, geom.sync, geom.lsync,
+            geom.arows, geom.srows, geom.rate, ln.threads, ln.smem,
+            *ln.offsets]
+
+
 def _decode(gstreams, K, hi_tbl, lo_tbl, geom):
     """K1 (one state) or K5 (two): the checks and the dispatch."""
     G, R, ns = geom.groups, gstreams.shape[-2], geom.nstates
@@ -346,11 +455,14 @@ def _decode(gstreams, K, hi_tbl, lo_tbl, geom):
                    else (decode_x2_plain, "decode_x2"))
     if not gstreams.is_cuda:
         return plain(gstreams, K, hi_tbl, lo_tbl, geom)
+    if R * GLANES > 2**31 - 1 - 2 * RING_WORDS:  # int32 stream positions
+        raise ValueError(f"gstreams: {R} rows exceed the int32 positions")
+    if gstreams.data_ptr() % 16:  # the ring copies 16 bytes at a time
+        raise ValueError("gstreams: must be 16-byte aligned")
     out = torch.empty((K, G, GLANES), dtype=torch.uint8, device=dev)
     fstates = torch.empty((*lead, G, GLANES), dtype=torch.int32, device=dev)
-    launch(name, "trc_" + name, gstreams, hi_tbl, lo_tbl, out, fstates,
-           K, G, R, geom.share, geom.sync, geom.lsync, geom.arows,
-           geom.srows, geom.rate)
+    launch(name, "trc_" + name,
+           *decode_cargs(gstreams, K, hi_tbl, lo_tbl, geom, out, fstates))
     return out, fstates
 
 

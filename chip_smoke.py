@@ -12,8 +12,10 @@ flagships; the bit-tree ``rc-p`` on K9, K3, K4 and K8), checks every
 container against the golden hashes the JAX package wrote, then times
 the kernels.  The o0 decoders K1 and K5 are also held against their
 plain versions where their shared-memory ring of stream words wraps and
-on corrupt streams and, with ``--before COMMIT``, timed in turns against
-the decoders of a ``git archive COMMIT`` unpacked in
+on corrupt streams, and the placement K4 on edge cases of emit (every
+lane, none, one, slot counts that are not a multiple of its chunk).
+With ``--before COMMIT``, the o0 model K2 and K4 are timed in turns
+against those of a ``git archive COMMIT`` unpacked in
 ``_archive/COMMIT/``.  It imports no JAX and nothing of ``turborc_tpu``;
 the corpora under ``turborc_tpu/bench/_data/`` are read as files.
 
@@ -45,14 +47,14 @@ GOLDEN_X2 = ROOT / "turborc_tpu_torch" / "golden" / "o0p_x2.json"
 BUDGET_S = 600
 BENCH_GEOM = "g64c8s8y8l32a4r4"
 BENCH_GEOM_X2 = BENCH_GEOM + "x2"
-# --before COMMIT: the timing-decode-before-after phase builds the
+# --before COMMIT: the timing-encode-before-after phase builds the
 # rans_kernel.cu of _archive/COMMIT/ (a git archive of COMMIT unpacked
-# there; its trc_decode / trc_decode_x2 take BEFORE_ARGS ints, the
-# signature of the decoders that read each word from device memory) and
-# times its K1 and K5 against the current ones.  Without it the phase is
-# skipped.
+# there) and times its K2 and K4 against the current ones.  Their C
+# signatures there, as (pointers, ints) before the stream: those of the
+# model and the one-CTA-a-group placement of d62ac60 and earlier.
+# Without it the phase is skipped.
 BEFORE_FLAG = "--before"
-BEFORE_ARGS = 9
+BEFORE_ARGS = {"trc_model": (4, 8), "trc_place": (5, 3)}
 ARCHIVE = ROOT / "_archive"
 CSRC_REL = "turborc_tpu_torch/ops/csrc"
 CHILD_FLAG = "--child"
@@ -75,6 +77,8 @@ REPLACES = {
     "tree_decode": "turborc_tpu/ops/pallas/bittree_kernel.py:203",
     "tree_model": "turborc_tpu/ops/pallas/bittree_kernel.py:333",
 }
+# Kernels timed against a parent's with --before.
+REDESIGNED = ("model", "place")
 # Each path's kernels in stage order: model, coder, place, decode.
 KERNELS = {"o0": ("model", "coder", "place", "decode"),
            "o1": ("o1_model", "coder", "place", "o1_decode"),
@@ -144,7 +148,8 @@ def phase_build(before: str | None):
         for line in info["ptxas"].splitlines():
             m = re.search(r"Compiling entry function '\w*?"
                           r"(tree_model|tree_decode|decode_x2|o1_model|"
-                          r"o1_decode|model|coder|place|decode)_kernel", line)
+                          r"o1_decode|place_count|model|coder|place|decode)"
+                          r"_kernel", line)
             if m:
                 fn = m.group(1)
             elif ("Used" in line or "stack frame" in line) and fn:
@@ -230,13 +235,23 @@ def _stages(kind: str, args, geom, kernels: bool):
             (d, decode, lambda o: (torch.stack(o["place"][0::2]),)))
 
 
-def _run_path(stages):
+def _segments() -> int:
+    """cudaMalloc calls of PyTorch's caching allocator so far."""
+    import torch
+    return torch.cuda.memory_stats().get("segment.all.allocated", 0)
+
+
+def _run_path(stages, mallocs: dict | None = None):
     """Run the stages in order; returns every output and the per-stage
-    milliseconds (CUDA events)."""
+    milliseconds (CUDA events).  With ``mallocs``, adds each stage's
+    cudaMalloc calls (new allocator segments) to ``mallocs[stage]``: a
+    wrapper's output that the allocator's cache cannot hold is a
+    cudaMalloc inside the timed span."""
     import torch
     outs, ms = {}, {}
     for name, fn, mk in stages:
         a = mk(outs)
+        seg = _segments()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -244,6 +259,8 @@ def _run_path(stages):
         end.record()
         end.synchronize()
         ms[name] = start.elapsed_time(end)
+        if mallocs is not None:
+            mallocs[name] = mallocs.get(name, 0) + _segments() - seg
     return outs, ms
 
 
@@ -525,12 +542,16 @@ def _time_path(label: str, kind: str, corpus: str, geom, dev) -> dict:
     codec = _codec(kind)
     names = KERNELS[kind]
     base = _corpus(corpus)
-    # The warm-up's outputs are freed before the timed runs, so every
-    # buffer they need is in the allocator's cache and no cudaMalloc lands
-    # in a timed span.
+    # The warm-up's outputs are freed before the timed runs, and so are
+    # each repetition's before the next, so every buffer a wrapper asks
+    # for is in the allocator's cache and no cudaMalloc lands in a timed
+    # span (``mallocs`` counts any that does, and fails the phase).  A
+    # repetition that still held the last one's outputs made the wrappers
+    # of K3 and K4 allocate their 537 MB outputs anew inside the span.
     _run_path(_stages(kind, codec.encode_args(np.roll(base, 1), geom, dev),
                       geom, kernels=True))
     ms = {k: [] for k in names}
+    mallocs: dict = {}
     prep = []  # host half of encode_block, to the block on the card
     for r in range(3):
         x = np.roll(base, 7919 * (r + 1))
@@ -538,9 +559,15 @@ def _time_path(label: str, kind: str, corpus: str, geom, dev) -> dict:
         args = codec.encode_args(x, geom, dev)
         _sync()
         prep.append(time.perf_counter() - t0)
-        _, t = _run_path(_stages(kind, args, geom, kernels=True))
+        outs, t = _run_path(_stages(kind, args, geom, kernels=True),
+                            mallocs)
+        del outs
         for k, v in t.items():
             ms[k].append(v)
+    grew = {k: n for k, n in mallocs.items() if n}
+    if grew:
+        raise AssertionError(f"{label}: cudaMalloc inside the timed spans of "
+                             f"{grew}: the kernel times would include it")
     kern, _ = _run_path(_stages(kind, args, geom, kernels=True))
     plain, plain_ms = _run_path(_stages(kind, args, geom, kernels=False))
     err = _compare(kern, plain)
@@ -578,7 +605,8 @@ def _time_path(label: str, kind: str, corpus: str, geom, dev) -> dict:
         encode_kernel_share=[sum(kms[k] for k in names[:3]) / 1e3 / s
                              for s in enc],
         decode_kernel_share=[kms[names[3]] / 1e3 / s for s in dec],
-        kernel_ms_reps=ms, plain_ms=plain_ms,
+        kernel_ms_reps=ms, mallocs_in_timed_spans=mallocs,
+        plain_ms=plain_ms,
         bound_ms={k: _bound_ms(k, geom, args.K, glens_sum)[0]
                   for k in names})))
     return dict(ms=kms, plain_ms=plain_ms, err=err, K=args.K,
@@ -586,80 +614,181 @@ def _time_path(label: str, kind: str, corpus: str, geom, dev) -> dict:
 
 
 def phase_before_after(dev, before: str | None, lib_path) -> dict:
-    """K1 and K5 of commit ``before`` against the current ones on the 64 MB
-    block (id 57 and 57-x2's timing shapes): a warm-up, then 3 repetitions
-    on distinct rotations, the two kernels in turns (before first on odd
-    repetitions), CUDA events around the bare C entry of each (outputs
-    allocated beforehand, so no wrapper work is timed); their outputs must
-    be equal.  Returns {name: {"before": ms per repetition, "after":
-    ...}}, empty when there is no library."""
+    """K2 and K4 of commit ``before`` against the current ones on the 64 MB
+    block (id 57's timing shapes): a warm-up, then 3 repetitions on
+    distinct rotations, the two kernels in turns (before first on odd
+    repetitions), CUDA events around the bare C entry of each (outputs and
+    scratch allocated beforehand, so no wrapper work is timed); their
+    outputs must be equal.  Returns {name: {"before": ms per repetition,
+    "after": ...}}, empty when there is no library."""
     import ctypes
 
     import numpy as np
     import torch
     from turborc_tpu_torch.ops import build
     from turborc_tpu_torch.ops.geom import Geom
-    phase("timing-decode-before-after")
+    label = "timing-encode-before-after"
+    phase(label)
     if lib_path is None:
-        log(f"timing-decode-before-after: skipped, no {BEFORE_FLAG} COMMIT")
+        log(f"{label}: skipped, no {BEFORE_FLAG} COMMIT")
         return {}
     K_ = _kernel_modules()[0]
     lib = ctypes.CDLL(str(lib_path))
-    for fn in ("trc_decode", "trc_decode_x2"):  # that commit's signature
-        getattr(lib, fn).argtypes = ([ctypes.c_void_p] * 5
-                                     + [ctypes.c_int] * BEFORE_ARGS
+    for fn, (ptrs, ints) in BEFORE_ARGS.items():  # that commit's signature
+        getattr(lib, fn).argtypes = ([ctypes.c_void_p] * ptrs
+                                     + [ctypes.c_int] * ints
                                      + [ctypes.c_void_p])
     base = _corpus("textbwt_67108864.bin")
-    res = {}
-    for name, spec, kind in (("decode", BENCH_GEOM, "o0"),
-                             ("decode_x2", BENCH_GEOM_X2, "x2")):
-        geom = Geom.parse(spec)
-        ms = {"before": [], "after": []}
-        for r in range(4):  # rep 0 is the warm-up
-            args = _codec(kind).encode_args(np.roll(base, 7919 * (r + 1)),
-                                            geom, dev)
-            stages = _stages(kind, args, geom, kernels=True)
-            outs, _ = _run_path(stages[:3])
-            gs = stages[3][2](outs)[0]
-            del outs
+    geom = Geom.parse(BENCH_GEOM)
+    G = geom.groups
+    ms = {k: {"before": [], "after": []} for k in REDESIGNED}
+
+    def timed(fn, cargs) -> float:
+        cargs = [x.data_ptr() if isinstance(x, torch.Tensor) else x
+                 for x in cargs]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        err = fn(*cargs, torch.cuda.current_stream().cuda_stream)
+        end.record()
+        end.synchronize()
+        if err:
+            raise RuntimeError(f"{fn.__name__}: CUDA error {err}")
+        return start.elapsed_time(end)
+
+    for r in range(4):  # rep 0 is the warm-up
+        args = _codec("o0").encode_args(np.roll(base, 7919 * (r + 1)), geom,
+                                        dev)
+        K = args.K
+        cols = args.block.T.contiguous().reshape(K, G, 128)
+        words, emit, state = K_.coder(K_.model(cols, args.hi_tbl,
+                                               args.lo_tbl, geom),
+                                      args.init_states)
+        S = words.shape[0]
+        R = S + 2 + geom.wrows
+        ln = K_.place_launch(S, G, R)
+        for name in REDESIGNED:
             got = {}
             for who in (("before", "after") if r % 2 else ("after", "before")):
-                out = torch.empty((args.K, geom.groups, 128),
-                                  dtype=torch.uint8, device=dev)
-                fs = torch.empty(gs.shape[:-2] + (128,), dtype=torch.int32,
-                                 device=dev)
-                if who == "after":
-                    fn = build.load()["trc_" + name]
-                    cargs = K_.decode_cargs(gs, args.K, args.hi_tbl,
-                                            args.lo_tbl, geom, out, fs)
+                if name == "model":
+                    outs = (torch.empty((2 * K, G, 128), dtype=torch.int32,
+                                        device=dev),)
+                    cargs = K_.model_cargs(cols, args.hi_tbl, args.lo_tbl,
+                                           outs[0], geom)
+                    if who == "before":
+                        cargs = cargs[:12]
                 else:
-                    fn = getattr(lib, "trc_" + name)
-                    cargs = [gs, args.hi_tbl, args.lo_tbl, out, fs, args.K,
-                             geom.groups, gs.shape[-2], geom.share,
-                             geom.sync, geom.lsync, geom.arows, geom.srows,
-                             geom.rate]
-                cargs = [x.data_ptr() if isinstance(x, torch.Tensor) else x
-                         for x in cargs]
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                err = fn(*cargs, torch.cuda.current_stream().cuda_stream)
-                end.record()
-                end.synchronize()
-                if err:
-                    raise RuntimeError(f"{who} {name}: CUDA error {err}")
+                    outs = (torch.empty((G, R, 128), dtype=torch.int32,
+                                        device=dev),
+                            torch.empty((G,), dtype=torch.int32, device=dev))
+                    counts = torch.empty((ln.scratch,), dtype=torch.int32,
+                                         device=dev)
+                    cargs = K_.place_cargs(words, emit, state, *outs, counts,
+                                           ln)
+                    if who == "before":
+                        cargs = [words, emit, state, *outs, S, G, R]
+                fn = (build.load()["trc_" + name] if who == "after"
+                      else getattr(lib, "trc_" + name))
+                t = timed(fn, cargs)
                 if r:
-                    ms[who].append(start.elapsed_time(end))
-                got[who] = (out, fs)
+                    ms[name][who].append(t)
+                got[who] = outs
             if not all(torch.equal(a, b)
                        for a, b in zip(got["before"], got["after"])):
-                raise AssertionError(f"{name}: the decoders of {before} "
+                raise AssertionError(f"{name}: the kernels of {before} "
                                      "and now differ")
-            del gs, got
-        res[name] = ms
-    log("timing-decode-before-after " + json.dumps(dict(
-        geom=BENCH_GEOM, before=before, ms=res)))
-    return res
+            del got
+        del words, emit, state, cols, args
+    log(f"{label} " + json.dumps(dict(geom=BENCH_GEOM, before=before,
+                                      ms=ms)))
+    return ms
+
+
+# K4 on synthetic tiles, legal inputs of a pure compaction: (what, S, G,
+# emit pattern).  "random" draws every emit with probability 0.3,
+# "groups" with a probability of its own in each group.
+PLACE_EDGES = (("all lanes emit at every slot", 4096, 64, "all"),
+               ("no lane emits", 4096, 64, "none"),
+               ("one lane emits, in the last slot only", 16384, 64, "last"),
+               ("S = 4133, not a multiple of the chunk", 4133, 1, "random"),
+               ("S = 100, two groups", 100, 2, "random"),
+               ("G = 1", 4096, 1, "random"),
+               ("G = 64, id 57's shape", 16384, 64, "groups"))
+# Plans of K4 that do not fit their tile, as changes of the right one.
+PLACE_BAD_PLANS = (
+    ("too little scratch", lambda ln: dict(scratch=ln.grid - 1)),
+    ("one chunk too few", lambda ln: dict(chunks=ln.chunks - 1,
+                                          grid=ln.G * (ln.chunks - 1))),
+    ("another chunk size", lambda ln: dict(chunk=ln.chunk // 2)),
+    ("another thread count", lambda ln: dict(threads=ln.threads // 2)),
+    ("rows too few for the slots", lambda ln: dict(R=ln.S + 1)))
+
+
+def phase_place_edge(dev) -> None:
+    """K4 against place_plain on the PLACE_EDGES tiles: equal streams and
+    lengths (tolerance 0); then plans that ``trc_place`` must refuse
+    (PLACE_BAD_PLANS) are refused, with no launch counted."""
+    import dataclasses
+    import torch
+    from turborc_tpu_torch.ops import rans_kernel as K_
+    from turborc_tpu_torch.ops.geom import Geom
+    phase("place-edge")
+    gen = torch.Generator(device=dev).manual_seed(20261018)
+    for what, S, G, pattern in PLACE_EDGES:
+        geom = Geom(groups=G)
+        shape = (S, G, 128)
+        words = torch.randint(0, 1 << 16, shape, generator=gen, device=dev,
+                              dtype=torch.int32)
+        state = torch.randint(1 << 15, 1 << 31, (G, 128), generator=gen,
+                              device=dev, dtype=torch.int64).to(torch.int32)
+        if pattern in ("random", "groups"):
+            p = (torch.rand((1, G, 1), generator=gen, device=dev)
+                 if pattern == "groups" else 0.3)
+            emit = (torch.rand(shape, generator=gen, device=dev) < p)
+        else:
+            emit = torch.full(shape, pattern == "all", device=dev)
+            if pattern == "last":
+                emit[S - 1, G - 1, 127] = True
+        emit = emit.to(torch.uint8)
+        k = K_.place(words, emit, state, geom)
+        want = K_.place_plain(words, emit, state, geom)
+        err = max(_max_abs(a, b) for a, b in zip(k, want))
+        if err:
+            raise AssertionError(f"place-edge {what}: kernel differs from "
+                                 f"plain by {err}")
+        log(f"place-edge {what} (S={S}, G={G}, "
+            f"{K_.place_launch(S, G, S + 2 + geom.wrows).chunks} chunks a "
+            f"group, {int(emit.sum())} words): equal to plain, tolerance 0 "
+            "(max abs err 0)")
+    # The C entry is the plan's one guard: each bad plan must come back as
+    # cudaErrorInvalidValue (1) before any launch.
+    S, G = 4133, 2
+    geom = Geom(groups=G)
+    R = S + 2 + geom.wrows
+    ln = K_.place_launch(S, G, R)
+    words = torch.zeros((S, G, 128), dtype=torch.int32, device=dev)
+    emit = torch.zeros((S, G, 128), dtype=torch.uint8, device=dev)
+    state = torch.zeros((G, 128), dtype=torch.int32, device=dev)
+    gstreams = torch.empty((G, R, 128), dtype=torch.int32, device=dev)
+    glens = torch.empty((G,), dtype=torch.int32, device=dev)
+    counts = torch.empty((ln.scratch,), dtype=torch.int32, device=dev)
+    for what, change in PLACE_BAD_PLANS:
+        bad = dataclasses.replace(ln, **change(ln))
+        before = K_.launches["place"]
+        try:
+            K_.launch("place", "trc_place",
+                      *K_.place_cargs(words, emit, state, gstreams, glens,
+                                      counts, bad), kernels=2)
+        except RuntimeError as e:
+            if not str(e).endswith("CUDA error 1"):
+                raise
+        else:
+            raise AssertionError(f"place-edge: trc_place took a plan with "
+                                 f"{what}")
+        if K_.launches["place"] != before:
+            raise AssertionError(f"place-edge {what}: a launch was counted")
+        log(f"place-edge: trc_place refuses a plan with {what} "
+            "(CUDA error 1, no launch)")
 
 
 def _rows(names, timed: dict, geom, launches: dict,
@@ -673,15 +802,15 @@ def _rows(names, timed: dict, geom, launches: dict,
             launches=launches[k], max_abs_err=timed["err"][k],
             ms=timed["ms"][k], plain_ms=timed["plain_ms"][k],
             bound_ms=bound, bound_by=by, library_ms=None))
-        if k in ("decode", "decode_x2"):  # the redesigned decoders
+        if k in REDESIGNED:
             pair = (before or {}).get(k, {})
             mean = {w: sum(v) / len(v) if v else None
                     for w, v in pair.items()}
-            # before_ms / after_ms: bare C entries, in turns, one phase;
-            # T: threads per lane
+            # before_ms / after_ms: bare C entries, in turns, one phase
             rows[-1].update(before_ms=mean.get("before"),
-                            after_ms=mean.get("after"),
-                            T=K_.decode_launch(geom).threads // K_.GLANES)
+                            after_ms=mean.get("after"))
+        if k in ("decode", "decode_x2"):  # T: threads per lane
+            rows[-1].update(T=K_.decode_launch(geom).threads // K_.GLANES)
     return rows
 
 
@@ -697,6 +826,7 @@ def child(before: str | None) -> int:
     before_lib = phase_build(before)
     phase_kernels(dev)
     phase_decode_cases(dev)
+    phase_place_edge(dev)
     golden, golden_r1 = _golden(GOLDEN), _golden(GOLDEN_R1)
     golden_rcp, golden_x2 = _golden(GOLDEN_RCP), _golden(GOLDEN_X2)
     main = _roundtrip("roundtrip-64MB-bench-geom",
@@ -799,7 +929,7 @@ def _args(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(CHILD_FLAG, action="store_true", help=argparse.SUPPRESS)
     ap.add_argument(BEFORE_FLAG, metavar="COMMIT",
-                    help="also time K1 and K5 of the git archive of COMMIT "
+                    help="also time K2 and K4 of the git archive of COMMIT "
                     "unpacked in _archive/COMMIT/")
     return ap.parse_args(argv)
 

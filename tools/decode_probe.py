@@ -1,9 +1,10 @@
 """Probe of the o0 decoders K1 and K5 on one GPU: where a byte step's
 cycles go, what ptxas and the SASS say, and what each part of the step
-costs.
+costs.  With ``--kernel model``, the o0 model K2 instead (see
+``probe_model``).
 
     python3 tools/decode_probe.py [--src DIR] [--ablate no-rejoin,...]
-        [--label NAME] [--out FILE]
+        [--label NAME] [--out FILE] [--kernel decode|model]
 
 ``--src`` is a ``csrc`` directory: the port's own (the default), or that
 of commit ff11eb3 (a ``git archive ff11eb3`` unpacked into a git-ignored
@@ -87,7 +88,7 @@ STAMPS = {
         ("state[0] = uint32_t(fr_h) * (state[0] >> 15) + value - "
          "uint32_t(low_h);", 1, 0, "state[0]"),
         ("fetch_post(state, bal, b, buf, nfetch);", 1, 1, "bal[0]"),
-        ("ld_row(rp, row);", 1, 2, "row[0]"),
+        ("ld_row(rp, half, row);", 1, 2, "row[0]"),
         ("cdf_update(hi, low_h, m.rate);", 1, 3, "hi[0]"),
         ("fetch_take(state, bal, r, limit, b, buf, nfetch);", 1, 4,
          "state[0]"),
@@ -158,13 +159,14 @@ def stamped(source: str, layout: str) -> str:
 
 
 def _ptxas(report: str) -> dict:
-    """Per decode kernel: registers, stack, spills, barriers, smem."""
+    """Per o0 decode or model kernel: registers, stack, spills, barriers,
+    smem."""
     res, fn = {}, None
     for line in report.splitlines():
         if "Compiling entry function" in line \
                 or "Function properties for" in line:
-            m = re.search(r"(?:function '|for )\w*?(decode_x2|decode)"
-                          r"_kernel", line)
+            m = re.search(r"(?:function '|for )\w*?(decode_x2|decode|"
+                          r"model)_kernel", line)
             fn = m.group(1) if m else None
             if fn:
                 res.setdefault(fn, {})
@@ -180,6 +182,12 @@ def _ptxas(report: str) -> dict:
                 if m3:
                     res[fn][key] = int(m3.group(1))
     return res
+
+
+def _smi() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
 
 
 def _tool(name: str) -> str | None:
@@ -359,35 +367,26 @@ def _variants(base: str, layout: str, ablate) -> dict:
     return out
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--src", default=str(build.CSRC))
-    ap.add_argument("--ablate", default="")
-    ap.add_argument("--label", default="")
-    ap.add_argument("--out", default="")
-    opt = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("decode_probe: no CUDA device", file=sys.stderr)
-        return 2
-    dev = torch.device("cuda")
-    src = Path(opt.src).resolve()
-    base = (src / "rans_kernel.cu").read_text()
-    layout = _layout(base)
-    label = opt.label or layout
-    work = WORK / label
-    if work.exists():
-        shutil.rmtree(work)
-    work.mkdir(parents=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
-    res = {"label": label, "layout": layout, "src": str(src), "card": smi,
-           "geom": GEOM}
+# K2 (``--kernel model``): its section of the source, and ablations of its
+# byte loop, as ABLATIONS are of the decoders'.
+MODEL = ("// ---- K2: forward model pass", "// ---- K3:")
+MODEL_ABLATIONS = {
+    "no-rejoin": [("    rejoin_batches_after(t, m, b, hi, start_hi);\n",
+                   "")],
+    "no-update": [("cdf_update(hi, low_h, m.rate);", ""),
+                  ("cdf_update(row, low_l, m.rate);", "")],
+    "no-row": [("    ld_row(rp, adapt ? kHalf : 8, row);\n", "#pragma unroll"
+                "\n    for (int e = 0; e < 16; ++e) row[e] = hi[e] + e;\n"),
+               ("    if (adapt) st_row(rp, kHalf, row);\n", "")],
+}
+
+
+def _build_all(variants: dict, src: Path, work: Path):
+    """nvcc of every variant's source at once; returns (libraries, ptxas
+    reports, seconds)."""
     t0 = time.perf_counter()
-    variants = _variants(base, layout,
-                         [x for x in opt.ablate.split(",") if x])
     libs, reports, procs = {}, {}, []
-    for name, (text, _) in variants.items():
+    for name, text in variants.items():
         (work / name).mkdir()
         cu = work / name / "rans_kernel.cu"
         cu.write_text(text)
@@ -402,7 +401,108 @@ def main() -> int:
         if p.returncode != 0:
             raise RuntimeError(f"nvcc {name} failed:\n{e}")
         libs[name], reports[name] = lib, o + e
-    res["nvcc_s"] = time.perf_counter() - t0
+    return libs, reports, time.perf_counter() - t0
+
+
+def probe_model(opt, dev, res: dict, work: Path) -> dict:
+    """K2 of the port's source and its ablations (``MODEL_ABLATIONS``):
+    ptxas of each build, then a warm-up and 3 repetitions on distinct
+    rotations of the 64 MB block at GEOM, every build in turn, CUDA events
+    around the bare C entry.  The base is held byte for byte against the
+    port's K2 wrapper on the same inputs; ablations are timed only."""
+    src = Path(opt.src).resolve()
+    base = (src / "rans_kernel.cu").read_text()
+    a, b = base.index(MODEL[0]), base.index(MODEL[1])
+    variants = {"base": base}
+    for name in [x for x in opt.ablate.split(",") if x]:
+        part = base[a:b]
+        for old, new in MODEL_ABLATIONS[name]:
+            if old not in part:
+                raise ValueError(f"ablation {name}: {old!r} not found")
+            part = part.replace(old, new)
+        variants[name] = base[:a] + part + base[b:]
+    libs, reports, res["nvcc_s"] = _build_all(variants, src, work)
+    res["ptxas"] = {k: _ptxas(v).get("model") for k, v in reports.items()}
+    from turborc_tpu_torch.codecs import rans_cdf_o0_p as C0
+    geom = Geom.parse(GEOM)
+    fns = {}
+    for k, lib in libs.items():
+        fns[k] = getattr(ctypes.CDLL(str(lib)), "trc_model")
+        fns[k].argtypes = build.SIGNATURES["rans_kernel.cu"]["trc_model"]
+        fns[k].restype = ctypes.c_int
+    times = {k: [] for k in variants}
+    data = np.fromfile(CORPUS, np.uint8)
+    for r in range(4):  # rep 0 is the warm-up
+        x = C0.encode_args(np.roll(data, 7919 * (r + 1)), geom, dev)
+        cols = x.block.T.contiguous().reshape(x.K, geom.groups, 128)
+        ref = K_.model(cols, x.hi_tbl, x.lo_tbl, geom)
+        for k, fn in fns.items():
+            probs = torch.empty_like(ref)
+            args = [v.data_ptr() if isinstance(v, torch.Tensor) else v
+                    for v in K_.model_cargs(cols, x.hi_tbl, x.lo_tbl, probs,
+                                            geom)]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+            end.record()
+            end.synchronize()
+            if err:
+                raise RuntimeError(f"{k} model: CUDA error {err}")
+            if k == "base" and not torch.equal(probs, ref):
+                raise AssertionError(f"{k} differs from the port's K2")
+            if r:
+                times[k].append(start.elapsed_time(end))
+            del probs
+        del x, cols, ref
+    res["K"] = int(data.size // geom.lanes)
+    res["ms"] = times
+    res["mean_ms"] = {k: sum(v) / len(v) for k, v in times.items()}
+    return res
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--src", default=str(build.CSRC))
+    ap.add_argument("--ablate", default="")
+    ap.add_argument("--label", default="")
+    ap.add_argument("--out", default="")
+    ap.add_argument("--kernel", choices=("decode", "model"),
+                    default="decode")
+    opt = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("decode_probe: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    if opt.kernel == "model":
+        label = opt.label or "model"
+        work = WORK / label
+        if work.exists():
+            shutil.rmtree(work)
+        work.mkdir(parents=True)
+        res = {"label": label, "kernel": "model", "src": opt.src,
+               "card": _smi(), "geom": GEOM}
+        res = probe_model(opt, dev, res, work)
+        text = json.dumps(res, indent=1)
+        print(text)
+        if opt.out:
+            Path(opt.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(opt.out).write_text(text)
+        return 0
+    src = Path(opt.src).resolve()
+    base = (src / "rans_kernel.cu").read_text()
+    layout = _layout(base)
+    label = opt.label or layout
+    work = WORK / label
+    if work.exists():
+        shutil.rmtree(work)
+    work.mkdir(parents=True)
+    res = {"label": label, "layout": layout, "src": str(src),
+           "card": _smi(), "geom": GEOM}
+    variants = _variants(base, layout,
+                         [x for x in opt.ablate.split(",") if x])
+    libs, reports, res["nvcc_s"] = _build_all(
+        {k: text for k, (text, _) in variants.items()}, src, work)
     res["ptxas"] = {k: _ptxas(v) for k, v in reports.items()}
     res["sass"] = {k: _sass(libs[k]) for k in variants}
     res["stack_lines"] = {k: _stack_lines(libs[k]) for k in variants}

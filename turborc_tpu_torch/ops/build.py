@@ -32,13 +32,17 @@ _I = ctypes.c_int
 # C entry points of each source: every pointer and the stream are c_void_p.
 SIGNATURES = {
     "rans_kernel.cu": {
-        "trc_model": [_P, _P, _P, _P] + [_I] * 8 + [_P],
+        # K2: tile and geometry, then rans_kernel.model_launch's threads,
+        # shared-memory bytes and five region offsets
+        "trc_model": [_P] * 4 + [_I] * 15 + [_P],
         # K1 / K5: tile and geometry, then rans_kernel.decode_launch's
         # threads, shared-memory bytes and six region offsets
         "trc_decode": [_P] * 5 + [_I] * 17 + [_P],
         "trc_decode_x2": [_P] * 5 + [_I] * 17 + [_P],
         "trc_coder": [_P] * 5 + [_I] * 2 + [_P],
-        "trc_place": [_P] * 5 + [_I] * 3 + [_P],
+        # K4: tile (and the chunk counts' scratch), then
+        # rans_kernel.place_launch's S, G, R, chunk, chunks, threads, scratch
+        "trc_place": [_P] * 6 + [_I] * 7 + [_P],
     },
     "rans_o1_kernel.cu": {
         "trc_o1_model": [_P] * 5 + [_I] * 3 + [_P],

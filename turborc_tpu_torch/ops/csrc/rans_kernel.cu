@@ -2,66 +2,81 @@
 //
 // Replaces the five Pallas TPU kernels of
 // turborc_tpu/ops/pallas/rans_kernel.py:
-//   model_kernel   <- _make_model_kernel  (:807)  forward model pass
-//   coder_kernel   <- _make_coder_kernel  (:883)  backward rANS pass
-//   place_kernel   <- _make_place_kernel  (:1017) stream compaction
+//   model_kernel   <- _make_model_kernel  (:807)  forward model pass (K2)
+//   coder_kernel   <- _make_coder_kernel  (:883)  backward rANS pass (K3)
+//   place_count_kernel + place_kernel
+//                  <- _make_place_kernel  (:1017) stream compaction (K4)
 //   decode_kernel  <- _make_decode_kernel (:407)  o0 share-span decode (K1)
 //   decode_x2_kernel <- _make_decode_kernel_x2 (:569)  split-state decode (K5)
 //
-// Design of K2, K3 and K4: one CTA = one 128-lane group = 4 warps, one
-// thread per lane, and a loop over byte steps inside the CTA (the TPU
-// grid's sequential dimension).  Each lane is a serial state machine;
-// lanes of a group are coupled only by (a) the lane-order rank of the lanes
-// that read or write a stream word at a step (warp ballot + popc, plus a
-// 4-entry shared-memory prefix over the warps) and (b) the re-join of
-// `share`-lane model copies (XOR-partner sums: warp shuffles for share <=
-// 32, shared memory above).  The TPU's barrel gather, register queue, VMEM
-// window, packed-pair lo rows and f32 long division are not reproduced: the
-// card has gathers, ballots and integer division.  K2's per-lane lo tables
-// (16 rows x 16 entries, u16) and their re-join start copies live in
-// dynamic shared memory: 2 x 64 KB per CTA.
-//
-// What bounds them on this card: not bytes and not operations.  Each lane is
-// a chain of dependent steps (search -> state -> fetch -> update) and one
-// block holds only 64 groups = 8192 threads, fewer than half of the 132 SMs
-// get a CTA, so the time is the per-step latency times K.  Batching container
-// blocks into one launch is the first lever; it is not done here.
-//
-// The decoders K1 and K5 share one byte step (decode_lanes) of another
-// design, measured against the one above (PERF.md sections 6 and 7):
-// - Tables in registers.  The design above keeps a lane's 16-entry hi
-//   table and lo row in arrays that ptxas put on the stack (the select
-//   chains of cdf_lookup became an indexed access: 128 B of stack, a
-//   local-memory access per entry), about a third of its byte step.  Here
-//   every per-thread table is indexed by unrolled constants only, and the
-//   lookup picks entries with a tree of selects.
-// - The stream staged in shared memory: a ring of kRingWords words per
-//   stream set, filled by cp.async and topped up by the CTA after every
-//   kRingEvery-th fetch's barrier, at least that many fetches before its
-//   words are read.  It replaces a device-memory load per fetch that
-//   waited on the rank and the barrier.  The TPU kernel stages the same
-//   words in a VMEM window and a register queue
-//   (turborc_tpu/ops/pallas/rans_kernel.py:377-440).
-// - A fetch's barrier follows the ballot; the model's updates, the row
-//   store and the re-joins run between it and the rank's read, whose
-//   prefix over the warps is two warp reductions.
-// - Re-joins sum the hi table and kBatch lo rows at once, so their
-//   shuffles and loads overlap.
+// K1, K2 and K5: one CTA = one 128-lane group = 4 warps, one thread per
+// lane, and a loop over byte steps inside the CTA (the TPU grid's
+// sequential dimension).  Each lane is a serial state machine; lanes of a
+// group are coupled only by (a) the lane-order rank of the lanes that read
+// a stream word at a step (the decoders: warp ballot + popc and a prefix
+// over the 4 warps) and (b) the re-join of `share`-lane model copies
+// (XOR-partner sums: warp shuffles for share <= 32, shared memory above).
+// The TPU's barrel gather, register queue, VMEM window, packed-pair lo
+// rows and f32 long division are not reproduced: the card has gathers,
+// ballots and integer division.  The three share one byte step of the
+// model, measured against an older design (PERF.md sections 6 and 7):
+// - Tables in registers.  A lane's 16-entry hi table and lo row are
+//   indexed by unrolled constants only: a data-dependent index moves an
+//   array to the stack (128 B, a local-memory access per entry, about a
+//   third of the old byte step), so the lookup picks entries with a tree
+//   of selects and the decoders' search sums flags as a tree.
 // - Shared memory holds only what adapts: per-lane lo rows below arows
 //   and their re-join start copies; the static rows, which are the same
-//   for all lanes of a group, once.  At a4 that is 16 + 16 KB, plus the
-//   ring's 16 KB a stream set.
-// - One thread per lane, as above.  Teams of 2, 4 and 8 threads a lane,
-//   each thread with a share of every table's entries, were timed
+//   for all lanes of a group, once.  At a4 that is 16 + 16 KB.  A lane's
+//   row is two 16-byte halves, each half of a row stored for all 128
+//   lanes in a row, so the 16-byte loads and stores of a warp meet no
+//   bank conflict.
+// - Re-joins sum the hi table and kBatch lo rows at once, so their
+//   shuffles and loads overlap.
+// - No device-memory load on a byte's chain.  The decoders stage the
+//   stream in a ring of kRingWords words per stream set, filled by
+//   cp.async and topped up by the CTA after every kRingEvery-th fetch's
+//   barrier, at least that many fetches before its words are read (the
+//   TPU kernel stages the same words in a VMEM window and a register
+//   queue, turborc_tpu/ops/pallas/rans_kernel.py:377-440).  K2 stages its
+//   input bytes the same way: kColSteps byte steps at a time, requested
+//   one stage ahead.
+// - One thread per lane.  Teams of 2, 4 and 8 threads a lane, each thread
+//   with a share of every table's entries, were timed on the decoders
 //   (PERF.md section 6) and were up to 9%, 15% and 60% slower: once the
 //   tables are in registers, more warps a group only repeat the lane's
 //   state step, ballot and fetch in every thread of a team and add the
 //   team's shuffles.
-// What bounds them now: neither bytes nor operations at the card's peak,
-// but the chain of dependent steps of a byte (search, lookup, state,
-// ballot, barrier, rank, word) on 4 warps an SM, of which the re-joins and
-// the table updates take the largest shares, and 68 of the 132 SMs hold
-// no group.
+// K2 knows every symbol in advance, so it has no search, no fetch and, for
+// share <= 32, no barrier but the stage's one every kColSteps bytes.  A
+// decoder's fetch adds a ballot, a barrier, a rank prefix and a ring load
+// to each nibble.
+// What bounds K1, K2 and K5 now: neither bytes nor operations at the
+// card's peak, but the chain of dependent steps of a byte on 4 warps an SM
+// (the decoders: search, lookup, state, ballot, barrier, rank, word; K2:
+// lookup, row load, update, row store), and 68 of the 132 SMs hold no
+// group.  In K2 at share 8 the re-joins take about 45% of the time, the
+// table updates and the row loads and stores about 22% each
+// (tools/decode_probe.py --kernel model, PERF.md section 7); halving the
+// re-join's shuffles saved 2%, so they are not its limit.
+//
+// K3: one thread per lane, lanes independent, the dependent state chain
+// over every slot.
+//
+// K4 is a stream compaction: a word's position is 256 + the emits before
+// it in slot-major, lane-minor order within its group.  The TPU kernel
+// walks the slots in order because its grid runs in order; here every SM
+// takes chunks of kPlaceChunk slots of one group.  place_count_kernel
+// counts each chunk's emits (16-byte loads of emit); place_kernel sums the
+// counts of its group's earlier chunks (its base) and of all of them (the
+// group's length), scans its chunk's emit masks once across the CTA, and
+// writes each emitting lane's word at 256 + base + its rank.  It reads
+// words only where a lane emits, and zero-fills its share of the group's
+// tail with 16-byte stores, so the tail (most of the bytes) is spread over
+// the whole grid.  Two launches and two barriers a CTA, none per slot.
+// What bounds it: bytes (emit read twice, the emitting words, the
+// streams written once); at id 57's shape it moves them at about 37% of
+// the card's memory rate.
 //
 // Rules kept by every kernel: __syncthreads() only where all threads of the
 // CTA arrive (every condition around one depends on the byte index and the
@@ -76,19 +91,9 @@
 
 namespace {
 
-// Shared-memory layout of the model kernel.
-constexpr int kRedInts = kWarps * 16;   // set_sum16 cross-warp partials
-constexpr int kRankInts = 4 * kWarps;   // rank double buffer, 2 stream sets
-constexpr int kTableU16 = 16 * 16 * kLanes;  // one lo table set, u16
-
 struct Geo {
   int share, sync, lsync, arows, srows, hrows, rate;
 };
-
-size_t model_smem_bytes(int share) {
-  return (kRedInts + kRankInts) * sizeof(int) +
-         (share > 1 ? 2 : 1) * kTableU16 * sizeof(uint16_t);
-}
 
 __device__ __forceinline__ void repair16(int (&c)[16]) {
   int m = c[0];
@@ -104,160 +109,6 @@ __device__ __forceinline__ void clamp16(int (&c)[16]) {
   for (int i = 0; i < 16; ++i) c[i] = min(c[i], kTotal - 16 + i);
 }
 
-// Sum of x over each aligned `share`-lane set, for all 16 entries at once.
-// Uniform in `share`: every thread of the CTA takes the same branches.
-__device__ __forceinline__ void set_sum16(int (&x)[16], int share, int* red) {
-  const int lim = share < 32 ? share : 32;
-  for (int k = 1; k < lim; k <<= 1) {
-#pragma unroll
-    for (int i = 0; i < 16; ++i) x[i] += __shfl_xor_sync(kFull, x[i], k);
-  }
-  if (share > 32) {
-    const int warp = threadIdx.x >> 5;
-    const int per = share >> 5;  // warps per set: 2 or 4
-    const int first = warp & ~(per - 1);
-    if ((threadIdx.x & 31) == 0) {
-#pragma unroll
-      for (int i = 0; i < 16; ++i) red[warp * 16 + i] = x[i];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      int s = 0;
-      for (int w = first; w < first + per; ++w) s += red[w * 16 + i];
-      x[i] = s;
-    }
-    __syncthreads();
-  }
-}
-
-// Lo tables: [row 16][entry 16][lane 128] u16, one column per thread.
-__device__ __forceinline__ int lo_at(int h, int i) {
-  return (h * 16 + i) * kLanes + threadIdx.x;
-}
-
-__device__ __forceinline__ void rejoin_row(uint16_t* lo_s, uint16_t* st_s,
-                                           int h, int share, int* red) {
-  int d[16], st[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    st[i] = st_s[lo_at(h, i)];
-    d[i] = int(lo_s[lo_at(h, i)]) - st[i];
-  }
-  set_sum16(d, share, red);
-#pragma unroll
-  for (int i = 0; i < 16; ++i) d[i] += st[i];
-  repair16(d);
-  clamp16(d);
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    lo_s[lo_at(h, i)] = uint16_t(d[i]);
-    st_s[lo_at(h, i)] = uint16_t(d[i]);
-  }
-}
-
-// Re-joins after byte t, counted in byte index: hot (hi table and lo rows
-// < hrows) when t % sync == sync-1, cold (rows srows..arows-1) when
-// (t+1) % lsync == 0.  Repair + clamp at the re-join are load-bearing
-// (rans_kernel.py:515-524).
-__device__ __forceinline__ void rejoin_after(int t, const Geo& m,
-                                             int (&hi)[16],
-                                             int (&start_hi)[16],
-                                             uint16_t* lo_s, uint16_t* st_s,
-                                             int* red) {
-  if (m.share == 1) return;
-  if (t % m.sync == m.sync - 1) {
-    int d[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) d[i] = hi[i] - start_hi[i];
-    set_sum16(d, m.share, red);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) hi[i] = start_hi[i] + d[i];
-    repair16(hi);
-    clamp16(hi);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) start_hi[i] = hi[i];
-    for (int h = 0; h < m.hrows; ++h) rejoin_row(lo_s, st_s, h, m.share, red);
-  }
-  if (m.arows > m.srows && (t + 1) % m.lsync == 0) {
-    for (int h = m.srows; h < m.arows; ++h)
-      rejoin_row(lo_s, st_s, h, m.share, red);
-  }
-}
-
-// Warm tables hi [16, G], lo [16, 16, G] int32 -> registers / shared memory.
-__device__ __forceinline__ void init_tables(const int* hi_tbl,
-                                            const int* lo_tbl, int G, int g,
-                                            int share, int (&hi)[16],
-                                            int (&start_hi)[16],
-                                            uint16_t* lo_s, uint16_t* st_s) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    hi[i] = hi_tbl[i * G + g];
-    start_hi[i] = hi[i];
-  }
-  for (int h = 0; h < 16; ++h) {
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const uint16_t v = uint16_t(lo_tbl[(h * 16 + i) * G + g]);
-      lo_s[lo_at(h, i)] = v;
-      if (share > 1) st_s[lo_at(h, i)] = v;
-    }
-  }
-}
-
-struct Smem {
-  int* red;
-  int* wsum;
-  uint16_t* lo_s;
-  uint16_t* st_s;
-};
-
-__device__ __forceinline__ Smem carve(unsigned char* raw) {
-  Smem s;
-  s.red = reinterpret_cast<int*>(raw);
-  s.wsum = s.red + kRedInts;
-  s.lo_s = reinterpret_cast<uint16_t*>(s.wsum + kRankInts);
-  s.st_s = s.lo_s + kTableU16;
-  return s;
-}
-
-// ---- K2: forward model pass.  cols [K, G, 128] u8 -> probs [2K, G, 128]
-// int32 = (low << 16) | freq per nibble slot (hi slot 2t, lo slot 2t+1).
-__global__ void __launch_bounds__(kLanes)
-model_kernel(const uint8_t* __restrict__ cols, const int* __restrict__ hi_tbl,
-             const int* __restrict__ lo_tbl, int* __restrict__ probs, int K,
-             int G, Geo m) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem sm = carve(smem_raw);
-  const int g = blockIdx.x;
-  const size_t plane = size_t(G) * kLanes;
-  const size_t col = size_t(g) * kLanes + threadIdx.x;
-  int hi[16], start_hi[16];
-  init_tables(hi_tbl, lo_tbl, G, g, m.share, hi, start_hi, sm.lo_s, sm.st_s);
-
-  for (int t = 0; t < K; ++t) {
-    const int b = cols[size_t(t) * plane + col];
-    const int hs = b >> 4, ls = b & 15;
-    int low_h, fr_h;
-    cdf_lookup(hi, hs, low_h, fr_h);
-    cdf_update(hi, low_h, m.rate);
-    int row[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) row[i] = sm.lo_s[lo_at(hs, i)];
-    int low_l, fr_l;
-    cdf_lookup(row, ls, low_l, fr_l);
-    cdf_update(row, low_l, m.rate);
-    if (hs < m.arows) {
-#pragma unroll
-      for (int i = 0; i < 16; ++i) sm.lo_s[lo_at(hs, i)] = uint16_t(row[i]);
-    }
-    probs[size_t(2 * t) * plane + col] = (low_h << 16) | fr_h;
-    probs[size_t(2 * t + 1) * plane + col] = (low_l << 16) | fr_l;
-    rejoin_after(t, m, hi, start_hi, sm.lo_s, sm.st_s, sm.red);
-  }
-}
-
 // ---- K1 and K5: the decoders, one thread per lane.
 //
 // Every per-thread table is indexed by unrolled constants only (a
@@ -267,6 +118,7 @@ model_kernel(const uint8_t* __restrict__ cols, const int* __restrict__ hi_tbl,
 constexpr int kRingWords = 4096;              // ring of one stream set
 constexpr int kRingEvery = 8;                 // fetches between top-ups
 constexpr int kRingLag = 1;                   // top-ups allowed in flight
+constexpr int kColSteps = 64;                 // K2: byte steps a cols stage
 constexpr int kSmemMax = 232448;              // shared memory a CTA may have
 // A fetch takes at most 128 words, and the word read at fetch f was
 // requested by a top-up at most (kRingLag + 2) * kRingEvery - 1 fetches
@@ -275,27 +127,51 @@ constexpr int kSmemMax = 232448;              // shared memory a CTA may have
 static_assert(kRingWords >= kLanes * (kRingLag + 2) * kRingEvery + 3,
               "ring too shallow");
 static_assert((kRingEvery & (kRingEvery - 1)) == 0, "kRingEvery: 2^n");
+static_assert((kColSteps & (kColSteps - 1)) == 0, "kColSteps: 2^n");
 
-// Dynamic shared memory of the decoders, as byte offsets that the wrapper
-// computes (ops/rans_kernel.py decode_launch) and the C entry checks.
-struct DecCarve {
-  int ring, lo, st, fixed, red, rank;
+// Dynamic shared memory of K1, K2 and K5, as byte offsets that the wrapper
+// computes (ops/rans_kernel.py decode_launch, model_launch) and the C
+// entry checks.  `stage` holds the decoders' rings or K2's cols stage; K2
+// has no rank counts.
+struct Carve {
+  int stage, lo, st, fixed, red, rank;
 };
 
-struct DecBufs {
-  int* ring;        // [nstates][kRingWords] stream words
-  uint16_t* lo;     // [arows][128 lanes][16] adaptive lo rows
-  uint16_t* st;     // [arows][128][16] their re-join start copies
+struct Bufs {
+  unsigned char* stage;  // [nstates][kRingWords] words, or [2 kColSteps][128]
+  uint16_t* lo;     // [arows][2 halves][128 lanes][8] adaptive lo rows
+  uint16_t* st;     // [arows][2][128][8] their re-join start copies
   uint16_t* fixed;  // [16 - arows][16] static lo rows, one copy per group
   int* red;         // [kWarps][16] set sums across warps
   uint8_t* rank;    // [2][nstates][kWarps] lanes needing a word, a warp
 };
 
-// A lane's 16 u16 entries of a row at p (32-byte aligned) <-> registers.
-__device__ __forceinline__ void ld_row(const uint16_t* p, int (&r)[16]) {
+__device__ __forceinline__ Bufs carve(const Carve& c) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Bufs b;
+  b.stage = smem_raw + c.stage;
+  b.lo = reinterpret_cast<uint16_t*>(smem_raw + c.lo);
+  b.st = reinterpret_cast<uint16_t*>(smem_raw + c.st);
+  b.fixed = reinterpret_cast<uint16_t*>(smem_raw + c.fixed);
+  b.red = reinterpret_cast<int*>(smem_raw + c.red);
+  b.rank = smem_raw + c.rank;
+  return b;
+}
+
+// This lane's row h of lo or st: its first half; the second is kHalf
+// entries further.
+constexpr int kHalf = kLanes * 8;
+__device__ __forceinline__ uint16_t* lane_row(uint16_t* rows, int h) {
+  return rows + h * 2 * kHalf + threadIdx.x * 8;
+}
+
+// The 16 u16 entries of a row <-> registers: entries 0-7 at p, 8-15 at
+// p + half (kHalf for a lane's row, 8 for a static row), 16-byte aligned.
+__device__ __forceinline__ void ld_row(const uint16_t* p, int half,
+                                       int (&r)[16]) {
 #pragma unroll
   for (int q = 0; q < 2; ++q) {
-    const uint4 v = reinterpret_cast<const uint4*>(p)[q];
+    const uint4 v = *reinterpret_cast<const uint4*>(p + q * half);
     const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
@@ -305,15 +181,41 @@ __device__ __forceinline__ void ld_row(const uint16_t* p, int (&r)[16]) {
   }
 }
 
-__device__ __forceinline__ void st_row(uint16_t* p, const int (&r)[16]) {
+__device__ __forceinline__ void st_row(uint16_t* p, int half,
+                                       const int (&r)[16]) {
   uint32_t w[8];
 #pragma unroll
   for (int k = 0; k < 8; ++k)
     w[k] = (uint32_t(r[2 * k]) & 0xFFFFu) | (uint32_t(r[2 * k + 1]) << 16);
 #pragma unroll
   for (int q = 0; q < 2; ++q)
-    reinterpret_cast<uint4*>(p)[q] =
+    *reinterpret_cast<uint4*>(p + q * half) =
         make_uint4(w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3]);
+}
+
+// The warm tables hi [16, G], lo [16, 16, G] int32 of group g: hi in
+// registers; adaptive lo rows per lane (and their start copies); static
+// rows once.  The caller's barrier publishes the rows.
+__device__ __forceinline__ void load_tables(const int* __restrict__ hi_tbl,
+                                            const int* __restrict__ lo_tbl,
+                                            int G, int g, const Geo& m,
+                                            const Bufs& b, int (&hi)[16],
+                                            int (&start_hi)[16]) {
+  const int lane = threadIdx.x;
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    hi[e] = hi_tbl[e * G + g];
+    start_hi[e] = hi[e];
+  }
+  for (int h = 0; h < m.arows; ++h) {
+    int v[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) v[e] = lo_tbl[(h * 16 + e) * G + g];
+    st_row(lane_row(b.lo, h), kHalf, v);
+    if (m.share > 1) st_row(lane_row(b.st, h), kHalf, v);
+  }
+  for (int q = lane; q < (16 - m.arows) * 16; q += kLanes)
+    b.fixed[q] = uint16_t(lo_tbl[(m.arows * 16 + q) * G + g]);
 }
 
 // cdf_search with the flags summed as a tree (no chain of 15 adds).
@@ -358,8 +260,9 @@ __device__ __forceinline__ void lookup_pick(const int (&c)[16], int sym,
   freq = (s1 == 16 ? kTotal : nx) - lo;
 }
 
-// set_sum16 on NT tables at once (their shuffles and loads pipeline).
-// Uniform in `share`.
+// The sum of each of NT tables over every aligned `share`-lane set, all at
+// once (their shuffles and loads pipeline).  Uniform in `share`: every
+// thread of the CTA takes the same branches.
 template <int NT>
 __device__ __forceinline__ void set_sum_n(int (&x)[NT][16], int share,
                                           int* red) {
@@ -399,14 +302,15 @@ __device__ __forceinline__ void set_sum_n(int (&x)[NT][16], int share,
 // repaired and clamped, stored to the row and its start copy.  The start
 // copy is the same in every lane of a set (it is the last re-join's
 // result, or the group's warm table), so the sum is taken as
-// sum(table) - (share - 1) * start: one add fewer a value.
+// sum(table) - (share - 1) * start: one add fewer a value.  Repair + clamp
+// at the re-join are load-bearing (turborc_tpu/ops/pallas/rans_kernel.py
+// :515-524).
 constexpr int kBatch = 4;  // lo rows a batch, beside the hi table
 template <bool kHi>
-__device__ __forceinline__ void rejoin_batch(const DecBufs& b, int h, int h1,
+__device__ __forceinline__ void rejoin_batch(const Bufs& b, int h, int h1,
                                              int share, int (&hi)[16],
                                              int (&start_hi)[16]) {
   constexpr int NT = kBatch + (kHi ? 1 : 0), R0 = kHi ? 1 : 0;
-  const int at = threadIdx.x * 16;
   int d[NT][16], s[NT][16];
   if constexpr (kHi) {
 #pragma unroll
@@ -418,8 +322,8 @@ __device__ __forceinline__ void rejoin_batch(const DecBufs& b, int h, int h1,
 #pragma unroll
   for (int q = 0; q < kBatch; ++q) {
     if (h + q < h1) {
-      ld_row(b.lo + (h + q) * kLanes * 16 + at, d[R0 + q]);
-      ld_row(b.st + (h + q) * kLanes * 16 + at, s[R0 + q]);
+      ld_row(lane_row(b.lo, h + q), kHalf, d[R0 + q]);
+      ld_row(lane_row(b.st, h + q), kHalf, s[R0 + q]);
     } else {
 #pragma unroll
       for (int e = 0; e < 16; ++e) d[R0 + q][e] = s[R0 + q][e] = 0;
@@ -440,16 +344,17 @@ __device__ __forceinline__ void rejoin_batch(const DecBufs& b, int h, int h1,
 #pragma unroll
   for (int q = 0; q < kBatch; ++q) {
     if (h + q < h1) {
-      st_row(b.lo + (h + q) * kLanes * 16 + at, d[R0 + q]);
-      st_row(b.st + (h + q) * kLanes * 16 + at, d[R0 + q]);
+      st_row(lane_row(b.lo, h + q), kHalf, d[R0 + q]);
+      st_row(lane_row(b.st, h + q), kHalf, d[R0 + q]);
     }
   }
 }
 
-// rejoin_after for the decoders: same cadences (sync and lsync are powers
-// of two), same rows, in batches.
+// The re-joins after byte t, counted in byte index (sync and lsync are
+// powers of two): hot (hi table and lo rows < hrows) when t % sync ==
+// sync-1, cold (rows srows..arows-1) when (t+1) % lsync == 0, in batches.
 __device__ __forceinline__ void rejoin_batches_after(int t, const Geo& m,
-                                                     const DecBufs& b,
+                                                     const Bufs& b,
                                                      int (&hi)[16],
                                                      int (&start_hi)[16]) {
   if (m.share == 1) return;
@@ -481,7 +386,7 @@ struct Ring {
   int hi;          // positions below hi are requested
 };
 
-__device__ __forceinline__ void cp_async16(int* dst, const int* src) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
                "l"(src)
@@ -532,7 +437,7 @@ __device__ __forceinline__ void warp_prefix(const uint8_t* counts, int& off,
 template <int NS>
 __device__ __forceinline__ void fetch_post(const uint32_t (&state)[NS],
                                            unsigned (&bal)[NS],
-                                           const DecBufs& b, int buf,
+                                           const Bufs& b, int buf,
                                            int nfetch) {
   const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
 #pragma unroll
@@ -550,7 +455,7 @@ template <int NS>
 __device__ __forceinline__ void fetch_take(uint32_t (&state)[NS],
                                            const unsigned (&bal)[NS],
                                            Ring (&r)[NS], int limit,
-                                           const DecBufs& b, int& buf,
+                                           const Bufs& b, int& buf,
                                            int& nfetch) {
   const bool top = (nfetch & (kRingEvery - 1)) == 0;
   const unsigned before = (1u << (threadIdx.x & 31)) - 1u;
@@ -581,15 +486,8 @@ template <int NS>
 __device__ __forceinline__ void decode_lanes(
     const int* __restrict__ streams, const int* __restrict__ hi_tbl,
     const int* __restrict__ lo_tbl, uint8_t* __restrict__ out,
-    int* __restrict__ fstate, int K, int G, int R, Geo m, DecCarve c) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  DecBufs b;
-  b.ring = reinterpret_cast<int*>(smem_raw + c.ring);
-  b.lo = reinterpret_cast<uint16_t*>(smem_raw + c.lo);
-  b.st = reinterpret_cast<uint16_t*>(smem_raw + c.st);
-  b.fixed = reinterpret_cast<uint16_t*>(smem_raw + c.fixed);
-  b.red = reinterpret_cast<int*>(smem_raw + c.red);
-  b.rank = smem_raw + c.rank;
+    int* __restrict__ fstate, int K, int G, int R, Geo m, Carve c) {
+  const Bufs b = carve(c);
   const int g = blockIdx.x, lane = threadIdx.x;
   const size_t plane = size_t(G) * kLanes;
   const size_t col = size_t(g) * kLanes + lane;
@@ -600,7 +498,7 @@ __device__ __forceinline__ void decode_lanes(
 #pragma unroll
   for (int k = 0; k < NS; ++k) {
     r[k].src = streams + (size_t(k) * G + g) * R * kLanes;
-    r[k].buf = b.ring + k * kRingWords;
+    r[k].buf = reinterpret_cast<int*>(b.stage) + k * kRingWords;
     r[k].base = 2 * kLanes;
     r[k].hi = min(2 * kLanes + kRingWords, limit);
     for (int q = lane; q < kRingWords / 4; q += kLanes) {
@@ -616,24 +514,8 @@ __device__ __forceinline__ void decode_lanes(
     state[k] = (uint32_t(r[k].src[lane]) << 16) |
                uint32_t(r[k].src[kLanes + lane]);
 
-  // Tables: hi in registers; adaptive lo rows per lane (and their start
-  // copies); static rows once.
   int hi[16], start_hi[16];
-#pragma unroll
-  for (int e = 0; e < 16; ++e) {
-    hi[e] = hi_tbl[e * G + g];
-    start_hi[e] = hi[e];
-  }
-  for (int h = 0; h < m.arows; ++h) {
-    int v[16];
-#pragma unroll
-    for (int e = 0; e < 16; ++e) v[e] = lo_tbl[(h * 16 + e) * G + g];
-    const int at = (h * kLanes + lane) * 16;
-    st_row(b.lo + at, v);
-    if (m.share > 1) st_row(b.st + at, v);
-  }
-  for (int q = lane; q < (16 - m.arows) * 16; q += kLanes)
-    b.fixed[q] = uint16_t(lo_tbl[(m.arows * 16 + q) * G + g]);
+  load_tables(hi_tbl, lo_tbl, G, g, m, b, hi, start_hi);
   cp_async_wait<0>();
   __syncthreads();
 
@@ -646,17 +528,17 @@ __device__ __forceinline__ void decode_lanes(
     lookup_pick(hi, hs, low_h, fr_h);
     state[0] = uint32_t(fr_h) * (state[0] >> 15) + value - uint32_t(low_h);
     const bool adapt = hs < m.arows;
-    uint16_t* rp = adapt ? b.lo + (hs * kLanes + lane) * 16
-                         : b.fixed + (hs - m.arows) * 16;
+    uint16_t* rp = adapt ? lane_row(b.lo, hs) : b.fixed + (hs - m.arows) * 16;
+    const int half = adapt ? kHalf : 8;
     int row[16];
     unsigned bal[NS];
     if constexpr (NS == 1) {
       fetch_post(state, bal, b, buf, nfetch);
-      ld_row(rp, row);
+      ld_row(rp, half, row);
       cdf_update(hi, low_h, m.rate);
       fetch_take(state, bal, r, limit, b, buf, nfetch);
     } else {
-      ld_row(rp, row);
+      ld_row(rp, half, row);
     }
     value = state[NS - 1] & (kTotal - 1);
     const int ls = search_tree(row, int(value));
@@ -668,7 +550,7 @@ __device__ __forceinline__ void decode_lanes(
     // what needs no word of this fetch: the model's updates and re-joins
     if constexpr (NS == 2) cdf_update(hi, low_h, m.rate);
     cdf_update(row, low_l, m.rate);
-    if (adapt) st_row(rp, row);
+    if (adapt) st_row(rp, kHalf, row);
     *out_t = uint8_t((hs << 4) | ls);
     out_t += plane;
     rejoin_batches_after(t, m, b, hi, start_hi);
@@ -686,7 +568,7 @@ __global__ void __launch_bounds__(kLanes, 1)
 decode_kernel(const int* __restrict__ streams, const int* __restrict__ hi_tbl,
               const int* __restrict__ lo_tbl, uint8_t* __restrict__ out,
               int* __restrict__ fstate, int K, int G, int R, Geo m,
-              DecCarve c) {
+              Carve c) {
   decode_lanes<1>(streams, hi_tbl, lo_tbl, out, fstate, K, G, R, m, c);
 }
 
@@ -701,8 +583,74 @@ decode_x2_kernel(const int* __restrict__ streams,
                  const int* __restrict__ hi_tbl,
                  const int* __restrict__ lo_tbl, uint8_t* __restrict__ out,
                  int* __restrict__ fstate, int K, int G, int R, Geo m,
-                 DecCarve c) {
+                 Carve c) {
   decode_lanes<2>(streams, hi_tbl, lo_tbl, out, fstate, K, G, R, m, c);
+}
+
+// ---- K2: forward model pass on the decoders' byte step.  cols [K, G, 128]
+// u8 -> probs [2K, G, 128] int32 = (low << 16) | freq per nibble slot (hi
+// slot 2t, lo slot 2t+1).  One model for one or two stream sets.
+//
+// The group's bytes are staged in a ring of 2 kColSteps byte steps x 128
+// lanes: at byte t % kColSteps == 0 every thread waits for its copies of
+// the stage that starts at t (requested kColSteps bytes earlier), the
+// barrier publishes them and frees the stage before, and the CTA requests
+// the stage that starts at t + kColSteps into it.
+
+// The CTA requests byte steps [t0, min(t0 + kColSteps, K)) of the group
+// whose bytes start at src, 16 bytes (16 lanes) a copy.
+__device__ __forceinline__ void cols_stage(unsigned char* ring,
+                                           const uint8_t* src, int t0, int K,
+                                           size_t plane) {
+  constexpr int kCopies = kLanes / 16;  // copies a byte step
+  for (int q = threadIdx.x; q < kColSteps * kCopies; q += kLanes) {
+    const int t = t0 + q / kCopies, part = (q % kCopies) * 16;
+    if (t < K)
+      cp_async16(ring + (t & (2 * kColSteps - 1)) * kLanes + part,
+                 src + size_t(t) * plane + part);
+  }
+}
+
+__global__ void __launch_bounds__(kLanes, 1)
+model_kernel(const uint8_t* __restrict__ cols, const int* __restrict__ hi_tbl,
+             const int* __restrict__ lo_tbl, int* __restrict__ probs, int K,
+             int G, Geo m, Carve c) {
+  const Bufs b = carve(c);
+  const int g = blockIdx.x, lane = threadIdx.x;
+  const size_t plane = size_t(G) * kLanes;
+  const uint8_t* src = cols + size_t(g) * kLanes;
+  cols_stage(b.stage, src, 0, K, plane);
+  cp_async_commit();
+  int hi[16], start_hi[16];
+  load_tables(hi_tbl, lo_tbl, G, g, m, b, hi, start_hi);
+
+  int* out = probs + size_t(g) * kLanes + lane;  // slot 2t of this lane
+  for (int t = 0; t < K; ++t) {
+    if ((t & (kColSteps - 1)) == 0) {  // also publishes the tables at t = 0
+      cp_async_wait<0>();
+      __syncthreads();
+      cols_stage(b.stage, src, t + kColSteps, K, plane);
+      cp_async_commit();
+    }
+    const int sym = b.stage[(t & (2 * kColSteps - 1)) * kLanes + lane];
+    const int hs = sym >> 4, ls = sym & 15;
+    int low_h, fr_h;
+    lookup_pick(hi, hs, low_h, fr_h);
+    const bool adapt = hs < m.arows;
+    uint16_t* rp = adapt ? lane_row(b.lo, hs) : b.fixed + (hs - m.arows) * 16;
+    int row[16];
+    ld_row(rp, adapt ? kHalf : 8, row);
+    cdf_update(hi, low_h, m.rate);
+    int low_l, fr_l;
+    lookup_pick(row, ls, low_l, fr_l);
+    cdf_update(row, low_l, m.rate);
+    if (adapt) st_row(rp, kHalf, row);
+    out[0] = (low_h << 16) | fr_h;
+    out[plane] = (low_l << 16) | fr_l;
+    out += 2 * plane;
+    rejoin_batches_after(t, m, b, hi, start_hi);
+  }
+  cp_async_wait<0>();
 }
 
 // ---- K3: backward rANS pass.  probs [S, L] -> words [S, L] int32 (the low
@@ -729,35 +677,160 @@ coder_kernel(const int* __restrict__ probs, const int* __restrict__ init,
   fstate[lane] = int(state);
 }
 
-// ---- K4: placement.  Per slot, the emitting lanes' words go to the next
-// consecutive positions of the group stream in lane order, data from word
-// 256; rows 0/1 = flush state hi16/lo16; the tail is zeroed; glens = 256 +
-// emitted words.
-__global__ void __launch_bounds__(kLanes)
-place_kernel(const int* __restrict__ words, const uint8_t* __restrict__ emit,
-             const int* __restrict__ state, int* __restrict__ gstreams,
-             int* __restrict__ glens, int S, int G, int R) {
-  __shared__ int wsum[2 * kWarps];
-  const int g = blockIdx.x;
-  const size_t plane = size_t(G) * kLanes;
-  const size_t col = size_t(g) * kLanes + threadIdx.x;
-  int* out = gstreams + size_t(g) * R * kLanes;
-  const long long limit = (long long)R * kLanes;
-  long long base = 2 * kLanes;
-  int buf = 0;
-  for (int t = 0; t < S; ++t) {
-    const size_t at = size_t(t) * plane + col;
-    const bool e = emit[at] != 0;
-    int rank, total;
-    block_rank(e, wsum, buf, rank, total);
-    if (e && base + rank < limit) out[base + rank] = words[at];
-    base += total;
+// ---- K4: placement.  words/emit [S, G, 128], flush states [G, 128] ->
+// gstreams [G, R, 128] int32: rows 0/1 = flush state hi16/lo16, the
+// emitting lanes' words from position 256 in slot-major, lane-minor order,
+// zeros after; glens [G] = 256 + emitted words.  Chunk c of group g is
+// slots [c kPlaceChunk, (c + 1) kPlaceChunk) and CTA c * G + g of both
+// launches (neighbouring CTAs read neighbouring rows of emit).  A slot's
+// 128 emit bytes are kSegs segments of 16 lanes, one 16-byte load each.
+constexpr int kPlaceChunk = 64;                 // slots a CTA
+constexpr int kPlaceThreads = 256;              // threads a CTA
+constexpr int kSegs = kLanes / 16;              // segments a slot
+constexpr int kChunkSegs = kPlaceChunk * kSegs;
+constexpr int kPlaceWarps = kPlaceThreads / 32;
+static_assert(kChunkSegs == 2 * kPlaceThreads, "two segments a thread");
+
+// The emit flags of 16 lanes (16 bytes at p, 16-byte aligned) as a mask,
+// bit j = lane j emits.
+__device__ __forceinline__ unsigned emit_mask(const uint8_t* p) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  unsigned m = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint32_t f = __vcmpne4(w[k], 0u);  // 0xff a nonzero byte
+    m |= ((f >> 7 & 1u) | (f >> 14 & 2u) | (f >> 21 & 4u) | (f >> 28 & 8u))
+         << (4 * k);
   }
-  const uint32_t st = uint32_t(state[col]);
-  out[threadIdx.x] = int(st >> 16);
-  out[kLanes + threadIdx.x] = int(st & 0xFFFFu);
-  for (long long p = base + threadIdx.x; p < limit; p += kLanes) out[p] = 0;
-  if (threadIdx.x == 0) glens[g] = int(base);
+  return m;
+}
+
+// The masks of the two segments of this thread in chunk c (segment k of
+// the chunk is slot k / kSegs, lanes 16 (k % kSegs) ...; slots at or past
+// S emit nothing).
+__device__ __forceinline__ void chunk_masks(const uint8_t* __restrict__ emit,
+                                            int c, int g, int S, int G,
+                                            unsigned (&m)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int k = threadIdx.x + h * kPlaceThreads;
+    const int t = c * kPlaceChunk + k / kSegs;
+    m[h] = t < S ? emit_mask(emit + (size_t(t) * G + g) * kLanes +
+                             (k % kSegs) * 16)
+                 : 0u;
+  }
+}
+
+// Count: counts[g * C + c] = the emits of chunk c of group g.
+__global__ void __launch_bounds__(kPlaceThreads)
+place_count_kernel(const uint8_t* __restrict__ emit, int* __restrict__ counts,
+                   int S, int G, int C) {
+  __shared__ int part[kPlaceWarps];
+  const int g = blockIdx.x % G, c = blockIdx.x / G;
+  unsigned m[2];
+  chunk_masks(emit, c, g, S, G, m);
+  const unsigned n = __reduce_add_sync(kFull, __popc(m[0]) + __popc(m[1]));
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = int(n);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int s = 0;
+#pragma unroll
+    for (int w = 0; w < kPlaceWarps; ++w) s += part[w];
+    counts[size_t(g) * C + c] = s;
+  }
+}
+
+// Place: the chunk's base and the group's length from the counts, one
+// CTA-wide scan of the chunk's masks, the words of the emitting lanes,
+// and the CTA's share of the zero tail.
+__global__ void __launch_bounds__(kPlaceThreads)
+place_kernel(const int* __restrict__ words, const uint8_t* __restrict__ emit,
+             const int* __restrict__ state, const int* __restrict__ counts,
+             int* __restrict__ gstreams, int* __restrict__ glens, int S,
+             int G, int R, int C) {
+  __shared__ int wscan[kPlaceWarps], wbase[kPlaceWarps], wlen[kPlaceWarps];
+  __shared__ uint16_t mask[kChunkSegs];
+  __shared__ uint16_t pre[kChunkSegs];  // emits before the segment, < 8192
+  const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
+  const int g = blockIdx.x % G, c = blockIdx.x / G;
+  int* out = gstreams + size_t(g) * R * kLanes;
+
+  // Emits of the group before this chunk, and in all (sum over C counts).
+  int before = 0, len = 0;
+  for (int q = tid; q < C; q += kPlaceThreads) {
+    const int n = counts[size_t(g) * C + q];
+    len += n;
+    before += q < c ? n : 0;
+  }
+  before = int(__reduce_add_sync(kFull, unsigned(before)));
+  len = int(__reduce_add_sync(kFull, unsigned(len)));
+  // The chunk's segments in order: this thread's first segment is segment
+  // tid, its second tid + kPlaceThreads.  Both counts scan at once, packed
+  // in 16 bits each (a half-chunk holds at most 4096 emits).
+  unsigned m[2];
+  chunk_masks(emit, c, g, S, G, m);
+  const int own = __popc(m[0]) | (__popc(m[1]) << 16);
+  int incl = own;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(kFull, incl, d);
+    if (wl >= d) incl += v;
+  }
+  if (wl == 31) wscan[warp] = incl;
+  if (wl == 0) {
+    wbase[warp] = before;
+    wlen[warp] = len;
+  }
+  __syncthreads();
+  int off = 0, all = 0, base = 0;
+  len = 0;
+#pragma unroll
+  for (int w = 0; w < kPlaceWarps; ++w) {
+    off += w < warp ? wscan[w] : 0;
+    all += wscan[w];
+    base += wbase[w];
+    len += wlen[w];
+  }
+  const int excl = off + incl - own;
+  mask[tid] = uint16_t(m[0]);
+  mask[tid + kPlaceThreads] = uint16_t(m[1]);
+  pre[tid] = uint16_t(excl & 0xFFFF);
+  pre[tid + kPlaceThreads] = uint16_t((all & 0xFFFF) + (excl >> 16));
+  __syncthreads();
+
+  // Scatter: thread = lane tid % 128 of the slots of parity tid / 128, so
+  // a warp reads one slot's 32 neighbouring words, and only where a lane
+  // emits.  Positions stay below 256 + S * 128 <= R * 128.
+  const int lane = tid & (kLanes - 1), j = lane & 15;
+  const int pos0 = 2 * kLanes + base;
+  for (int s = tid / kLanes; s < kPlaceChunk; s += kPlaceThreads / kLanes) {
+    const int k = s * kSegs + lane / 16;
+    const unsigned mk = mask[k];
+    if ((mk >> j) & 1u) {
+      const size_t at = (size_t(c * kPlaceChunk + s) * G + g) * kLanes + lane;
+      out[pos0 + pre[k] + __popc(mk & ((1u << j) - 1u))] = words[at];
+    }
+  }
+
+  // The tail [z0, R * 128): ints up to the next 16-byte boundary by chunk
+  // 0, the quads after it split evenly over the group's C chunks.
+  const int z0 = 2 * kLanes + len, lim = R * kLanes;
+  const int q0 = (z0 + 3) >> 2, q1 = lim >> 2;
+  if (c == 0) {
+    if (tid < kLanes) {
+      const uint32_t st = uint32_t(state[size_t(g) * kLanes + tid]);
+      out[tid] = int(st >> 16);
+      out[kLanes + tid] = int(st & 0xFFFFu);
+    }
+    if (tid < 3 && z0 + tid < 4 * q0 && z0 + tid < lim) out[z0 + tid] = 0;
+    if (tid == 0) glens[g] = z0;
+  }
+  const long long nq = q1 > q0 ? q1 - q0 : 0;
+  const int a = q0 + int(nq * c / C), e = q0 + int(nq * (c + 1) / C);
+  int4* out4 = reinterpret_cast<int4*>(out);
+  for (int q = a + tid; q < e; q += kPlaceThreads)
+    out4[q] = make_int4(0, 0, 0, 0);
 }
 
 Geo make_geo(int share, int sync, int lsync, int arows, int srows, int rate) {
@@ -772,31 +845,45 @@ Geo make_geo(int share, int sync, int lsync, int arows, int srows, int rate) {
   return m;
 }
 
-// K1 (ns = 1) or K5 (ns = 2): check the launch the wrapper computed
-// (ops/rans_kernel.py decode_launch) against what the kernel carves, then
-// launch.  A launch that does not fit returns cudaErrorInvalidValue.
-int decode_launch(int ns, const void* streams, const void* hi_tbl,
-                  const void* lo_tbl, void* out, void* fstate, int K, int G,
-                  int R, Geo m, int threads, int smem, DecCarve c,
-                  void* stream) {
-  const int off[6] = {c.ring, c.lo, c.st, c.fixed, c.red, c.rank};
-  const int size[6] = {ns * kRingWords * 4,
+// The checks K1, K2 and K5 share: one thread a lane, the geometry's
+// cadences, and the carve the wrapper computed (ops/rans_kernel.py
+// decode_launch / model_launch) against the region sizes the kernel
+// needs: ordered, 16-byte aligned, within smem <= kSmemMax.  A stage of
+// `stage` bytes, then the tables, then `rank` bytes.
+bool carve_ok(const Geo& m, int threads, int smem, const Carve& c,
+              int stage, int rank) {
+  const int off[6] = {c.stage, c.lo, c.st, c.fixed, c.red, c.rank};
+  const int size[6] = {stage,
                        m.arows * kLanes * 32,
                        (m.share > 1 ? m.arows : 0) * kLanes * 32,
                        (16 - m.arows) * 32,
                        m.share > 32 ? kWarps * 16 * 4 : 0,
-                       2 * ns * kWarps};
-  bool ok = threads == kLanes && smem <= kSmemMax && m.arows >= 0 &&
-            m.arows <= 16 && m.sync > 0 && (m.sync & (m.sync - 1)) == 0 &&
-            m.lsync > 0 && (m.lsync & (m.lsync - 1)) == 0 && R >= 2 &&
-            R <= (INT_MAX - 2 * kRingWords) / kLanes &&
-            (reinterpret_cast<uintptr_t>(streams) & 15) == 0;
+                       rank};
+  bool ok = threads == kLanes && smem <= kSmemMax && m.rate >= 7 &&
+            m.rate <= 10 && m.arows >= 0 &&
+            m.arows <= 16 && m.share >= 1 && m.share <= 128 &&
+            (m.share & (m.share - 1)) == 0 && m.sync > 0 &&
+            (m.sync & (m.sync - 1)) == 0 && m.lsync > 0 &&
+            (m.lsync & (m.lsync - 1)) == 0;
   int end = 0;
   for (int i = 0; i < 6; ++i) {
     ok = ok && off[i] % 16 == 0 && off[i] >= end;
     end = off[i] + size[i];
   }
-  if (!ok || end > smem) return int(cudaErrorInvalidValue);
+  return ok && end <= smem;
+}
+
+// K1 (ns = 1) or K5 (ns = 2): check the launch, then launch.  A launch
+// that does not fit returns cudaErrorInvalidValue.
+int decode_launch(int ns, const void* streams, const void* hi_tbl,
+                  const void* lo_tbl, void* out, void* fstate, int K, int G,
+                  int R, Geo m, int threads, int smem, Carve c,
+                  void* stream) {
+  const bool ok = carve_ok(m, threads, smem, c, ns * kRingWords * 4,
+                           2 * ns * kWarps) &&
+                  R >= 2 && R <= (INT_MAX - 2 * kRingWords) / kLanes &&
+                  (reinterpret_cast<uintptr_t>(streams) & 15) == 0;
+  if (!ok) return int(cudaErrorInvalidValue);
   auto kernel = ns == 1 ? decode_kernel : decode_x2_kernel;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -812,17 +899,24 @@ int decode_launch(int ns, const void* streams, const void* hi_tbl,
 
 extern "C" {
 
+// K2: tile and geometry, then rans_kernel.model_launch's threads,
+// shared-memory bytes and five region offsets (no rank counts).
 int trc_model(const void* cols, const void* hi_tbl, const void* lo_tbl,
               void* probs, int K, int G, int share, int sync, int lsync,
-              int arows, int srows, int rate, void* stream) {
-  const size_t smem = model_smem_bytes(share);
+              int arows, int srows, int rate, int threads, int smem,
+              int c_cols, int c_lo, int c_st, int c_fixed, int c_red,
+              void* stream) {
+  const Geo m = make_geo(share, sync, lsync, arows, srows, rate);
+  const Carve c{c_cols, c_lo, c_st, c_fixed, c_red, smem};
+  if (!carve_ok(m, threads, smem, c, 2 * kColSteps * kLanes, 0) || K < 0 ||
+      (reinterpret_cast<uintptr_t>(cols) & 15) != 0)
+    return int(cudaErrorInvalidValue);
   cudaError_t e = cudaFuncSetAttribute(
-      model_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      model_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return int(e);
   model_kernel<<<G, kLanes, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(cols), static_cast<const int*>(hi_tbl),
-      static_cast<const int*>(lo_tbl), static_cast<int*>(probs), K, G,
-      make_geo(share, sync, lsync, arows, srows, rate));
+      static_cast<const int*>(lo_tbl), static_cast<int*>(probs), K, G, m, c);
   return int(cudaGetLastError());
 }
 
@@ -834,7 +928,7 @@ int trc_decode(const void* streams, const void* hi_tbl, const void* lo_tbl,
   return decode_launch(1, streams, hi_tbl, lo_tbl, out, fstate, K, G, R,
                        make_geo(share, sync, lsync, arows, srows, rate),
                        threads, smem,
-                       DecCarve{c_ring, c_lo, c_st, c_fixed, c_red, c_rank},
+                       Carve{c_ring, c_lo, c_st, c_fixed, c_red, c_rank},
                        stream);
 }
 
@@ -847,7 +941,7 @@ int trc_decode_x2(const void* streams, const void* hi_tbl,
   return decode_launch(2, streams, hi_tbl, lo_tbl, out, fstate, K, G, R,
                        make_geo(share, sync, lsync, arows, srows, rate),
                        threads, smem,
-                       DecCarve{c_ring, c_lo, c_st, c_fixed, c_red, c_rank},
+                       Carve{c_ring, c_lo, c_st, c_fixed, c_red, c_rank},
                        stream);
 }
 
@@ -860,13 +954,34 @@ int trc_coder(const void* probs, const void* init, void* words, void* emit,
   return int(cudaGetLastError());
 }
 
+// K4: tile, then rans_kernel.place_launch's slots a chunk, chunks a group,
+// threads a CTA and scratch ints (counts); two launches, count then place.
 int trc_place(const void* words, const void* emit, const void* state,
-              void* gstreams, void* glens, int S, int G, int R,
+              void* gstreams, void* glens, void* counts, int S, int G, int R,
+              int chunk, int chunks, int threads, int scratch,
               void* stream) {
-  place_kernel<<<G, kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
+  const long long grid = (long long)G * chunks;
+  const bool ok = chunk == kPlaceChunk && threads == kPlaceThreads &&
+                  S >= 0 && G >= 1 &&
+                  chunks == (S > 0 ? (S + kPlaceChunk - 1) / kPlaceChunk
+                                   : 1) &&
+                  grid <= INT_MAX && scratch >= grid &&
+                  (long long)R >= (long long)S + 2 &&
+                  (long long)R * kLanes <= INT_MAX &&
+                  (reinterpret_cast<uintptr_t>(emit) & 15) == 0 &&
+                  (reinterpret_cast<uintptr_t>(gstreams) & 15) == 0;
+  if (!ok) return int(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  place_count_kernel<<<int(grid), kPlaceThreads, 0, s>>>(
+      static_cast<const uint8_t*>(emit), static_cast<int*>(counts), S, G,
+      chunks);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return int(e);
+  place_kernel<<<int(grid), kPlaceThreads, 0, s>>>(
       static_cast<const int*>(words), static_cast<const uint8_t*>(emit),
-      static_cast<const int*>(state), static_cast<int*>(gstreams),
-      static_cast<int*>(glens), S, G, R);
+      static_cast<const int*>(state), static_cast<const int*>(counts),
+      static_cast<int*>(gstreams), static_cast<int*>(glens), S, G, R,
+      chunks);
   return int(cudaGetLastError());
 }
 

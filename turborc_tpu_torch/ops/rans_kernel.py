@@ -39,18 +39,27 @@ from turborc_tpu_torch.ops.geom import DEFAULT, Geom
 
 GLANES = 128
 
-# The decoders' launch (csrc/rans_kernel.cu, K1 and K5): one thread per
-# lane, one CTA per group, and per stream set a ring of RING_WORDS stream
-# words in shared memory, topped up every RING_EVERY fetches with at most
-# RING_LAG top-ups in flight.  The source holds the same numbers
-# (kRingWords, kRingEvery, kRingLag); its C entry refuses a launch that
-# does not carve as decode_launch says.
+# The launches of K1, K2 and K5 (csrc/rans_kernel.cu): one thread per lane,
+# one CTA per group, the tables in shared memory as decode_launch and
+# model_launch carve it.  The decoders stage, per stream set, a ring of
+# RING_WORDS stream words, topped up every RING_EVERY fetches with at most
+# RING_LAG top-ups in flight; K2 stages its input bytes COL_STEPS byte
+# steps at a time, one stage ahead (a ring of two stages).  K4 runs two
+# launches over G x chunks CTAs of PLACE_THREADS threads, PLACE_CHUNK
+# slots each (place_launch).  The source holds the same numbers
+# (kRingWords, kRingEvery, kRingLag, kColSteps, kPlaceChunk,
+# kPlaceThreads); its C entries refuse a launch that does not match.
 RING_WORDS = 4096
 RING_EVERY = 8
 RING_LAG = 1
 FETCH_WORDS = GLANES   # most words one fetch takes from one stream set
+COL_STEPS = 64
+PLACE_CHUNK = 64
+PLACE_THREADS = 256
 SMEM_MAX = 232_448     # shared-memory bytes a CTA may have on the H100
 REGIONS = ("ring", "lo", "st", "fixed", "red", "rank")
+MODEL_REGIONS = ("cols", "lo", "st", "fixed", "red")
+INT32_MAX = 2**31 - 1
 
 launches = dict.fromkeys(("model", "coder", "place", "decode", "decode_x2"),
                          0)
@@ -258,16 +267,17 @@ def _check_geom(geom: Geom, G: int) -> None:
                          f"has {geom.groups}")
 
 
-def launch(name: str, fn: str, *args, counts: dict = launches) -> None:
+def launch(name: str, fn: str, *args, counts: dict = launches,
+           kernels: int = 1) -> None:
     """Launch C entry ``fn`` on the current stream (tensors are passed as
-    device pointers), raise on a CUDA error, count the launch in
-    ``counts[name]``."""
+    device pointers), raise on a CUDA error, count its ``kernels`` kernel
+    launches in ``counts[name]``."""
     from turborc_tpu_torch.ops import build
     args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     err = build.load()[fn](*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    counts[name] += 1
+    counts[name] += kernels
 
 
 def model(cols: torch.Tensor, hi_tbl: torch.Tensor, lo_tbl: torch.Tensor,
@@ -279,11 +289,12 @@ def model(cols: torch.Tensor, hi_tbl: torch.Tensor, lo_tbl: torch.Tensor,
     _check_geom(geom, G)
     if not cols.is_cuda:
         return model_plain(cols, hi_tbl, lo_tbl, geom)
+    if cols.data_ptr() % 16:  # the stage copies 16 bytes at a time
+        raise ValueError("cols: must be 16-byte aligned")
     probs = torch.empty((2 * K, G, GLANES), dtype=torch.int32,
                         device=cols.device)
-    launch("model", "trc_model", cols, hi_tbl, lo_tbl, probs, K, G,
-            geom.share, geom.sync, geom.lsync, geom.arows, geom.srows,
-            geom.rate)
+    launch("model", "trc_model",
+           *model_cargs(cols, hi_tbl, lo_tbl, probs, geom))
     return probs
 
 
@@ -318,13 +329,48 @@ def place(words: torch.Tensor, emit: torch.Tensor, state: torch.Tensor,
     if not words.is_cuda:
         return place_plain(words, emit, state, geom)
     R = S + 2 + geom.wrows
-    if R * GLANES >= 1 << 31:  # glens and stream positions are int32
+    if R * GLANES > INT32_MAX:  # glens and stream positions are int32
         raise ValueError(f"{S} slots exceed the int32 stream positions")
+    ln = place_launch(S, G, R)
+    if emit.data_ptr() % 16:  # 16-byte loads of emit
+        raise ValueError("emit: must be 16-byte aligned")
     gstreams = torch.empty((G, R, GLANES), dtype=torch.int32, device=dev)
     glens = torch.empty((G,), dtype=torch.int32, device=dev)
-    launch("place", "trc_place", words, emit, state, gstreams, glens, S,
-            G, R)
+    counts = torch.empty((ln.scratch,), dtype=torch.int32, device=dev)
+    launch("place", "trc_place",
+           *place_cargs(words, emit, state, gstreams, glens, counts, ln),
+           kernels=2)  # count, then place
     return gstreams, glens
+
+
+@dataclasses.dataclass(frozen=True)
+class PlaceLaunch:
+    """K4's launch over S slots of G groups: ``chunk`` slots a CTA,
+    ``chunks`` CTAs a group, ``grid`` = G x chunks CTAs of ``threads``
+    threads in each of its two launches (count, then place), and
+    ``scratch`` int32 chunk counts, allocated by the wrapper."""
+    S: int
+    G: int
+    R: int
+    chunk: int
+    chunks: int
+    threads: int
+    grid: int
+    scratch: int
+
+
+def place_launch(S: int, G: int, R: int) -> PlaceLaunch:
+    """K4's launch plan (the C entry ``trc_place`` re-checks it)."""
+    chunks = max(1, -(-S // PLACE_CHUNK))
+    return PlaceLaunch(S, G, R, PLACE_CHUNK, chunks, PLACE_THREADS,
+                       G * chunks, G * chunks)
+
+
+def place_cargs(words, emit, state, gstreams, glens, counts,
+                ln: PlaceLaunch) -> list:
+    """The arguments of ``trc_place`` (without the stream)."""
+    return [words, emit, state, gstreams, glens, counts, ln.S, ln.G, ln.R,
+            ln.chunk, ln.chunks, ln.threads, ln.scratch]
 
 
 def decode_tile(gstreams: torch.Tensor, K: int, hi_tbl: torch.Tensor,
@@ -348,33 +394,54 @@ def decode_tile_x2(gstreams: torch.Tensor, K: int, hi_tbl: torch.Tensor,
 
 
 @dataclasses.dataclass(frozen=True)
-class DecodeLaunch:
-    """K1's or K5's launch: threads per CTA, dynamic shared-memory bytes,
-    and the byte offset and size of each region (``REGIONS`` order): the
-    stream rings, the adaptive lo rows per lane, their re-join start
-    copies, the static lo rows (once per group), the cross-warp set sums
-    and the per-warp rank counts (one byte a warp, double-buffered)."""
+class TableLaunch:
+    """The launch of K1, K5 (``REGIONS``) or K2 (``MODEL_REGIONS``):
+    threads per CTA, dynamic shared-memory bytes, and the byte offset and
+    size of each region: the stage (the decoders' stream rings, K2's
+    ring of input bytes), the adaptive lo rows per lane, their re-join
+    start copies, the static lo rows (once per group), the cross-warp set
+    sums and, for the decoders, the per-warp rank counts (one byte a
+    warp, double-buffered)."""
     threads: int
     smem: int
     offsets: tuple
     sizes: tuple
 
 
-def decode_launch(geom: Geom) -> DecodeLaunch:
-    """The decoders' launch for ``geom``."""
+def _carve(geom: Geom, stage: int, rank: tuple) -> TableLaunch:
     warps = GLANES // 32
-    ns = geom.nstates
-    sizes = (ns * RING_WORDS * 4,
+    sizes = (stage,
              geom.arows * GLANES * 32,
              (geom.arows if geom.share > 1 else 0) * GLANES * 32,
              (16 - geom.arows) * 32,
              warps * 16 * 4 if geom.share > 32 else 0,
-             2 * ns * warps)
+             *rank)
     offsets, end = [], 0
     for size in sizes:
         offsets.append(end)
         end += -(-size // 16) * 16
-    return DecodeLaunch(GLANES, end, tuple(offsets), sizes)
+    return TableLaunch(GLANES, end, tuple(offsets), sizes)
+
+
+def decode_launch(geom: Geom) -> TableLaunch:
+    """The decoders' launch for ``geom``."""
+    ns = geom.nstates
+    return _carve(geom, ns * RING_WORDS * 4, (2 * ns * (GLANES // 32),))
+
+
+def model_launch(geom: Geom) -> TableLaunch:
+    """K2's launch for ``geom`` (one model for one or two stream sets):
+    a ring of two stages of COL_STEPS byte steps x 128 lanes."""
+    return _carve(geom, 2 * COL_STEPS * GLANES, ())
+
+
+def model_cargs(cols, hi_tbl, lo_tbl, probs, geom: Geom) -> list:
+    """The arguments of ``trc_model`` (without the stream): the tile, the
+    geometry and ``model_launch``'s numbers."""
+    ln = model_launch(geom)
+    return [cols, hi_tbl, lo_tbl, probs, cols.shape[0], geom.groups,
+            geom.share, geom.sync, geom.lsync, geom.arows, geom.srows,
+            geom.rate, ln.threads, ln.smem, *ln.offsets]
 
 
 def ring_top_up(base: int, limit: int, ring: int = RING_WORDS) -> int:

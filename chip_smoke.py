@@ -10,14 +10,16 @@ every ported path through the port's ``compress``/``decompress``
 ``rans-cdf-r1-p`` on K7, K3, K4 and K6; ``rans-auto`` over both
 flagships; the bit-tree ``rc-p`` on K9, K3, K4 and K8), checks every
 container against the golden hashes the JAX package wrote, then times
-the kernels.  The o0 decoders K1 and K5 are also held against their
-plain versions where their shared-memory ring of stream words wraps and
-on corrupt streams, and the placement K4 on edge cases of emit (every
-lane, none, one, slot counts that are not a multiple of its chunk).
-With ``--before COMMIT``, the o0 model K2 and K4 are timed in turns
-against those of a ``git archive COMMIT`` unpacked in
-``_archive/COMMIT/``.  It imports no JAX and nothing of ``turborc_tpu``;
-the corpora under ``turborc_tpu/bench/_data/`` are read as files.
+the kernels.  The decoders on a shared-memory ring of stream words (the
+o0 K1 and K5, the o1 K6) are also held against their plain versions
+where the ring wraps and on corrupt streams, the placement K4 on edge
+cases of emit (every lane, none, one, slot counts that are not a
+multiple of its chunk), and the coder K3 on edge cases of probabilities
+and states (``coder-edge``).  With ``--before COMMIT``, the coder K3 and
+the o1 decoder K6 are timed in turns against those of a ``git archive
+COMMIT`` unpacked in ``_archive/COMMIT/``.  It imports no JAX and
+nothing of ``turborc_tpu``; the corpora under ``turborc_tpu/bench/_data/``
+are read as files.
 
 The phases run in a child process under a wall-clock budget, so a kernel
 that hangs becomes a non-zero exit that names the phase.  The last line,
@@ -47,14 +49,14 @@ GOLDEN_X2 = ROOT / "turborc_tpu_torch" / "golden" / "o0p_x2.json"
 BUDGET_S = 600
 BENCH_GEOM = "g64c8s8y8l32a4r4"
 BENCH_GEOM_X2 = BENCH_GEOM + "x2"
-# --before COMMIT: the timing-encode-before-after phase builds the
-# rans_kernel.cu of _archive/COMMIT/ (a git archive of COMMIT unpacked
-# there) and times its K2 and K4 against the current ones.  Their C
-# signatures there, as (pointers, ints) before the stream: those of the
-# model and the one-CTA-a-group placement of d62ac60 and earlier.
+# --before COMMIT: the timing-before-after phase builds the sources of
+# _archive/COMMIT/ (a git archive of COMMIT unpacked there) that hold the
+# kernels in REDESIGNED and times those against the current ones.  Their
+# C signatures there, as (pointers, ints) before the stream: those of the
+# one-CTA-a-group coder and the o1 decoder of 9ed2fbe and earlier.
 # Without it the phase is skipped.
 BEFORE_FLAG = "--before"
-BEFORE_ARGS = {"trc_model": (4, 8), "trc_place": (5, 3)}
+BEFORE_ARGS = {"trc_coder": (5, 2), "trc_o1_decode": (6, 4)}
 ARCHIVE = ROOT / "_archive"
 CSRC_REL = "turborc_tpu_torch/ops/csrc"
 CHILD_FLAG = "--child"
@@ -78,7 +80,7 @@ REPLACES = {
     "tree_model": "turborc_tpu/ops/pallas/bittree_kernel.py:333",
 }
 # Kernels timed against a parent's with --before.
-REDESIGNED = ("model", "place")
+REDESIGNED = ("coder", "o1_decode")
 # Each path's kernels in stage order: model, coder, place, decode.
 KERNELS = {"o0": ("model", "coder", "place", "decode"),
            "o1": ("o1_model", "coder", "place", "o1_decode"),
@@ -118,26 +120,30 @@ def _smi() -> str:
 
 
 def phase_build(before: str | None):
-    """Build the port's sources and, beside them, the rans_kernel.cu of
-    commit ``before`` (from _archive/<before>/); returns the path of that
-    library, or None without ``before``."""
+    """Build the port's sources and, beside them, the sources of commit
+    ``before`` (from _archive/<before>/) that hold the REDESIGNED kernels;
+    returns {kernel: that library's path}, empty without ``before``."""
     import torch
     from turborc_tpu_torch.ops import build
     phase("build")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
-    job = None
+    jobs = []
     if before is not None:
         src = ARCHIVE / before / CSRC_REL
-        if not (src / "rans_kernel.cu").exists():
-            raise FileNotFoundError(f"{BEFORE_FLAG} {before}: no {src}/"
-                                    "rans_kernel.cu (unpack a git archive "
-                                    "of the commit there)")
-        lib = build.BUILD_DIR / f"librans_kernel_{before}.so"
-        job = (lib, subprocess.Popen(
-            [build.nvcc(), *build.FLAGS, "-I", str(src), "-o", str(lib),
-             str(src / "rans_kernel.cu")], stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True))
+        for name in REDESIGNED:
+            cu = Path(SOURCE[name]).name
+            if not (src / cu).exists():
+                raise FileNotFoundError(f"{BEFORE_FLAG} {before}: no {src}/"
+                                        f"{cu} (unpack a git archive of the "
+                                        "commit there)")
+            lib = build.BUILD_DIR / f"lib{Path(cu).stem}_{before}.so"
+            if all(job[1] != lib for job in jobs):
+                build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                jobs.append((cu, lib, subprocess.Popen(
+                    [build.nvcc(), *build.FLAGS, "-I", str(src), "-o",
+                     str(lib), str(src / cu)], stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True)))
     infos = build.build()
     build.load()
     for info in infos:
@@ -154,14 +160,16 @@ def phase_build(before: str | None):
                 fn = m.group(1)
             elif ("Used" in line or "stack frame" in line) and fn:
                 log(f"ptxas {fn}: {line.split(':', 1)[-1].strip()}")
-    if job is None:
-        return None
-    lib, proc = job
-    _, err = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc of {before} failed:\n{err}")
-    log(f"build: {lib} ({before}'s rans_kernel.cu)")
-    return lib
+    libs = {}
+    for cu, lib, proc in jobs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc of {before}'s {cu} failed:\n{err}")
+        log(f"build: {lib} ({before}'s {cu})")
+        for name in REDESIGNED:
+            if Path(SOURCE[name]).name == cu:
+                libs[name] = lib
+    return libs
 
 
 def _corpus(name: str, n: int | None = None):
@@ -333,33 +341,36 @@ def _kernel_cases(label: str, kind: str, cases, dev,
             f"block{note}")
 
 
-# The decoders' ring wraps: one group at K = 2048 on 256 KB of textbwt,
-# about 11 rings of words in the group stream (4 at least); under x2 the
-# lo set's stream wraps as often, the hi set's (mostly rank-0 nibbles)
-# holds under half a ring.
-RING_GEOMS = ("g1c8s8y8l32a4r4", "g1c8s8y8l32a4r4x2")
-# Corrupt streams for K1 and K5: two groups, K = 256.
-CORRUPT_GEOMS = ("g2c8s8y8l32a4r4", "g2c8s8y8l32a4r4x2")
+# The decoders' ring wraps: one group at K = 2048 on 256 KB of textbwt.
+# o0: about 11 rings of words in the group stream (4 at least); under x2
+# the lo set's stream wraps as often, the hi set's (mostly rank-0
+# nibbles) holds under half a ring; o1 (K6): the same bytes at the
+# default geometry cut to one group.
+RING_CASES = (("o0", "g1c8s8y8l32a4r4"), ("x2", "g1c8s8y8l32a4r4x2"),
+              ("o1", "g1c8s8y4l32a16r4"))
+# Corrupt streams for K1, K5 and K6: two groups, K = 256 (o0) or 512 (o1).
+CORRUPT_CASES = (("o0", "g2c8s8y8l32a4r4"), ("x2", "g2c8s8y8l32a4r4x2"),
+                 ("o1", "g2c8s8y4l32a16r4"))
 
 
 def phase_decode_cases(dev) -> None:
-    """K1 and K5 where the ring wraps many times, and on corrupt streams:
-    flipped words, and streams cut short (fewer rows than the block
-    needs, down to the two state rows).  Each kernel equals its plain
-    version, final states included; a hang would overrun the budget."""
+    """K1, K5 and K6 where the ring wraps many times, and on corrupt
+    streams: flipped words, and streams cut short (fewer rows than the
+    block needs, down to the two state rows).  Each kernel equals its
+    plain version, final states included; a hang would overrun the
+    budget."""
     import torch
     from turborc_tpu_torch.ops import rans_kernel as K_
+    from turborc_tpu_torch.ops import rans_o1_kernel as K1
     from turborc_tpu_torch.ops.geom import Geom
     text = _corpus("textbwt_16777216.bin", 1 << 18)
-    for spec in RING_GEOMS:
-        g = Geom.parse(spec)
-        _kernel_cases("decode-ring-wrap", "x2" if g.nstates == 2 else "o0",
-                      [(g, text)], dev, min_wraps=4)
+    for kind, spec in RING_CASES:
+        _kernel_cases("decode-ring-wrap", kind, [(Geom.parse(spec), text)],
+                      dev, min_wraps=4)
     phase("decode-corrupt")
     gen = torch.Generator().manual_seed(20261017)
-    for spec in CORRUPT_GEOMS:
+    for kind, spec in CORRUPT_CASES:
         geom = Geom.parse(spec)
-        kind = "x2" if geom.nstates == 2 else "o0"
         args = _codec(kind).encode_args(text[:1 << 17], geom, dev)
         stages = _stages(kind, args, geom, kernels=True)
         outs, _ = _run_path(stages[:3])
@@ -376,8 +387,9 @@ def phase_decode_cases(dev) -> None:
                  f"R cut to {used // 2} of {used} rows":
                      gs[..., :used // 2, :].contiguous(),
                  "R cut to 2": gs[..., :2, :].contiguous()}
-        kern_fn, plain_fn = ((K_.decode_tile, K_.decode_plain) if kind == "o0"
-                             else (K_.decode_tile_x2, K_.decode_x2_plain))
+        kern_fn, plain_fn = {"o0": (K_.decode_tile, K_.decode_plain),
+                             "x2": (K_.decode_tile_x2, K_.decode_x2_plain),
+                             "o1": (K1.decode_tile, K1.decode_plain)}[kind]
         for what, bad in cases.items():
             k_out, k_fs = kern_fn(bad, args.K, args.hi_tbl, args.lo_tbl, geom)
             p_out, p_fs = plain_fn(bad, args.K, args.hi_tbl, args.lo_tbl,
@@ -387,8 +399,58 @@ def phase_decode_cases(dev) -> None:
                 raise AssertionError(f"decode-corrupt {spec} {what}: kernel "
                                      f"differs from plain by {err}")
             wrong = int((k_out.reshape(args.K, -1).T != args.block).sum())
-            log(f"decode-corrupt {spec} {what}: kernel equals plain "
+            log(f"decode-corrupt {kind} {spec} {what}: kernel equals plain "
                 f"(max abs err 0); {wrong} bytes differ from the block")
+
+
+# K3 on constructed tiles: (S, G).  S = 1, S below, at and past one stage
+# (64 slots) and not a multiple of it; G = 1 and 64.
+CODER_EDGES = ((1, 1), (1, 64), (63, 1), (64, 2), (65, 1), (4133, 64),
+               (4096, 64))
+CODER_FREQS = (1, 2, 32767, 32768)  # the extremes of a 15-bit frequency
+CODER_STATES = (1 << 15, (1 << 31) - 1)  # the least and the largest state
+
+
+def phase_coder_edge(dev) -> None:
+    """K3 against coder_plain on the CODER_EDGES tiles: half the slots take
+    a frequency of CODER_FREQS, the rest one drawn from [1, 2^15], each with
+    a low that keeps low + freq <= 2^15; half the lanes start at a state of
+    CODER_STATES, the rest at one drawn from [2^15, 2^31).  Words, emit
+    flags and flush states equal (tolerance 0)."""
+    import torch
+    from turborc_tpu_torch.ops import rans_kernel as K_
+    phase("coder-edge")
+    gen = torch.Generator(device=dev).manual_seed(20261019)
+    for S, G in CODER_EDGES:
+        shape = (S, G, 128)
+        edge = torch.tensor(CODER_FREQS, device=dev)[
+            torch.randint(0, len(CODER_FREQS), shape, generator=gen,
+                          device=dev)]
+        freq = torch.where(torch.rand(shape, generator=gen, device=dev) < 0.5,
+                           edge, torch.randint(1, (1 << 15) + 1, shape,
+                                               generator=gen, device=dev))
+        low = (torch.rand(shape, generator=gen, device=dev)
+               * ((1 << 15) - freq + 1)).to(torch.int64).clamp(
+                   max=(1 << 15) - freq)
+        probs = ((low << 16) | freq).to(torch.int32)
+        init = torch.randint(1 << 15, 1 << 31, (G, 128), generator=gen,
+                             device=dev, dtype=torch.int64)
+        pick = torch.randint(0, 2, (G, 128), generator=gen, device=dev)
+        init = torch.where(pick == 0, init,
+                           torch.tensor(CODER_STATES, device=dev)[
+                               torch.randint(0, 2, (G, 128), generator=gen,
+                                             device=dev)]).to(torch.int32)
+        k = K_.coder(probs, init)
+        want = K_.coder_plain(probs, init)
+        err = max(_max_abs(a, b) for a, b in zip(k, want))
+        if err:
+            raise AssertionError(f"coder-edge S={S} G={G}: kernel differs "
+                                 f"from plain by {err}")
+        ln = K_.coder_launch(S, G)
+        log(f"coder-edge S={S} G={G} ({ln.ctas} CTAs, {ln.stages} stages of "
+            f"{ln.slots} slots, the top one {S - (ln.stages - 1) * ln.slots}"
+            f"; {int(k[1].sum())} words emitted): equal to plain, tolerance "
+            "0 (max abs err 0)")
 
 
 def phase_kernels(dev) -> None:
@@ -613,39 +675,45 @@ def _time_path(label: str, kind: str, corpus: str, geom, dev) -> dict:
                 glens_sum=glens_sum)
 
 
-def phase_before_after(dev, before: str | None, lib_path) -> dict:
-    """K2 and K4 of commit ``before`` against the current ones on the 64 MB
-    block (id 57's timing shapes): a warm-up, then 3 repetitions on
-    distinct rotations, the two kernels in turns (before first on odd
-    repetitions), CUDA events around the bare C entry of each (outputs and
-    scratch allocated beforehand, so no wrapper work is timed); their
-    outputs must be equal.  Returns {name: {"before": ms per repetition,
-    "after": ...}}, empty when there is no library."""
+def phase_before_after(dev, before: str | None, libs: dict) -> dict:
+    """K3 and K6 of commit ``before`` against the current ones: K3 on id
+    57's 64 MB block at BENCH_GEOM (probs from K2), K6 on id 60's 16 MB
+    realsrcbwt block at the default geometry (its streams from K7, K3 and
+    K4).  A warm-up, then 3 repetitions on distinct rotations, the two
+    builds in turns (before first on odd repetitions), CUDA events around
+    the bare C entry of each: outputs and scratch are allocated
+    beforehand, and a new allocator segment inside a span fails the
+    phase.  Their outputs must be equal.  Returns {name: {"before": ms per
+    repetition, "after": ...}}, empty without ``before``."""
     import ctypes
 
     import numpy as np
     import torch
     from turborc_tpu_torch.ops import build
     from turborc_tpu_torch.ops.geom import Geom
-    label = "timing-encode-before-after"
+    label = "timing-before-after"
     phase(label)
-    if lib_path is None:
+    if not libs:
         log(f"{label}: skipped, no {BEFORE_FLAG} COMMIT")
         return {}
-    K_ = _kernel_modules()[0]
-    lib = ctypes.CDLL(str(lib_path))
-    for fn, (ptrs, ints) in BEFORE_ARGS.items():  # that commit's signature
-        getattr(lib, fn).argtypes = ([ctypes.c_void_p] * ptrs
-                                     + [ctypes.c_int] * ints
-                                     + [ctypes.c_void_p])
-    base = _corpus("textbwt_67108864.bin")
-    geom = Geom.parse(BENCH_GEOM)
-    G = geom.groups
+    K_, K1, _ = _kernel_modules()
+    fns = {}
+    for name, path in libs.items():  # that commit's signatures
+        fn = getattr(ctypes.CDLL(str(path)), "trc_" + name)
+        ptrs, ints = BEFORE_ARGS["trc_" + name]
+        fn.argtypes = ([ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    text, real = _corpus("textbwt_67108864.bin"), \
+        _corpus("realsrcbwt_16777216.bin")
+    bench, geom1 = Geom.parse(BENCH_GEOM), Geom()
     ms = {k: {"before": [], "after": []} for k in REDESIGNED}
 
     def timed(fn, cargs) -> float:
         cargs = [x.data_ptr() if isinstance(x, torch.Tensor) else x
                  for x in cargs]
+        seg = _segments()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -654,53 +722,67 @@ def phase_before_after(dev, before: str | None, lib_path) -> dict:
         end.synchronize()
         if err:
             raise RuntimeError(f"{fn.__name__}: CUDA error {err}")
+        if _segments() != seg:
+            raise AssertionError(f"{label}: cudaMalloc inside the span")
         return start.elapsed_time(end)
 
+    def turns(name, make, r):
+        """make(who) -> (outputs, C arguments), allocated before the span."""
+        got = {}
+        for who in (("before", "after") if r % 2 else ("after", "before")):
+            outs, cargs = make(who)
+            fn = (build.load()["trc_" + name] if who == "after"
+                  else fns[name])
+            t = timed(fn, cargs)
+            if r:
+                ms[name][who].append(t)
+            got[who] = outs
+            del cargs
+        if not all(torch.equal(x, y)
+                   for x, y in zip(got["before"], got["after"])):
+            raise AssertionError(f"{name}: the kernels of {before} and now "
+                                 "differ")
+
     for r in range(4):  # rep 0 is the warm-up
-        args = _codec("o0").encode_args(np.roll(base, 7919 * (r + 1)), geom,
-                                        dev)
-        K = args.K
-        cols = args.block.T.contiguous().reshape(K, G, 128)
-        words, emit, state = K_.coder(K_.model(cols, args.hi_tbl,
-                                               args.lo_tbl, geom),
-                                      args.init_states)
-        S = words.shape[0]
-        R = S + 2 + geom.wrows
-        ln = K_.place_launch(S, G, R)
-        for name in REDESIGNED:
-            got = {}
-            for who in (("before", "after") if r % 2 else ("after", "before")):
-                if name == "model":
-                    outs = (torch.empty((2 * K, G, 128), dtype=torch.int32,
-                                        device=dev),)
-                    cargs = K_.model_cargs(cols, args.hi_tbl, args.lo_tbl,
-                                           outs[0], geom)
-                    if who == "before":
-                        cargs = cargs[:12]
-                else:
-                    outs = (torch.empty((G, R, 128), dtype=torch.int32,
-                                        device=dev),
-                            torch.empty((G,), dtype=torch.int32, device=dev))
-                    counts = torch.empty((ln.scratch,), dtype=torch.int32,
-                                         device=dev)
-                    cargs = K_.place_cargs(words, emit, state, *outs, counts,
-                                           ln)
-                    if who == "before":
-                        cargs = [words, emit, state, *outs, S, G, R]
-                fn = (build.load()["trc_" + name] if who == "after"
-                      else getattr(lib, "trc_" + name))
-                t = timed(fn, cargs)
-                if r:
-                    ms[name][who].append(t)
-                got[who] = outs
-            if not all(torch.equal(a, b)
-                       for a, b in zip(got["before"], got["after"])):
-                raise AssertionError(f"{name}: the kernels of {before} "
-                                     "and now differ")
-            del got
-        del words, emit, state, cols, args
-    log(f"{label} " + json.dumps(dict(geom=BENCH_GEOM, before=before,
-                                      ms=ms)))
+        a = _codec("o0").encode_args(np.roll(text, 7919 * (r + 1)), bench,
+                                     dev)
+        G = bench.groups
+        cols = a.block.T.contiguous().reshape(a.K, G, 128)
+        probs = K_.model(cols, a.hi_tbl, a.lo_tbl, bench)
+        S = probs.shape[0]
+
+        def coder(who):
+            outs = (torch.empty((S, G, 128), dtype=torch.int32, device=dev),
+                    torch.empty((S, G, 128), dtype=torch.uint8, device=dev),
+                    torch.empty((G, 128), dtype=torch.int32, device=dev))
+            return outs, ([probs, a.init_states, *outs, S, G]
+                          if who == "before" else
+                          K_.coder_cargs(probs, a.init_states, *outs))
+
+        turns("coder", coder, r)
+        del a, cols, probs
+        b = _codec("o1").encode_args(np.roll(real, 7919 * (r + 1)), geom1,
+                                     dev)
+        G, K = geom1.groups, b.K
+        gs, _ = K1.encode_tile(b.block, K, b.hi_tbl, b.lo_tbl,
+                               b.init_states, geom1)
+
+        def o1_decode(who):
+            outs = (torch.empty((K, G, 128), dtype=torch.uint8, device=dev),
+                    torch.empty((G, 128), dtype=torch.int32, device=dev))
+            if who == "before":  # all 112 rows a lane in its scratch
+                rows = torch.empty((G * 128, 112, 16), dtype=torch.int16,
+                                   device=dev)
+                return outs, [gs, b.hi_tbl, b.lo_tbl, rows, *outs, K, G,
+                              gs.shape[1], geom1.rate]
+            return outs, K1.decode_cargs(gs, K, b.hi_tbl, b.lo_tbl, geom1,
+                                         K1.hi_scratch(G, dev), *outs)
+
+        turns("o1_decode", o1_decode, r)
+        del b, gs
+    log(f"{label} " + json.dumps(dict(geoms={"coder": BENCH_GEOM,
+                                             "o1_decode": geom1.spec},
+                                      before=before, ms=ms)))
     return ms
 
 
@@ -823,10 +905,11 @@ def child(before: str | None) -> int:
     dev = torch.device("cuda")
     log("device " + json.dumps(dict(kind=torch.cuda.get_device_name(0),
                                     count=torch.cuda.device_count())))
-    before_lib = phase_build(before)
+    before_libs = phase_build(before)
     phase_kernels(dev)
     phase_decode_cases(dev)
     phase_place_edge(dev)
+    phase_coder_edge(dev)
     golden, golden_r1 = _golden(GOLDEN), _golden(GOLDEN_R1)
     golden_rcp, golden_x2 = _golden(GOLDEN_RCP), _golden(GOLDEN_X2)
     main = _roundtrip("roundtrip-64MB-bench-geom",
@@ -854,12 +937,11 @@ def child(before: str | None) -> int:
                     dev)
     tt = _time_path("timing-tree", "tree", "textbwt_16777216.bin", Geom(),
                     dev)
-    timed = phase_before_after(dev, before, before_lib)
+    timed = phase_before_after(dev, before, before_libs)
     rows = (_rows(KERNELS["o0"], t0, bench, main["launches"], timed)
             + _rows(("o1_model", "o1_decode"), t1, Geom(),
-                    main_r1["launches"])
-            + _rows(("decode_x2",), tx, bench_x2, main_x2["launches"],
-                    timed)
+                    main_r1["launches"], timed)
+            + _rows(("decode_x2",), tx, bench_x2, main_x2["launches"])
             + _rows(("tree_model", "tree_decode"), tt, Geom(),
                     main_rcp["launches"]))
     log("card (nvidia-smi name, power.limit):")
@@ -929,7 +1011,7 @@ def _args(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(CHILD_FLAG, action="store_true", help=argparse.SUPPRESS)
     ap.add_argument(BEFORE_FLAG, metavar="COMMIT",
-                    help="also time K2 and K4 of the git archive of COMMIT "
+                    help="also time K3 and K6 of the git archive of COMMIT "
                     "unpacked in _archive/COMMIT/")
     return ap.parse_args(argv)
 

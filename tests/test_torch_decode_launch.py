@@ -22,7 +22,10 @@ from hypothesis import strategies as st
 from turborc_tpu_torch.ops import rans_kernel as TK
 from turborc_tpu_torch.ops.geom import Geom
 
-SOURCE = (Path(TK.__file__).parent / "csrc" / "rans_kernel.cu").read_text()
+# rans_kernel.cu and the header it includes (the ring and the card's
+# shared-memory limit live there)
+SOURCE = "".join((Path(TK.__file__).parent / "csrc" / name).read_text()
+                 for name in ("rans_kernel.cu", "rans_common.cuh"))
 MAX_THREADS = 1024
 
 

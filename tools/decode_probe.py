@@ -1,10 +1,14 @@
 """Probe of the o0 decoders K1 and K5 on one GPU: where a byte step's
 cycles go, what ptxas and the SASS say, and what each part of the step
 costs.  With ``--kernel model``, the o0 model K2 instead (see
-``probe_model``).
+``probe_model``); with ``--kernel o1_decode``, the o1 decoder K6 (the
+same split, SASS and ablations on id 60's block, ``probe_o1``); with
+``--kernel coder``, the coder K3 (SASS and ablations on id 57's block,
+``probe_coder``).  For these three ``--src`` may also be the ``csrc`` of
+9ed2fbe, whose K6 and K3 each layout tells apart.
 
     python3 tools/decode_probe.py [--src DIR] [--ablate no-rejoin,...]
-        [--label NAME] [--out FILE] [--kernel decode|model]
+        [--label NAME] [--out FILE] [--kernel decode|model|o1_decode|coder]
 
 ``--src`` is a ``csrc`` directory: the port's own (the default), or that
 of commit ff11eb3 (a ``git archive ff11eb3`` unpacked into a git-ignored
@@ -87,15 +91,15 @@ STAMPS = {
     "ring": [
         ("state[0] = uint32_t(fr_h) * (state[0] >> 15) + value - "
          "uint32_t(low_h);", 1, 0, "state[0]"),
-        ("fetch_post(state, bal, b, buf, nfetch);", 1, 1, "bal[0]"),
+        ("fetch_post(state, bal, b.rank, buf, nfetch);", 1, 1, "bal[0]"),
         ("ld_row(rp, half, row);", 1, 2, "row[0]"),
         ("cdf_update(hi, low_h, m.rate);", 1, 3, "hi[0]"),
-        ("fetch_take(state, bal, r, limit, b, buf, nfetch);", 1, 4,
+        ("fetch_take(state, bal, r, limit, b.rank, buf, nfetch);", 1, 4,
          "state[0]"),
         ("uint32_t(low_l);", 1, 5, "state[NS - 1]"),
-        ("fetch_post(state, bal, b, buf, nfetch);", 2, 6, "bal[0]"),
+        ("fetch_post(state, bal, b.rank, buf, nfetch);", 2, 6, "bal[0]"),
         ("rejoin_batches_after(t, m, b, hi, start_hi);", 1, 7, "hi[0]"),
-        ("fetch_take(state, bal, r, limit, b, buf, nfetch);", 2, 8,
+        ("fetch_take(state, bal, r, limit, b.rank, buf, nfetch);", 2, 8,
          "state[NS - 1]"),
     ],
 }
@@ -138,16 +142,17 @@ extern "C" int trc_split_read(void* out) {
 """
 
 
-def stamped(source: str, layout: str) -> str:
-    """The source with clock64() stamps in decode_kernel's byte loop."""
+def stamped(source: str, loop_in: str, stamps: list) -> str:
+    """The source with clock64() stamps (``STAMPS``' form) in the byte
+    loop of the function that starts at ``loop_in``."""
     head, sep, rest = source.partition('#include "rans_common.cuh"\n')
     if not sep:
         raise ValueError("rans_common.cuh include not found")
-    start = rest.index(LOOP_IN[layout])
+    start = rest.index(loop_in)
     loop = rest.index("for (int t = 0; t < K; ++t) {", start)
     end = rest.index("\n  }\n", loop) + len("\n  }\n")
     body = rest[loop:end]
-    for anchor, nth, seg, val in STAMPS[layout]:
+    for anchor, nth, seg, val in stamps:
         at = -1
         for _ in range(nth):
             at = body.index(anchor, at + 1)
@@ -158,15 +163,15 @@ def stamped(source: str, layout: str) -> str:
             + body + "  TRC_SPLIT_END\n" + rest[end:])
 
 
-def _ptxas(report: str) -> dict:
-    """Per o0 decode or model kernel: registers, stack, spills, barriers,
-    smem."""
+def _ptxas(report: str, names: str = "decode_x2|decode|model") -> dict:
+    """Per kernel whose name matches ``names`` (the o0 decoders and model
+    by default): registers, stack, spills, barriers, smem."""
     res, fn = {}, None
     for line in report.splitlines():
         if "Compiling entry function" in line \
                 or "Function properties for" in line:
-            m = re.search(r"(?:function '|for )\w*?(decode_x2|decode|"
-                          r"model)_kernel", line)
+            m = re.search(rf"(?:function '|for )\w*?({names})_kernel",
+                          line)
             fn = m.group(1) if m else None
             if fn:
                 res.setdefault(fn, {})
@@ -195,8 +200,10 @@ def _tool(name: str) -> str | None:
     return str(cand) if cand.exists() else shutil.which(name)
 
 
-def _sass(lib: Path) -> dict:
-    """Static SASS counts of the decode kernels and their byte loops."""
+def _sass(lib: Path, names: str = "decode_x2|decode") -> dict:
+    """Static SASS counts of the kernels whose name matches ``names`` (the
+    o0 decoders by default) and of their loops; the SASS goes to
+    ``sass.txt`` beside the library."""
     tool = _tool("cuobjdump")
     if tool is None:
         return {"error": "cuobjdump not found"}
@@ -208,7 +215,7 @@ def _sass(lib: Path) -> dict:
             keep.append(line)
         m = re.search(r"Function : (\S+)", line)
         if m:
-            k = re.search(r"\d(decode_x2|decode)_kernel", m.group(1))
+            k = re.search(rf"\d({names})_kernel", m.group(1))
             cur = k.group(1) if k else None
             if cur:
                 funcs[cur] = []
@@ -236,7 +243,7 @@ def _sass(lib: Path) -> dict:
             return dict(sorted(c.items(), key=lambda kv: -kv[1]))
         out[name] = {"instructions": len(ins), "loop_instructions": len(loop),
                      "loop_by_opcode": classes(loop)}
-    (lib.parent / "decode_sass.txt").write_text("\n".join(keep))
+    (lib.parent / "sass.txt").write_text("\n".join(keep))
     return out
 
 
@@ -325,7 +332,8 @@ def _run(lib, layout, name, a, gs, geom):
 # Ablations (``--ablate``, ring layout only): the decoders with one part
 # cut out, timed only (their output is wrong by construction), to price
 # that part under the real interleaving of warps.  Each replaces every
-# match inside the decoders' section of the source, and must match.
+# match inside the decoders' section of the source or, where the section
+# has none, in rans_common.cuh (the ring and the fetch), and must match.
 ABLATIONS = {
     "no-rejoin": [("rejoin_batches_after(t, m, b, hi, start_hi);", "")],
     "no-update": [("cdf_update(hi, low_h, m.rate);", ""),
@@ -349,21 +357,36 @@ def _layout(source: str) -> str:
     raise ValueError("no decoder byte loop of a known layout")
 
 
-def _variants(base: str, layout: str, ablate) -> dict:
-    """name -> (source, held against the port's decoder)."""
-    out = {"base": (base, True), "stamped": (stamped(base, layout), True)}
+def _ablate(name: str, base: str, header: str, section: tuple,
+            changes: list) -> tuple:
+    """(source, header) with each (old, new) of ``changes`` replaced in the
+    part of ``base`` between the two markers of ``section`` or, where that
+    part has no ``old``, in ``header``."""
+    a = base.index(section[0])
+    b = base.index(section[1], a)
+    part = base[a:b]
+    for old, new in changes:
+        if old in part:
+            part = part.replace(old, new)
+        elif old in header:
+            header = header.replace(old, new)
+        else:
+            raise ValueError(f"ablation {name}: {old!r} not found")
+    return base[:a] + part + base[b:], header
+
+
+def _variants(base: str, header: str, layout: str, ablate) -> dict:
+    """name -> (source or (source, header), held against the port's
+    decoder)."""
+    out = {"base": (base, True),
+           "stamped": (stamped(base, LOOP_IN[layout], STAMPS[layout]), True)}
     if not ablate:
         return out
     if layout != "ring":
         raise ValueError("--ablate applies to the port's own source")
-    a, b = base.index(DECODERS[0]), base.index(DECODERS[1])
     for name in ablate:
-        part = base[a:b]
-        for old, new in ABLATIONS[name]:
-            if old not in part:
-                raise ValueError(f"ablation {name}: {old!r} not found")
-            part = part.replace(old, new)
-        out[name] = (base[:a] + part + base[b:], False)
+        out[name] = (_ablate(name, base, header, DECODERS, ABLATIONS[name]),
+                     False)
     return out
 
 
@@ -381,16 +404,23 @@ MODEL_ABLATIONS = {
 }
 
 
-def _build_all(variants: dict, src: Path, work: Path):
-    """nvcc of every variant's source at once; returns (libraries, ptxas
-    reports, seconds)."""
+def _build_all(variants: dict, src: Path, work: Path,
+               fname: str = "rans_kernel.cu"):
+    """nvcc of every variant's source (file ``fname``) at once; a variant
+    is the source's text, or (text, rans_common.cuh's text) where it
+    changes the header too.  Returns (libraries, ptxas reports,
+    seconds)."""
     t0 = time.perf_counter()
     libs, reports, procs = {}, {}, []
     for name, text in variants.items():
         (work / name).mkdir()
-        cu = work / name / "rans_kernel.cu"
+        cu = work / name / fname
+        if isinstance(text, tuple):
+            text, header = text
+            (work / name / "rans_common.cuh").write_text(header)
+        else:
+            shutil.copy(src / "rans_common.cuh", work / name)
         cu.write_text(text)
-        shutil.copy(src / "rans_common.cuh", work / name)
         lib = work / name / f"lib{name}.so"
         cmd = [build.nvcc(), *build.FLAGS, "-I", str(work / name), "-o",
                str(lib), str(cu)]
@@ -461,33 +491,307 @@ def probe_model(opt, dev, res: dict, work: Path) -> dict:
     return res
 
 
+def _argtypes(source: str, fn: str) -> list:
+    """The ctypes argtypes of C entry ``fn`` as ``source`` declares it: a
+    pointer for every parameter with a ``*``, else an int."""
+    m = re.search(rf"int {fn}\((.*?)\)\s*{{", source, re.S)
+    if m is None:
+        raise ValueError(f"C entry {fn} not found")
+    return [ctypes.c_void_p if "*" in a else ctypes.c_int
+            for a in m.group(1).split(",")]
+
+
+def _bare(fn, args) -> float:
+    """CUDA-event milliseconds of one call of a bare C entry."""
+    args = [x.data_ptr() if isinstance(x, torch.Tensor) else x for x in args]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    end.record()
+    end.synchronize()
+    if err:
+        raise RuntimeError(f"{fn.__name__}: CUDA error {err}")
+    return start.elapsed_time(end)
+
+
+def _section_variants(base: str, header: str, section: tuple,
+                      ablations: dict, names) -> dict:
+    """name -> source or (source, header): the base, and each named
+    ablation (``_ablate``)."""
+    out = {"base": base}
+    for name in names:
+        out[name] = _ablate(name, base, header, section, ablations[name])
+    return out
+
+
+# K6 (``--kernel o1_decode``): the o1 decoder of rans_o1_kernel.cu on id
+# 60's main-path block.  Two layouts: "l2" (9ed2fbe: every row in a device
+# scratch, each word loaded from device memory by ``fetch``) and "ring"
+# (the port's).  Stamps, segments and ablations as for K1.
+O1_SOURCE = "rans_o1_kernel.cu"
+O1_CORPUS = CORPUS.parent / "realsrcbwt_16777216.bin"
+O1_LOOP_IN = "o1_decode_kernel("
+O1_SECTION = ("// ---- K6: decode", "}  // namespace")
+O1_STAMPS = {
+    "l2": [
+        ("row_load(hp, c);", 1, 0, "c[15]"),
+        ("uint32_t(low_h);", 1, 1, "state"),
+        ("fetch(state, s, limit, base, wsum, buf);", 1, 2, "state"),
+        ("cdf_update(c, low_h, rate);", 1, 3, "c[15]"),
+        ("row_store(hp, c);", 1, 4, "c[0]"),
+        ("row_load(lp, c);", 1, 5, "c[15]"),
+        ("uint32_t(low_l);", 1, 6, "state"),
+        ("fetch(state, s, limit, base, wsum, buf);", 2, 7, "state"),
+        ("cdf_update(c, low_l, rate);", 1, 8, "c[15]"),
+        ("out[size_t(t) * L + lane] = uint8_t(prev);", 1, 9, "prev"),
+    ],
+    "ring": [
+        ("unpack_row(hw, hrow);", 1, 0, "hrow[15]"),
+        ("uint32_t(low_h);", 1, 1, "state[0]"),
+        ("fetch_post(state, bal, rank, buf, nfetch);", 1, 2, "bal[0]"),
+        ("ld_row(lp, kHalf, lrow);", 1, 3, "lrow[15]"),
+        ("pack_row(hrow, hw);", 1, 4, "hw[1].w"),
+        ("fetch_take(state, bal, r, limit, rank, buf, nfetch);", 1, 5,
+         "state[0]"),
+        ("uint32_t(low_l);", 1, 6, "state[0]"),
+        ("fetch_post(state, bal, rank, buf, nfetch);", 2, 7, "bal[0]"),
+        ("st_row(lp, kHalf, lrow);", 1, 8, "lrow[0]"),
+        ("fetch_take(state, bal, r, limit, rank, buf, nfetch);", 2, 9,
+         "state[0]"),
+    ],
+}
+O1_SEGMENTS = {
+    "l2": ["hi row load", "hi search+lookup+state",
+           "fetch 1 (ballot, barrier, word)", "hi update", "hi row store",
+           "lo row load", "lo search+lookup+state",
+           "fetch 2 (ballot, barrier, word)", "lo update",
+           "lo row store, out byte"],
+    "ring": ["hi row wait", "hi search+lookup+state",
+             "fetch 1 post (ballot, counts, barrier)", "lo row load",
+             "hi update", "fetch 1 take (prefix, word)",
+             "lo search+lookup+state",
+             "hi row switch (store, load issue), fetch 2 post",
+             "lo update, store", "out byte, fetch 2 take (prefix, word)"],
+}
+_O1_SWITCH = ("    if (nctx != ctx) {\n"
+              "      uint4* q = reinterpret_cast<uint4*>(tab + ctx * 16);\n"
+              "      q[0] = hw[0];\n      q[1] = hw[1];\n"
+              "      q = reinterpret_cast<uint4*>(tab + nctx * 16);\n"
+              "      hw[0] = q[0];\n      hw[1] = q[1];\n"
+              "      ctx = nctx;\n    }\n")
+_O1_POST2 = ("    fetch_post(state, bal, rank, buf, nfetch);\n"
+             "    cdf_update(lrow, low_l, rate);\n")
+O1_ABLATIONS = {
+    "l2": {},
+    "ring": {
+        "no-hi-row": [("      q[0] = hw[0];\n      q[1] = hw[1];\n"
+                       "      q = reinterpret_cast<uint4*>(tab + nctx * 16);\n"
+                       "      hw[0] = q[0];\n      hw[1] = q[1];\n", "")],
+        "no-update": [("cdf_update(hrow, low_h, rate);", ""),
+                      ("cdf_update(lrow, low_l, rate);", "")],
+        "no-word": ABLATIONS["no-word"],
+        "no-barrier": ABLATIONS["no-barrier"],
+        # two byte-identical variants (PERF.md section 6), timed only: the
+        # hi row switch after the second fetch's barrier, and the hi rows
+        # loaded and stored past L1 (ld.global.cg / st.global.cg)
+        "late-switch": [(_O1_SWITCH + _O1_POST2,
+                         _O1_POST2.split("\n")[0] + "\n" + _O1_SWITCH
+                         + "    cdf_update(lrow, low_l, rate);\n")],
+        "cg": [("      q[0] = hw[0];\n      q[1] = hw[1];\n",
+                "      __stcg(q, hw[0]);\n      __stcg(q + 1, hw[1]);\n"),
+               ("      hw[0] = q[0];\n      hw[1] = q[1];\n",
+                "      hw[0] = __ldcg(q);\n      hw[1] = __ldcg(q + 1);\n")],
+    },
+}
+
+
+def _o1_layout(source: str) -> str:
+    """"l2" where K6's fetch reads device memory, else "ring"."""
+    return ("l2" if "fetch(state, s, limit, base, wsum, buf);" in source
+            else "ring")
+
+
+def probe_o1(opt, dev, res: dict, work: Path) -> dict:
+    """K6 of the source in ``--src``: ptxas and SASS, the clock64() split
+    of its byte step, and the bare C entry timed (a warm-up, then 3
+    repetitions on distinct rotations of realsrcbwt 16 MB as one id-60
+    block at the default geometry), base and stamped builds held byte for
+    byte against the port's K6 wrapper, ablations timed only."""
+    from turborc_tpu_torch.codecs import rans_cdf_r1_p as C1
+    from turborc_tpu_torch.ops import rans_o1_kernel as O1
+    src = Path(opt.src).resolve()
+    base = (src / O1_SOURCE).read_text()
+    layout = _o1_layout(base)
+    res["layout"] = layout
+    variants = _section_variants(base, (src / "rans_common.cuh").read_text(),
+                                 O1_SECTION, O1_ABLATIONS[layout],
+                                 [x for x in opt.ablate.split(",") if x])
+    variants["stamped"] = stamped(base, O1_LOOP_IN, O1_STAMPS[layout])
+    libs, reports, res["nvcc_s"] = _build_all(variants, src, work, O1_SOURCE)
+    res["ptxas"] = {k: _ptxas(v, "o1_decode").get("o1_decode")
+                    for k, v in reports.items()}
+    res["sass"] = _sass(libs["base"], "o1_decode")
+    types = _argtypes(base, "trc_o1_decode")
+    fns = {}
+    for k, lib in libs.items():
+        fns[k] = getattr(ctypes.CDLL(str(lib)), "trc_o1_decode")
+        fns[k].argtypes, fns[k].restype = types, ctypes.c_int
+    geom = Geom()
+    G, L = geom.groups, geom.lanes
+    times = {k: [] for k in variants}
+    data = np.fromfile(O1_CORPUS, np.uint8)
+    split = None
+    for r in range(4):  # rep 0 is the warm-up
+        a = C1.encode_args(np.roll(data, 7919 * (r + 1)), geom, dev)
+        gs, _ = O1.encode_tile(a.block, a.K, a.hi_tbl, a.lo_tbl,
+                               a.init_states, geom)
+        ref = O1.decode_tile(gs, a.K, a.hi_tbl, a.lo_tbl, geom)
+        for k, fn in fns.items():
+            out = torch.empty_like(ref[0])
+            fs = torch.empty_like(ref[1])
+            if layout == "l2":
+                scratch = torch.empty((L, 112, 16), dtype=torch.int16,
+                                      device=dev)
+                args = [gs, a.hi_tbl, a.lo_tbl, scratch, out, fs, a.K, G,
+                        gs.shape[1], geom.rate]
+            else:
+                args = O1.decode_cargs(gs, a.K, a.hi_tbl, a.lo_tbl, geom,
+                                       O1.hi_scratch(G, dev), out, fs)
+            ms = _bare(fn, args)
+            if k in ("base", "stamped") and not (
+                    torch.equal(out, ref[0]) and torch.equal(fs, ref[1])):
+                raise AssertionError(f"{k} differs from the port's K6")
+            if r:
+                times[k].append(ms)
+            if k == "stamped":
+                acc = (ctypes.c_ulonglong * 16)()
+                libs_k = ctypes.CDLL(str(libs[k]))
+                libs_k.trc_split_read(ctypes.cast(acc, ctypes.c_void_p))
+                split = [int(x) for x in acc[:len(O1_SEGMENTS[layout])]]
+            del out, fs, args
+        K = a.K
+        del a, gs, ref
+    total = sum(split)
+    res["split"] = {
+        "K": K, "thread": "lane 0 of warp 0 of CTA 0",
+        "cycles_total": total, "cycles_per_byte": total / K,
+        "segments": [{"segment": O1_SEGMENTS[layout][i], "cycles": c,
+                      "per_byte": c / K, "share": c / total}
+                     for i, c in enumerate(split)]}
+    res["ms"] = times
+    res["mean_ms"] = {k: sum(v) / len(v) for k, v in times.items()}
+    return res
+
+
+# K3 (``--kernel coder``): the backward coder of rans_kernel.cu on id 57's
+# main-path block.  Layouts: "lane" (9ed2fbe: one 128-lane CTA a group,
+# probs loaded from device memory at every slot) and "staged" (the
+# port's).  Ablations price the probs load, the division and the stores.
+CODER_SECTION = ("// ---- K3:", "// ---- K4:")
+CODER_ABLATIONS = {
+    "lane": {
+        "no-load": [("const uint32_t pr = uint32_t(probs[at]);",
+                     "const uint32_t pr = (uint32_t(t & 1023) << 16) | "
+                     "(4096u + uint32_t(t & 255));")],
+        "no-div": [("const uint32_t q = state / freq;",
+                    "const uint32_t q = state >> 12;")],
+        "no-store": [("    words[at] = int(state & 0xFFFFu);\n", ""),
+                     ("    emit[at] = e ? 1 : 0;\n", "")],
+    },
+    "staged": {
+        "no-div": [("const uint32_t q = __umulhi(x << 1, m) >> l;",
+                    "const uint32_t q = x >> 12;")],
+        "no-store": [("      *wp = int(state & 0xFFFFu);\n", ""),
+                     ("      *ep = e ? 1 : 0;\n", "")],
+        "no-table": [("    uint32_t m, l;\n    div_magic(uint32_t(f + 1), m, l);\n"
+                      "    mtab[f] = m;\n", "    mtab[f] = 0x80000001u;\n")],
+    },
+}
+
+
+def probe_coder(opt, dev, res: dict, work: Path) -> dict:
+    """K3 of the source in ``--src`` and its ablations: ptxas and the SASS
+    of its loop, then a warm-up and 3 repetitions on distinct rotations
+    of the 64 MB block at GEOM (probs from the port's K2), every build in
+    turn, CUDA events around the bare C entry.  The base is held byte for
+    byte against the port's K3 wrapper; ablations are timed only."""
+    from turborc_tpu_torch.codecs import rans_cdf_o0_p as C0
+    src = Path(opt.src).resolve()
+    base = (src / "rans_kernel.cu").read_text()
+    types = _argtypes(base, "trc_coder")
+    layout = "lane" if types.count(ctypes.c_int) == 2 else "staged"
+    res["layout"] = layout
+    variants = _section_variants(base, (src / "rans_common.cuh").read_text(),
+                                 CODER_SECTION, CODER_ABLATIONS[layout],
+                                 [x for x in opt.ablate.split(",") if x])
+    libs, reports, res["nvcc_s"] = _build_all(variants, src, work)
+    res["ptxas"] = {k: _ptxas(v, "coder").get("coder")
+                    for k, v in reports.items()}
+    res["sass"] = {k: _sass(lib, "coder") for k, lib in libs.items()}
+    fns = {}
+    for k, lib in libs.items():
+        fns[k] = getattr(ctypes.CDLL(str(lib)), "trc_coder")
+        fns[k].argtypes, fns[k].restype = types, ctypes.c_int
+    geom = Geom.parse(GEOM)
+    times = {k: [] for k in variants}
+    data = np.fromfile(CORPUS, np.uint8)
+    for r in range(4):  # rep 0 is the warm-up
+        x = C0.encode_args(np.roll(data, 7919 * (r + 1)), geom, dev)
+        cols = x.block.T.contiguous().reshape(x.K, geom.groups, 128)
+        probs = K_.model(cols, x.hi_tbl, x.lo_tbl, geom)
+        ref = K_.coder(probs, x.init_states)
+        for k, fn in fns.items():
+            outs = [torch.empty_like(v) for v in ref]
+            args = ([probs, x.init_states, *outs, probs.shape[0],
+                     geom.groups] if layout == "lane"
+                    else K_.coder_cargs(probs, x.init_states, *outs))
+            ms = _bare(fn, args)
+            if k == "base" and not all(map(torch.equal, outs, ref)):
+                raise AssertionError(f"{k} differs from the port's K3")
+            if r:
+                times[k].append(ms)
+            del outs, args
+        del x, cols, probs, ref
+    res["S"] = int(2 * (data.size // geom.lanes))
+    res["ms"] = times
+    res["mean_ms"] = {k: sum(v) / len(v) for k, v in times.items()}
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=str(build.CSRC))
     ap.add_argument("--ablate", default="")
     ap.add_argument("--label", default="")
     ap.add_argument("--out", default="")
-    ap.add_argument("--kernel", choices=("decode", "model"),
-                    default="decode")
+    ap.add_argument("--kernel", choices=("decode", "model", "o1_decode",
+                                         "coder"), default="decode")
     opt = ap.parse_args()
     if not torch.cuda.is_available():
         print("decode_probe: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    if opt.kernel == "model":
-        label = opt.label or "model"
+    if opt.kernel != "decode":
+        label = opt.label or opt.kernel
         work = WORK / label
         if work.exists():
             shutil.rmtree(work)
         work.mkdir(parents=True)
-        res = {"label": label, "kernel": "model", "src": opt.src,
-               "card": _smi(), "geom": GEOM}
-        res = probe_model(opt, dev, res, work)
+        res = {"label": label, "kernel": opt.kernel, "src": opt.src,
+               "card": _smi(),
+               "geom": Geom().spec if opt.kernel == "o1_decode" else GEOM}
+        probe = {"model": probe_model, "o1_decode": probe_o1,
+                 "coder": probe_coder}[opt.kernel]
+        res = probe(opt, dev, res, work)
         text = json.dumps(res, indent=1)
         print(text)
         if opt.out:
             Path(opt.out).parent.mkdir(parents=True, exist_ok=True)
             Path(opt.out).write_text(text)
+            sass = work / "base" / "sass.txt"
+            if sass.exists():
+                shutil.copy(sass, Path(opt.out).with_suffix(".sass.txt"))
         return 0
     src = Path(opt.src).resolve()
     base = (src / "rans_kernel.cu").read_text()
@@ -499,7 +803,7 @@ def main() -> int:
     work.mkdir(parents=True)
     res = {"label": label, "layout": layout, "src": str(src),
            "card": _smi(), "geom": GEOM}
-    variants = _variants(base, layout,
+    variants = _variants(base, (src / "rans_common.cuh").read_text(), layout,
                          [x for x in opt.ablate.split(",") if x])
     libs, reports, res["nvcc_s"] = _build_all(
         {k: text for k, (text, _) in variants.items()}, src, work)
@@ -547,7 +851,7 @@ def main() -> int:
     if opt.out:
         Path(opt.out).parent.mkdir(parents=True, exist_ok=True)
         Path(opt.out).write_text(text)
-        shutil.copy(libs["base"].parent / "decode_sass.txt",
+        shutil.copy(libs["base"].parent / "sass.txt",
                     Path(opt.out).with_suffix(".sass.txt"))
     return 0
 

@@ -19,7 +19,9 @@
 // The TPU's barrel gather, register queue, VMEM window, packed-pair lo
 // rows and f32 long division are not reproduced: the card has gathers,
 // ballots and integer division.  The three share one byte step of the
-// model, measured against an older design (PERF.md sections 6 and 7):
+// model (the search, lookup, row layout and ring of rans_common.cuh, which
+// the o1 decoder K6 shares too), measured against an older design
+// (PERF.md sections 6 and 7):
 // - Tables in registers.  A lane's 16-entry hi table and lo row are
 //   indexed by unrolled constants only: a data-dependent index moves an
 //   array to the stack (128 B, a local-memory access per entry, about a
@@ -61,7 +63,17 @@
 // re-join's shuffles saved 2%, so they are not its limit.
 //
 // K3: one thread per lane, lanes independent, the dependent state chain
-// over every slot.
+// over every slot, on CTAs of kCoderLanes lanes that spread over every SM.
+// Each CTA stages its lanes' probs in shared memory by cp.async, stages
+// requested two ahead, divides by a reciprocal from a table in shared
+// memory, and loads a slot's probs and reciprocal a slot ahead of the
+// state chain (see coder_kernel).  Measured against the one-CTA-a-group
+// design that loaded probs from device memory at every slot (PERF.md
+// section 6): that load set the pace (5.6 ms, 1.0 ms without it); once it
+// was staged, the hardware division took half of what was left, and then
+// the two dependent shared loads of a slot.  What bounds it now: neither
+// bytes (0.36 ms at id 57's shape) nor operations, but the chain a slot on
+// 2 warps an SM (about 86 cycles a slot).
 //
 // K4 is a stream compaction: a word's position is 256 + the emits before
 // it in slot-major, lane-minor order within its group.  The TPU kernel
@@ -109,24 +121,7 @@ __device__ __forceinline__ void clamp16(int (&c)[16]) {
   for (int i = 0; i < 16; ++i) c[i] = min(c[i], kTotal - 16 + i);
 }
 
-// ---- K1 and K5: the decoders, one thread per lane.
-//
-// Every per-thread table is indexed by unrolled constants only (a
-// data-dependent index would move it to the stack): the search sums flags
-// as a tree, the lookup picks entries with a tree of selects.
-
-constexpr int kRingWords = 4096;              // ring of one stream set
-constexpr int kRingEvery = 8;                 // fetches between top-ups
-constexpr int kRingLag = 1;                   // top-ups allowed in flight
 constexpr int kColSteps = 64;                 // K2: byte steps a cols stage
-constexpr int kSmemMax = 232448;              // shared memory a CTA may have
-// A fetch takes at most 128 words, and the word read at fetch f was
-// requested by a top-up at most (kRingLag + 2) * kRingEvery - 1 fetches
-// earlier, which filled the ring to (base + kRingWords) & ~3
-// (ops/rans_kernel.py ring_check mirrors this).
-static_assert(kRingWords >= kLanes * (kRingLag + 2) * kRingEvery + 3,
-              "ring too shallow");
-static_assert((kRingEvery & (kRingEvery - 1)) == 0, "kRingEvery: 2^n");
 static_assert((kColSteps & (kColSteps - 1)) == 0, "kColSteps: 2^n");
 
 // Dynamic shared memory of K1, K2 and K5, as byte offsets that the wrapper
@@ -158,41 +153,6 @@ __device__ __forceinline__ Bufs carve(const Carve& c) {
   return b;
 }
 
-// This lane's row h of lo or st: its first half; the second is kHalf
-// entries further.
-constexpr int kHalf = kLanes * 8;
-__device__ __forceinline__ uint16_t* lane_row(uint16_t* rows, int h) {
-  return rows + h * 2 * kHalf + threadIdx.x * 8;
-}
-
-// The 16 u16 entries of a row <-> registers: entries 0-7 at p, 8-15 at
-// p + half (kHalf for a lane's row, 8 for a static row), 16-byte aligned.
-__device__ __forceinline__ void ld_row(const uint16_t* p, int half,
-                                       int (&r)[16]) {
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p + q * half);
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      r[8 * q + 2 * k] = int(w[k] & 0xFFFFu);
-      r[8 * q + 2 * k + 1] = int(w[k] >> 16);
-    }
-  }
-}
-
-__device__ __forceinline__ void st_row(uint16_t* p, int half,
-                                       const int (&r)[16]) {
-  uint32_t w[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k)
-    w[k] = (uint32_t(r[2 * k]) & 0xFFFFu) | (uint32_t(r[2 * k + 1]) << 16);
-#pragma unroll
-  for (int q = 0; q < 2; ++q)
-    *reinterpret_cast<uint4*>(p + q * half) =
-        make_uint4(w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3]);
-}
-
 // The warm tables hi [16, G], lo [16, 16, G] int32 of group g: hi in
 // registers; adaptive lo rows per lane (and their start copies); static
 // rows once.  The caller's barrier publishes the rows.
@@ -216,48 +176,6 @@ __device__ __forceinline__ void load_tables(const int* __restrict__ hi_tbl,
   }
   for (int q = lane; q < (16 - m.arows) * 16; q += kLanes)
     b.fixed[q] = uint16_t(lo_tbl[(m.arows * 16 + q) * G + g]);
-}
-
-// cdf_search with the flags summed as a tree (no chain of 15 adds).
-__device__ __forceinline__ int search_tree(const int (&c)[16], int value) {
-  int n[16];
-#pragma unroll
-  for (int e = 0; e < 16; ++e) n[e] = (e > 0 && c[e] <= value) ? 1 : 0;
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      if (i < (8 >> b)) n[i] = n[2 * i] + n[2 * i + 1];
-    }
-  }
-  return n[0];
-}
-
-// c[e] by a tree of selects on the bits of e: no index into the array, so
-// the table stays in registers.
-__device__ __forceinline__ int pick(const int (&c)[16], unsigned e) {
-  int v[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) v[i] = c[i];
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      if (i < (8 >> b)) v[i] = (e >> b) & 1u ? v[2 * i + 1] : v[2 * i];
-    }
-  }
-  return v[0];
-}
-
-// cdf_lookup by picks: entry sym and entry sym + 1 (2^15 past 15).  Both
-// picks are taken unconditionally: the second under the condition became
-// a branch, and K1 slower.
-__device__ __forceinline__ void lookup_pick(const int (&c)[16], int sym,
-                                            int& low, int& freq) {
-  const unsigned s = unsigned(sym), s1 = s + 1;
-  const int lo = pick(c, s), nx = pick(c, s1 & 15u);
-  low = lo;
-  freq = (s1 == 16 ? kTotal : nx) - lo;
 }
 
 // The sum of each of NT tables over every aligned `share`-lane set, all at
@@ -369,114 +287,9 @@ __device__ __forceinline__ void rejoin_batches_after(int t, const Geo& m,
   }
 }
 
-// ---- The ring: one stream set's words staged in shared memory.
+// ---- K1 and K5: the decoders, one thread per lane, on the search, lookup,
+// row layout and ring of rans_common.cuh.
 //
-// Stream position p sits in slot p % kRingWords.  Positions below `hi`
-// have been requested with cp.async.  Every kRingEvery-th fetch is a
-// top-up fetch: before its barrier every thread waits until at most
-// kRingLag of its copy groups are in flight, so the words of all earlier
-// top-ups but the last kRingLag are visible after that barrier; after the
-// barrier the CTA requests [hi, (base + kRingWords) & ~3) as one more
-// group.  That overwrites only slots of positions below base, which every
-// thread read before the barrier.
-struct Ring {
-  const int* src;  // the group's stream in device memory
-  int* buf;        // kRingWords words in shared memory
-  int base;        // next stream position to hand out (CTA-uniform)
-  int hi;          // positions below hi are requested
-};
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// The CTA requests [hi, min((base + kRingWords) & ~3, limit)): at most
-// 128 * kRingEvery words (the last kRingEvery fetches'), 16 bytes a copy.
-// The stream length limit = R * 128 is a multiple of 4, so no copy
-// crosses it.
-__device__ __forceinline__ void ring_top_up(Ring& r, int limit) {
-  const int to = min((r.base + kRingWords) & ~3, limit);
-  for (int q = threadIdx.x; q < kLanes * kRingEvery / 4; q += kLanes) {
-    const int p = r.hi + 4 * q;
-    if (p < to) cp_async16(r.buf + (p & (kRingWords - 1)), r.src + p);
-  }
-  r.hi = max(r.hi, to);
-}
-
-// Offset (lanes needing a word in the warps before this one) and total,
-// from the per-warp counts, one byte a warp: lane i of every warp reads
-// warp i's count, and two warp reductions add them up.
-__device__ __forceinline__ void warp_prefix(const uint8_t* counts, int& off,
-                                            int& tot) {
-  const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
-  const unsigned c = counts[wl & (kWarps - 1)];
-  off = int(__reduce_add_sync(kFull, wl < warp ? c : 0u));
-  tot = int(__reduce_add_sync(kFull, wl < kWarps ? c : 0u));
-}
-
-// The decoders' renormalisation (fetch in rans_common.cuh) for NS stream
-// sets at once, in two halves.  fetch_post: one ballot per set, masked to
-// one bit a lane, the per-warp counts to shared memory, the barrier.
-// fetch_take, after work that needs no word: each lane that needs a word
-// takes the next one of its set in lane order, from the ring; reads at or
-// past `limit` give 0.  Counts are double-buffered: buffer f % 2 is
-// written again at fetch f + 2, after the barrier of fetch f + 1, which
-// every thread reaches only after its reads of fetch f.
-template <int NS>
-__device__ __forceinline__ void fetch_post(const uint32_t (&state)[NS],
-                                           unsigned (&bal)[NS],
-                                           const Bufs& b, int buf,
-                                           int nfetch) {
-  const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
-#pragma unroll
-  for (int k = 0; k < NS; ++k) {
-    bal[k] = __ballot_sync(kFull, state[k] < kAnsLow);
-    if (wl == 0) b.rank[(buf * NS + k) * kWarps + warp] = __popc(bal[k]);
-  }
-  // a top-up fetch: this thread's copies of all but the last kRingLag
-  // top-ups are complete, and the barrier publishes them
-  if ((nfetch & (kRingEvery - 1)) == 0) cp_async_wait<kRingLag>();
-  __syncthreads();
-}
-
-template <int NS>
-__device__ __forceinline__ void fetch_take(uint32_t (&state)[NS],
-                                           const unsigned (&bal)[NS],
-                                           Ring (&r)[NS], int limit,
-                                           const Bufs& b, int& buf,
-                                           int& nfetch) {
-  const bool top = (nfetch & (kRingEvery - 1)) == 0;
-  const unsigned before = (1u << (threadIdx.x & 31)) - 1u;
-#pragma unroll
-  for (int k = 0; k < NS; ++k) {
-    int off, tot;
-    warp_prefix(b.rank + (buf * NS + k) * kWarps, off, tot);
-    if (state[k] < kAnsLow) {
-      const int p = r[k].base + off + __popc(bal[k] & before);
-      const uint32_t word =
-          p < limit ? uint32_t(r[k].buf[p & (kRingWords - 1)]) : 0u;
-      state[k] = (state[k] << 16) | word;
-    }
-    if (top) ring_top_up(r[k], limit);
-    r[k].base = min(r[k].base + tot, limit);
-  }
-  if (top) cp_async_commit();
-  buf ^= 1;
-  ++nfetch;
-}
-
 // The byte step shared by K1 (NS = 1: one state, hi then lo nibble, a
 // fetch after each) and K5 (NS = 2: state 0 / set 0 carry the hi nibble,
 // state 1 / set 1 the lo nibble, one fetch of both after the two steps).
@@ -493,20 +306,11 @@ __device__ __forceinline__ void decode_lanes(
   const size_t col = size_t(g) * kLanes + lane;
   const int limit = R * kLanes;
 
-  // Ring prefill: positions [256, 256 + kRingWords) by every thread.
   Ring r[NS];
 #pragma unroll
-  for (int k = 0; k < NS; ++k) {
-    r[k].src = streams + (size_t(k) * G + g) * R * kLanes;
-    r[k].buf = reinterpret_cast<int*>(b.stage) + k * kRingWords;
-    r[k].base = 2 * kLanes;
-    r[k].hi = min(2 * kLanes + kRingWords, limit);
-    for (int q = lane; q < kRingWords / 4; q += kLanes) {
-      const int p = 2 * kLanes + 4 * q;
-      if (p < limit) cp_async16(r[k].buf + (p & (kRingWords - 1)),
-                                r[k].src + p);
-    }
-  }
+  for (int k = 0; k < NS; ++k)
+    ring_init(r[k], streams + (size_t(k) * G + g) * R * kLanes,
+              reinterpret_cast<int*>(b.stage) + k * kRingWords, limit);
   cp_async_commit();
   uint32_t state[NS];
 #pragma unroll
@@ -533,10 +337,10 @@ __device__ __forceinline__ void decode_lanes(
     int row[16];
     unsigned bal[NS];
     if constexpr (NS == 1) {
-      fetch_post(state, bal, b, buf, nfetch);
+      fetch_post(state, bal, b.rank, buf, nfetch);
       ld_row(rp, half, row);
       cdf_update(hi, low_h, m.rate);
-      fetch_take(state, bal, r, limit, b, buf, nfetch);
+      fetch_take(state, bal, r, limit, b.rank, buf, nfetch);
     } else {
       ld_row(rp, half, row);
     }
@@ -546,7 +350,7 @@ __device__ __forceinline__ void decode_lanes(
     lookup_pick(row, ls, low_l, fr_l);
     state[NS - 1] = uint32_t(fr_l) * (state[NS - 1] >> 15) + value -
                     uint32_t(low_l);
-    fetch_post(state, bal, b, buf, nfetch);
+    fetch_post(state, bal, b.rank, buf, nfetch);
     // what needs no word of this fetch: the model's updates and re-joins
     if constexpr (NS == 2) cdf_update(hi, low_h, m.rate);
     cdf_update(row, low_l, m.rate);
@@ -554,7 +358,7 @@ __device__ __forceinline__ void decode_lanes(
     *out_t = uint8_t((hs << 4) | ls);
     out_t += plane;
     rejoin_batches_after(t, m, b, hi, start_hi);
-    fetch_take(state, bal, r, limit, b, buf, nfetch);
+    fetch_take(state, bal, r, limit, b.rank, buf, nfetch);
   }
   cp_async_wait<0>();
 #pragma unroll
@@ -655,24 +459,125 @@ model_kernel(const uint8_t* __restrict__ cols, const int* __restrict__ hi_tbl,
 
 // ---- K3: backward rANS pass.  probs [S, L] -> words [S, L] int32 (the low
 // 16 bits of the state at every slot), emit [S, L] u8, flush states [L].
-// Lanes are independent: one thread per lane, no shared memory.
-__global__ void __launch_bounds__(kLanes)
+// Lanes are independent, so a CTA takes kCoderLanes of them, one thread a
+// lane, and a block's CTAs spread over every SM (128 at 64 groups).  The
+// CTA stages its lanes' probs in shared memory, kCoderSlots slots a stage,
+// walking backward: stage j is slots [j D, min((j + 1) D, S)) (the top one
+// may be partial), in buffer j % kCoderBufs, and stage j - kCoderBufs + 1 is
+// requested while stage j is coded.  So the state chain waits on device
+// memory only at a stage boundary, never for a slot's load.  A slot's probs
+// for the CTA's lanes are contiguous (kCoderLanes * 4 bytes, slots L * 4
+// bytes apart): 16-byte cp.async copies, one group a stage.  The division
+// by freq is a multiply by its reciprocal from a table of all 2^15 of them
+// in shared memory (div_magic), which the CTA fills while its first stages
+// arrive: the hardware `/` (a reciprocal and two corrections on the state
+// chain) took half of the kernel's time, and working the reciprocal out
+// at every slot (two divisions, off the chain) twice as much as `/`.
+constexpr int kCoderLanes = 64;  // lanes (threads) a CTA
+constexpr int kCoderSlots = 64;  // slots a stage
+constexpr int kCoderBufs = 3;    // stage buffers
+constexpr int kCoderCopies = kCoderLanes / 4;  // 16-byte copies a slot
+constexpr int kCoderStageBytes = kCoderBufs * kCoderSlots * kCoderLanes * 4;
+constexpr int kCoderSmem = kCoderStageBytes + kTotal * 4;  // + the table
+static_assert(kLanes % kCoderLanes == 0, "a group is whole CTAs");
+static_assert(kCoderBufs >= 2, "one stage in flight at least");
+
+// x / freq for every x < 2^31 and freq in [1, 2^15] as umulhi(2x, m) >> l
+// (Granlund and Montgomery, "Division by invariant integers using
+// multiplication", 1994, theorem 4.2 with N = 31): l = ceil(log2 freq),
+// m = floor(2^(31+l) / freq) + 1 < 2^32, so that 2^(31+l) < m freq <=
+// 2^(31+l) + 2^l.  m is worked out from the normalised divisor dn = freq
+// << (16 - l) in (2^15, 2^16] as floor(2^47 / dn) + 1, by two 32-bit
+// divisions.  The state after the emit shift is below 2^31.
+// ops/rans_kernel.py div_magic mirrors this.
+__device__ __forceinline__ void div_magic(uint32_t freq, uint32_t& m,
+                                          uint32_t& l) {
+  l = 32 - __clz(freq - 1);
+  const uint32_t dn = freq << (16 - l);
+  const uint32_t q1 = 0x80000000u / dn;
+  m = (q1 << 16) + (((0x80000000u - q1 * dn) << 16) / dn) + 1;
+}
+
+// The CTA requests stage j of its lanes (from lane0) into buf.
+__device__ __forceinline__ void coder_stage(int* buf,
+                                            const int* __restrict__ probs,
+                                            int j, int S, size_t L,
+                                            size_t lane0) {
+  const int t0 = j * kCoderSlots, n = min(kCoderSlots, S - t0);
+  for (int q = threadIdx.x; q < n * kCoderCopies; q += kCoderLanes) {
+    const int s = q / kCoderCopies, part = (q % kCoderCopies) * 4;
+    cp_async16(buf + s * kCoderLanes + part,
+               probs + size_t(t0 + s) * L + lane0 + part);
+  }
+}
+
+__global__ void __launch_bounds__(kCoderLanes)
 coder_kernel(const int* __restrict__ probs, const int* __restrict__ init,
              int* __restrict__ words, uint8_t* __restrict__ emit,
-             int* __restrict__ fstate, int S, int L) {
-  const int lane = blockIdx.x * kLanes + threadIdx.x;
-  if (lane >= L) return;
+             int* __restrict__ fstate, int S, int L, int stages) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int* stage = reinterpret_cast<int*>(smem_raw);  // [bufs][slots][lanes]
+  // m of div_magic for freq = 1 .. 2^15, at freq - 1
+  uint32_t* mtab = reinterpret_cast<uint32_t*>(smem_raw + kCoderStageBytes);
+  constexpr int kStage = kCoderSlots * kCoderLanes;
+  const size_t lane0 = size_t(blockIdx.x) * kCoderLanes;
+  const size_t lane = lane0 + threadIdx.x;
+  // the top kCoderBufs - 1 stages, one copy group each (empty below 0)
+#pragma unroll
+  for (int k = 0; k < kCoderBufs - 1; ++k) {
+    const int j = stages - 1 - k;
+    if (j >= 0)
+      coder_stage(stage + (j % kCoderBufs) * kStage, probs, j, S, L, lane0);
+    cp_async_commit();
+  }
+  for (int f = threadIdx.x; f < kTotal; f += kCoderLanes) {
+    uint32_t m, l;
+    div_magic(uint32_t(f + 1), m, l);
+    mtab[f] = m;
+  }
   uint32_t state = uint32_t(init[lane]);
-  for (int t = S - 1; t >= 0; --t) {
-    const size_t at = size_t(t) * L + lane;
-    const uint32_t pr = uint32_t(probs[at]);
-    const uint32_t low = pr >> 16, freq = pr & 0xFFFFu;
-    const bool e = state >= (freq << 16);
-    words[at] = int(state & 0xFFFFu);
-    emit[at] = e ? 1 : 0;
-    if (e) state >>= 16;
-    const uint32_t q = state / freq;
-    state = (q << 15) + (state - q * freq) + low;
+  for (int j = stages - 1; j >= 0; --j) {
+    // this thread's copies of stage j are complete, the barrier publishes
+    // everyone's (and the table, at the first) and frees the buffer of
+    // stage j + 1 for stage jn
+    cp_async_wait<kCoderBufs - 2>();
+    __syncthreads();
+    const int jn = j - (kCoderBufs - 1);
+    if (jn >= 0)
+      coder_stage(stage + (jn % kCoderBufs) * kStage, probs, jn, S, L,
+                  lane0);
+    cp_async_commit();
+    const int t0 = j * kCoderSlots;
+    const int* ps = stage + (j % kCoderBufs) * kStage + threadIdx.x;
+    int s = min(kCoderSlots, S - t0) - 1;
+    int* wp = words + size_t(t0 + s) * L + lane;  // slot s of this lane
+    uint8_t* ep = emit + size_t(t0 + s) * L + lane;
+    // The loads run ahead of the state chain: slot s's probs and
+    // reciprocal are in registers, slot s - 1's probs too, and the loop
+    // requests slot s - 1's reciprocal and slot s - 2's probs (1 = freq 1
+    // past the stage's first slot).  The table index is (freq - 1) mod
+    // 2^15, so a freq outside [1, 2^15] gives a wrong word, never a read
+    // outside the table.
+    uint32_t pr1 = uint32_t(ps[s * kCoderLanes]);
+    uint32_t pr2 = s > 0 ? uint32_t(ps[(s - 1) * kCoderLanes]) : 1u;
+    uint32_t m1 = mtab[(pr1 - 1) & (kTotal - 1)];
+#pragma unroll 4
+    for (; s >= 0; --s) {
+      const uint32_t pr = pr1, m = m1, freq = pr & 0xFFFFu;
+      const uint32_t l = 32 - __clz(freq - 1);
+      pr1 = pr2;
+      m1 = mtab[(pr2 - 1) & (kTotal - 1)];
+      pr2 = s > 1 ? uint32_t(ps[(s - 2) * kCoderLanes]) : 1u;
+      const bool e = state >= (pr << 16);  // freq << 16
+      *wp = int(state & 0xFFFFu);
+      *ep = e ? 1 : 0;
+      wp -= L;
+      ep -= L;
+      const uint32_t x = e ? state >> 16 : state;
+      const uint32_t q = __umulhi(x << 1, m) >> l;  // x / freq
+      // (q << 15) + (x - q * freq) + low
+      state = x + (pr >> 16) + q * (kTotal - freq);
+    }
   }
   fstate[lane] = int(state);
 }
@@ -945,12 +850,28 @@ int trc_decode_x2(const void* streams, const void* hi_tbl,
                        stream);
 }
 
+// K3: tile, then rans_kernel.coder_launch's lanes a CTA, CTAs, slots a
+// stage, stages, stage buffers and shared-memory bytes.  A plan that does
+// not fit the tile returns cudaErrorInvalidValue.
 int trc_coder(const void* probs, const void* init, void* words, void* emit,
-              void* fstate, int S, int G, void* stream) {
-  coder_kernel<<<G, kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
+              void* fstate, int S, int G, int lanes, int ctas, int slots,
+              int stages, int bufs, int smem, void* stream) {
+  const long long L = (long long)G * kLanes;
+  const bool ok = lanes == kCoderLanes && slots == kCoderSlots &&
+                  bufs == kCoderBufs && S >= 0 && S <= INT_MAX - kCoderSlots &&
+                  G >= 1 && L <= INT_MAX &&
+                  (long long)ctas * kCoderLanes == L &&
+                  stages == (S + kCoderSlots - 1) / kCoderSlots &&
+                  smem == kCoderSmem && smem <= kSmemMax &&
+                  (reinterpret_cast<uintptr_t>(probs) & 15) == 0;
+  if (!ok) return int(cudaErrorInvalidValue);
+  cudaError_t e = cudaFuncSetAttribute(
+      coder_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return int(e);
+  coder_kernel<<<ctas, kCoderLanes, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(probs), static_cast<const int*>(init),
       static_cast<int*>(words), static_cast<uint8_t*>(emit),
-      static_cast<int*>(fstate), S, G * kLanes);
+      static_cast<int*>(fstate), S, int(L), stages);
   return int(cudaGetLastError());
 }
 

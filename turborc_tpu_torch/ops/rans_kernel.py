@@ -46,9 +46,15 @@ GLANES = 128
 # RING_LAG top-ups in flight; K2 stages its input bytes COL_STEPS byte
 # steps at a time, one stage ahead (a ring of two stages).  K4 runs two
 # launches over G x chunks CTAs of PLACE_THREADS threads, PLACE_CHUNK
-# slots each (place_launch).  The source holds the same numbers
+# slots each (place_launch).  K3 runs CTAs of CODER_LANES lanes, each
+# staging its probs CODER_SLOTS slots at a time in CODER_BUFS buffers
+# beside a table of the reciprocals of every 15-bit frequency
+# (coder_launch, div_magic).  The sources (csrc/rans_kernel.cu; the ring's
+# numbers and SMEM_MAX in csrc/rans_common.cuh) hold the same numbers
 # (kRingWords, kRingEvery, kRingLag, kColSteps, kPlaceChunk,
-# kPlaceThreads); its C entries refuse a launch that does not match.
+# kPlaceThreads, kCoderLanes, kCoderSlots, kCoderBufs); their C entries
+# refuse a launch that does not match.  The o1 decoder K6 shares the ring
+# (ops/rans_o1_kernel.py).
 RING_WORDS = 4096
 RING_EVERY = 8
 RING_LAG = 1
@@ -56,6 +62,9 @@ FETCH_WORDS = GLANES   # most words one fetch takes from one stream set
 COL_STEPS = 64
 PLACE_CHUNK = 64
 PLACE_THREADS = 256
+CODER_LANES = 64
+CODER_SLOTS = 64
+CODER_BUFS = 3
 SMEM_MAX = 232_448     # shared-memory bytes a CTA may have on the H100
 REGIONS = ("ring", "lo", "st", "fixed", "red", "rank")
 MODEL_REGIONS = ("cols", "lo", "st", "fixed", "red")
@@ -307,14 +316,64 @@ def coder(probs: torch.Tensor, init_states: torch.Tensor):
            probs.device)
     if not probs.is_cuda:
         return coder_plain(probs, init_states)
+    if probs.data_ptr() % 16:  # the stages copy 16 bytes at a time
+        raise ValueError("probs: must be 16-byte aligned")
     words = torch.empty((S, G, GLANES), dtype=torch.int32,
                         device=probs.device)
     emit = torch.empty((S, G, GLANES), dtype=torch.uint8,
                        device=probs.device)
     state = torch.empty((G, GLANES), dtype=torch.int32, device=probs.device)
-    launch("coder", "trc_coder", probs, init_states, words, emit, state,
-            S, G)
+    launch("coder", "trc_coder",
+           *coder_cargs(probs, init_states, words, emit, state))
     return words, emit, state
+
+
+@dataclasses.dataclass(frozen=True)
+class CoderLaunch:
+    """K3's launch over S slots of G groups: ``ctas`` CTAs of ``lanes``
+    lanes (one thread a lane), each walking its lanes' probs backward in
+    ``stages`` stages of ``slots`` slots (the top one partial when S is not
+    a multiple), staged in ``bufs`` buffers of shared memory; ``smem``
+    bytes hold them and the table of ``div_magic``'s m for every freq in
+    [1, 2^15] (u32)."""
+    S: int
+    G: int
+    lanes: int
+    ctas: int
+    slots: int
+    stages: int
+    bufs: int
+    smem: int
+
+
+def coder_launch(S: int, G: int) -> CoderLaunch:
+    """K3's launch plan (the C entry ``trc_coder`` re-checks it)."""
+    return CoderLaunch(S, G, CODER_LANES, G * GLANES // CODER_LANES,
+                       CODER_SLOTS, -(-S // CODER_SLOTS), CODER_BUFS,
+                       CODER_BUFS * CODER_SLOTS * CODER_LANES * 4
+                       + (1 << 15) * 4)
+
+
+def div_magic(freq):
+    """K3's reciprocal of ``freq`` (1 to 2^15, an int or an int64 array):
+    (m, l) such that ``x // freq == ((2 * x * m) >> 32) >> l`` for every
+    0 <= x < 2^31.  l = ceil(log2 freq), m = floor(2^47 / dn) + 1 with dn
+    = freq << (16 - l), from two 32-bit divisions (a mirror of
+    ``csrc/rans_kernel.cu``'s ``div_magic``)."""
+    l = sum(((freq - 1) >> k) > 0 for k in range(16))  # bit length
+    dn = freq << (16 - l)
+    q1 = (1 << 31) // dn
+    m = (q1 << 16) + ((((1 << 31) - q1 * dn) << 16) // dn) + 1
+    return m, l
+
+
+def coder_cargs(probs, init_states, words, emit, state) -> list:
+    """The arguments of ``trc_coder`` (without the stream): the tile and
+    ``coder_launch``'s numbers."""
+    S, G = probs.shape[0], probs.shape[1]
+    ln = coder_launch(S, G)
+    return [probs, init_states, words, emit, state, S, G, ln.lanes, ln.ctas,
+            ln.slots, ln.stages, ln.bufs, ln.smem]
 
 
 def place(words: torch.Tensor, emit: torch.Tensor, state: torch.Tensor,
@@ -408,19 +467,24 @@ class TableLaunch:
     sizes: tuple
 
 
-def _carve(geom: Geom, stage: int, rank: tuple) -> TableLaunch:
-    warps = GLANES // 32
-    sizes = (stage,
-             geom.arows * GLANES * 32,
-             (geom.arows if geom.share > 1 else 0) * GLANES * 32,
-             (16 - geom.arows) * 32,
-             warps * 16 * 4 if geom.share > 32 else 0,
-             *rank)
+def table_launch(sizes: tuple) -> TableLaunch:
+    """One thread a lane, and regions of ``sizes`` bytes in order, each at
+    a 16-byte-aligned offset (K1, K2, K5 and the o1 decoder K6)."""
     offsets, end = [], 0
     for size in sizes:
         offsets.append(end)
         end += -(-size // 16) * 16
-    return TableLaunch(GLANES, end, tuple(offsets), sizes)
+    return TableLaunch(GLANES, end, tuple(offsets), tuple(sizes))
+
+
+def _carve(geom: Geom, stage: int, rank: tuple) -> TableLaunch:
+    warps = GLANES // 32
+    return table_launch((stage,
+                         geom.arows * GLANES * 32,
+                         (geom.arows if geom.share > 1 else 0) * GLANES * 32,
+                         (16 - geom.arows) * 32,
+                         warps * 16 * 4 if geom.share > 32 else 0,
+                         *rank))
 
 
 def decode_launch(geom: Geom) -> TableLaunch:
@@ -453,7 +517,7 @@ def ring_top_up(base: int, limit: int, ring: int = RING_WORDS) -> int:
 def ring_check(takes, limit: int, ring: int = RING_WORDS,
                every: int = RING_EVERY, lag: int = RING_LAG) -> None:
     """Replay the decoders' ring on one stream set (a mirror of
-    ``csrc/rans_kernel.cu``'s ``Ring``): ``takes[f]`` words (0-128) are
+    ``csrc/rans_common.cuh``'s ``Ring``): ``takes[f]`` words (0-128) are
     read at fetch f from a stream of ``limit`` words.  Raises
     AssertionError where a fetch would read a word that has not arrived,
     or a top-up would overwrite a word that a fetch may still read.

@@ -10,6 +10,11 @@ Kernel (CUDA, ``csrc/rans_o1_kernel.cu``)  replaces (TPU)      plain version
   model   K7: bytes -> slot probs          _make_model_kernel  model_plain
   decode  K6: group streams -> bytes       _make_decode_kernel decode_plain
 
+K7 keeps every lane's 112 table rows in a device scratch.  K6 runs on the
+o0 decoders' ring of stream words (``rans_kernel.ring_check`` mirrors it,
+two fetches a byte) with each lane's 48 lo rows in shared memory and its
+64 hi rows in a device scratch (``decode_launch``, ``hi_scratch``).
+
 Warm tables are per group, hi [64, 16, G] and lo [48, 16, G] int32
 cumulative rows, strictly increasing from 0 (as ``codecs/rans_cdf_r1_p``
 builds them).  A wrapper validates its inputs, then runs the plain
@@ -113,9 +118,37 @@ def _check_geom(geom: Geom, G: int) -> None:
 
 
 def _scratch(G: int, device) -> torch.Tensor:
-    """The kernels' per-lane table rows, [L, 112, 16] u16 (as int16)."""
+    """K7's per-lane table rows, [L, 112, 16] u16 (as int16)."""
     return torch.empty((G * GLANES, R1.NCTX + R1.LROWS, 16),
                        dtype=torch.int16, device=device)
+
+
+def hi_scratch(G: int, device) -> torch.Tensor:
+    """K6's per-lane hi rows, [L, 64, 16] u16 (as int16); its lo rows are
+    in shared memory."""
+    return torch.empty((G * GLANES, R1.NCTX, 16), dtype=torch.int16,
+                       device=device)
+
+
+# K6's dynamic shared memory: the ring of stream words, every lane's lo
+# rows (``rans_kernel``'s row layout) and the per-warp rank counts (one
+# byte a warp, double-buffered), as byte offsets that the C entry checks.
+REGIONS = ("ring", "lo", "rank")
+
+
+def decode_launch() -> K_.TableLaunch:
+    """K6's launch: one thread a lane, one CTA a group."""
+    return K_.table_launch((K_.RING_WORDS * 4, R1.LROWS * GLANES * 32,
+                            2 * (GLANES // 32)))
+
+
+def decode_cargs(gstreams, K: int, hi_tbl, lo_tbl, geom: Geom, scratch,
+                 out, fstates) -> list:
+    """The arguments of ``trc_o1_decode`` (without the stream): the tile,
+    the rate and ``decode_launch``'s numbers."""
+    ln = decode_launch()
+    return [gstreams, hi_tbl, lo_tbl, scratch, out, fstates, K, geom.groups,
+            gstreams.shape[1], geom.rate, ln.threads, ln.smem, *ln.offsets]
 
 
 def model(cols: torch.Tensor, hi_tbl: torch.Tensor, lo_tbl: torch.Tensor,
@@ -148,10 +181,15 @@ def decode_tile(gstreams: torch.Tensor, K: int, hi_tbl: torch.Tensor,
         raise ValueError("gstreams: needs the two flush-state rows")
     if not gstreams.is_cuda:
         return decode_plain(gstreams, K, hi_tbl, lo_tbl, geom)
+    if R * GLANES > K_.INT32_MAX - 2 * K_.RING_WORDS:  # int32 positions
+        raise ValueError(f"gstreams: {R} rows exceed the int32 positions")
+    if gstreams.data_ptr() % 16:  # the ring copies 16 bytes at a time
+        raise ValueError("gstreams: must be 16-byte aligned")
     out = torch.empty((K, G, GLANES), dtype=torch.uint8, device=dev)
     fstates = torch.empty((G, GLANES), dtype=torch.int32, device=dev)
-    K_.launch("o1_decode", "trc_o1_decode", gstreams, hi_tbl, lo_tbl,
-              _scratch(G, dev), out, fstates, K, G, R, geom.rate,
+    K_.launch("o1_decode", "trc_o1_decode",
+              *decode_cargs(gstreams, K, hi_tbl, lo_tbl, geom,
+                            hi_scratch(G, dev), out, fstates),
               counts=launches)
     return out, fstates
 

@@ -446,11 +446,12 @@ def phase_coder_edge(dev) -> None:
         if err:
             raise AssertionError(f"coder-edge S={S} G={G}: kernel differs "
                                  f"from plain by {err}")
-        ln = K_.coder_launch(S, G)
-        log(f"coder-edge S={S} G={G} ({ln.ctas} CTAs, {ln.stages} stages of "
-            f"{ln.slots} slots, the top one {S - (ln.stages - 1) * ln.slots}"
-            f"; {int(k[1].sum())} words emitted): equal to plain, tolerance "
-            "0 (max abs err 0)")
+        D = K_.CODER_SLOTS
+        stages = -(-S // D)
+        log(f"coder-edge S={S} G={G} ({G * 128 // K_.CODER_LANES} CTAs, "
+            f"{stages} stages of {D} slots, the top one "
+            f"{S - (stages - 1) * D}; {int(k[1].sum())} words emitted): "
+            "equal to plain, tolerance 0 (max abs err 0)")
 
 
 def phase_kernels(dev) -> None:
@@ -755,9 +756,7 @@ def phase_before_after(dev, before: str | None, libs: dict) -> dict:
             outs = (torch.empty((S, G, 128), dtype=torch.int32, device=dev),
                     torch.empty((S, G, 128), dtype=torch.uint8, device=dev),
                     torch.empty((G, 128), dtype=torch.int32, device=dev))
-            return outs, ([probs, a.init_states, *outs, S, G]
-                          if who == "before" else
-                          K_.coder_cargs(probs, a.init_states, *outs))
+            return outs, K_.coder_cargs(probs, a.init_states, *outs)
 
         turns("coder", coder, r)
         del a, cols, probs

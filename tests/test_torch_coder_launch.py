@@ -1,17 +1,19 @@
 """The launch of the coder K3 (``csrc/rans_kernel.cu``) on the CPU, without
 JAX.
 
-No card is needed: ``rans_kernel.coder_launch`` computes the plan that
-K3's wrapper hands its C entry, which re-checks it: CTAs of CODER_LANES
-lanes, each walking its lanes' probs backward in stages of CODER_SLOTS
-slots staged in CODER_BUFS shared-memory buffers, the top stage partial
-when S is not a multiple.  These tests hold the plan to the card's limits
-and to int32, and a numpy mirror of the staged walk (which stage is
-requested into which buffer, and when it is read) to ``coder_plain``, the
-kernel's oracle.
+No card is needed.  K3's C entry plans its launch from S and G: CTAs of
+kCoderLanes lanes, each walking its lanes' probs backward in stages of
+kCoderSlots slots staged in kCoderBufs shared-memory buffers, the top
+stage partial when S is not a multiple.  ``_plan`` mirrors that plan from
+the source's numbers (``rans_kernel.CODER_*``, checked against the
+source).  These tests hold the plan to the card's limits and to int32,
+and a numpy mirror of the staged walk (which stage is requested into
+which buffer, and when it is read) to ``coder_plain``, the kernel's
+oracle.
 """
 from __future__ import annotations
 
+import dataclasses
 import re
 from pathlib import Path
 
@@ -31,6 +33,24 @@ MAX_THREADS = 1024
 D = TK.CODER_SLOTS
 
 
+@dataclasses.dataclass(frozen=True)
+class _Plan:
+    lanes: int
+    ctas: int
+    stages: int
+    bufs: int
+    smem: int
+
+
+def _plan(S: int, G: int) -> _Plan:
+    """The launch ``trc_coder`` derives from S and G: L / kCoderLanes
+    CTAs, ceil(S / kCoderSlots) stages, kCoderSmem bytes (the stage
+    buffers and the table of the m of every freq in [1, 2^15], u32)."""
+    return _Plan(TK.CODER_LANES, G * TK.GLANES // TK.CODER_LANES, -(-S // D),
+                 TK.CODER_BUFS,
+                 TK.CODER_BUFS * D * TK.CODER_LANES * 4 + (1 << 15) * 4)
+
+
 def test_source_constants_match():
     """The kernel is compiled with the numbers the wrapper plans with."""
     for name, value in (("kCoderLanes", TK.CODER_LANES),
@@ -39,22 +59,29 @@ def test_source_constants_match():
                         ("kSmemMax", TK.SMEM_MAX)):
         m = re.search(rf"constexpr int {name} = (\d+);", SOURCE)
         assert m and int(m.group(1)) == value, name
+    # the launch that _plan mirrors
+    for line in (
+            "constexpr int kCoderStageBytes = kCoderBufs * kCoderSlots * "
+            "kCoderLanes * 4;",
+            "constexpr int kCoderSmem = kCoderStageBytes + kTotal * 4;",
+            "const int ctas = int(L / kCoderLanes);",
+            "const int stages = (S + kCoderSlots - 1) / kCoderSlots;"):
+        assert line in SOURCE, line
 
 
 @pytest.mark.parametrize("L", (128, 8192, 16384))
 @pytest.mark.parametrize("S", (1, 2, D - 1, D, D + 1, 4096, 16384))
 def test_launch_plan(S, L):
     G = L // TK.GLANES
-    ln = TK.coder_launch(S, G)
+    ln = _plan(S, G)
     assert ln.lanes == TK.CODER_LANES <= MAX_THREADS
     assert TK.GLANES % ln.lanes == 0 and ln.ctas * ln.lanes == L
     assert ln.ctas >= 2 * G  # a group is two CTAs or more: every SM at g64
-    assert ln.slots == D and ln.bufs == TK.CODER_BUFS >= 2
+    assert ln.bufs == TK.CODER_BUFS >= 2
     assert (ln.stages - 1) * D < S <= ln.stages * D
     top = S - (ln.stages - 1) * D  # slots of the top (first) stage
     assert 1 <= top <= D and (top == D) == (S % D == 0)
     # the stage buffers and the table of 2^15 reciprocals (u32)
-    assert ln.smem == ln.bufs * D * ln.lanes * 4 + (1 << 15) * 4
     assert ln.smem <= TK.SMEM_MAX
     # every index the kernel keeps in an int, and its grid
     assert max(ln.ctas, ln.stages, L, S + D) <= TK.INT32_MAX
@@ -67,9 +94,7 @@ def test_c_arguments_match_the_entry_point():
     args = TK.coder_cargs(probs, init, None, None, None)
     assert len(args) + 1 == len(build.SIGNATURES["rans_kernel.cu"]
                                 ["trc_coder"])
-    ln = TK.coder_launch(S, G)
-    assert args[5:] == [S, G, ln.lanes, ln.ctas, ln.slots, ln.stages,
-                        ln.bufs, ln.smem]
+    assert args[5:] == [S, G]
 
 
 def _magic_div(x, freq, off: int = 0):
@@ -89,7 +114,7 @@ def _mirror(probs: np.ndarray, init: np.ndarray, ahead: int | None = None):
     Raises AssertionError where a stage is read from a buffer that does
     not hold it, or a request overwrites a stage not yet coded."""
     S, L = probs.shape
-    ln = TK.coder_launch(S, L // TK.GLANES)
+    ln = _plan(S, L // TK.GLANES)
     bufs = ln.bufs
     ahead = bufs - 1 if ahead is None else ahead
     words = np.zeros((S, L), np.int64)

@@ -1,15 +1,17 @@
 """The launch of the o1 decoder K6 (``csrc/rans_o1_kernel.cu``) on the CPU,
 without JAX.
 
-No card is needed: ``rans_o1_kernel.decode_launch`` computes the threads,
-shared-memory bytes and carve-up (stream ring, every lane's 48 lo rows,
-rank counts) that the wrapper hands the C entry, ``hi_scratch`` the device
-scratch of the 64 hi rows a lane, and ``rans_kernel.ring_check`` mirrors
-the ring, here with two fetches a byte.  These tests hold the launch to the
-card's limits for every geometry the o1 format can carry, the ring to its
-two promises, and a mirror of the kernel's hi-row register cache (a row is
-written back when the context changes, and kept in registers when it does
-not) to a table indexed directly.
+No card is needed.  K6's launch is the source's own: 128 threads and a
+fixed carve of dynamic shared memory (stream ring, every lane's 48 lo
+rows, rank counts), which ``_carve`` mirrors from the source's numbers;
+``hi_scratch`` is the device scratch of the 64 hi rows a lane, and
+``rans_kernel.ring_check`` mirrors the ring, here with two fetches a byte.
+These tests hold the carve to the card's limits, the C arguments to every
+geometry the o1 format can carry, the ring to its two promises, and a
+numpy model of the hi-row caching rule (a row is written back when the
+context changes, and kept in registers when it does not) to a table
+indexed directly.  The kernel itself is held to ``decode_plain`` only on
+the card.
 """
 from __future__ import annotations
 
@@ -53,12 +55,24 @@ def test_source_constants_match():
         assert m and int(m.group(1)) == value, name
 
 
+def _carve() -> TK.TableLaunch:
+    """K6's launch as the source carves it (kO1Ring, kO1Lo, kO1Rank,
+    kO1Smem): the ring of stream words, 48 lo rows x 32 B x 128 lanes, a
+    rank byte a warp in two buffers, each region 16-byte aligned."""
+    return TK.table_launch((TK.RING_WORDS * 4, R1.LROWS * O1.GLANES * 32,
+                            2 * (O1.GLANES // 32)))
+
+
 def test_carve_sizes():
-    ln = O1.decode_launch()
-    assert dict(zip(O1.REGIONS, ln.sizes)) == {
-        "ring": TK.RING_WORDS * 4,               # 16 KB of stream words
-        "lo": R1.LROWS * O1.GLANES * 32,         # 48 rows x 32 B x 128 lanes
-        "rank": 2 * (O1.GLANES // 32)}           # a byte a warp, 2 buffers
+    for line in ("constexpr int kO1Ring = 0;",
+                 "constexpr int kO1Lo = kO1Ring + kRingWords * 4;",
+                 "constexpr int kO1Rank = kO1Lo + kLrows * kLanes * 32;",
+                 "constexpr int kO1Smem = (kO1Rank + 2 * kWarps + 15) / 16 "
+                 "* 16;",
+                 "o1_decode_kernel<<<G, kLanes, kO1Smem,"):
+        assert line in SOURCE, line
+    ln = _carve()
+    assert ln.offsets == (0, 16384, 16384 + 196608)
     assert ln.smem == 16384 + 196608 + 16
 
 
@@ -66,8 +80,8 @@ def test_carve_sizes():
 def test_carve_fits_every_o1_geometry(geom):
     """One thread a lane, ordered 16-byte-aligned regions within the
     232,448 B a CTA may have; the C arguments carry the geometry's groups
-    and rate beside the carve."""
-    ln = O1.decode_launch()
+    and rate."""
+    ln = _carve()
     assert ln.threads == O1.GLANES <= MAX_THREADS
     assert ln.smem <= TK.SMEM_MAX
     ends = [o + s for o, s in zip(ln.offsets, ln.sizes)]
@@ -77,8 +91,7 @@ def test_carve_fits_every_o1_geometry(geom):
     G, K, R = geom.groups, 16, 40
     gs = torch.zeros((G, R, O1.GLANES), dtype=torch.int32)
     args = O1.decode_cargs(gs, K, None, None, geom, None, None, None)
-    assert args[6:10] == [K, G, R, geom.rate]
-    assert args[10:] == [ln.threads, ln.smem, *ln.offsets]
+    assert args[6:] == [K, G, R, geom.rate]
 
 
 def test_c_arguments_match_the_entry_point():
@@ -142,8 +155,8 @@ def test_ring_two_fetches_worst_case():
 
 
 def _hi_rows_seen(bytes_, rows0, cached: bool, store: bool = True):
-    """The hi row each byte of one lane reads, under the kernel's register
-    cache (``cached``: the current row in registers, written back to the
+    """The hi row each byte of one lane reads, under the caching rule that
+    K6 follows (``cached``: the current row in registers, written back to the
     scratch when the next byte's context differs, then the next one loaded)
     or a table indexed directly; an update adds the byte to every entry."""
     table = rows0.copy()
@@ -169,9 +182,10 @@ def _hi_rows_seen(bytes_, rows0, cached: bool, store: bool = True):
 
 @pytest.mark.parametrize("seed", range(4))
 def test_hi_row_register_cache(seed):
-    """The cache reads the same rows as direct indexing on runs (the same
-    context again), switches and returns to earlier rows; a cache that
-    skips the write-back is caught."""
+    """The caching rule reads the same rows as direct indexing on runs
+    (the same context again), switches and returns to earlier rows; a rule
+    that skips the write-back is caught.  This checks the rule, not the
+    kernel: chip_smoke.py holds K6 to decode_plain on the card."""
     rng = np.random.default_rng(seed)
     runs = rng.integers(0, 256, 40).repeat(rng.integers(1, 9, 40))
     data = np.concatenate([runs, rng.integers(0, 70, 300)])

@@ -574,14 +574,6 @@ O1_SEGMENTS = {
              "hi row switch (store, load issue), fetch 2 post",
              "lo update, store", "out byte, fetch 2 take (prefix, word)"],
 }
-_O1_SWITCH = ("    if (nctx != ctx) {\n"
-              "      uint4* q = reinterpret_cast<uint4*>(tab + ctx * 16);\n"
-              "      q[0] = hw[0];\n      q[1] = hw[1];\n"
-              "      q = reinterpret_cast<uint4*>(tab + nctx * 16);\n"
-              "      hw[0] = q[0];\n      hw[1] = q[1];\n"
-              "      ctx = nctx;\n    }\n")
-_O1_POST2 = ("    fetch_post(state, bal, rank, buf, nfetch);\n"
-             "    cdf_update(lrow, low_l, rate);\n")
 O1_ABLATIONS = {
     "l2": {},
     "ring": {
@@ -592,16 +584,6 @@ O1_ABLATIONS = {
                       ("cdf_update(lrow, low_l, rate);", "")],
         "no-word": ABLATIONS["no-word"],
         "no-barrier": ABLATIONS["no-barrier"],
-        # two byte-identical variants (PERF.md section 6), timed only: the
-        # hi row switch after the second fetch's barrier, and the hi rows
-        # loaded and stored past L1 (ld.global.cg / st.global.cg)
-        "late-switch": [(_O1_SWITCH + _O1_POST2,
-                         _O1_POST2.split("\n")[0] + "\n" + _O1_SWITCH
-                         + "    cdf_update(lrow, low_l, rate);\n")],
-        "cg": [("      q[0] = hw[0];\n      q[1] = hw[1];\n",
-                "      __stcg(q, hw[0]);\n      __stcg(q + 1, hw[1]);\n"),
-               ("      hw[0] = q[0];\n      hw[1] = q[1];\n",
-                "      hw[0] = __ldcg(q);\n      hw[1] = __ldcg(q + 1);\n")],
     },
 }
 

@@ -39,18 +39,16 @@ SIGNATURES = {
         # threads, shared-memory bytes and six region offsets
         "trc_decode": [_P] * 5 + [_I] * 17 + [_P],
         "trc_decode_x2": [_P] * 5 + [_I] * 17 + [_P],
-        # K3: tile, then rans_kernel.coder_launch's lanes, CTAs, slots,
-        # stages, buffers and shared-memory bytes
-        "trc_coder": [_P] * 5 + [_I] * 8 + [_P],
+        # K3: tile, S and G
+        "trc_coder": [_P] * 5 + [_I] * 2 + [_P],
         # K4: tile (and the chunk counts' scratch), then
         # rans_kernel.place_launch's S, G, R, chunk, chunks, threads, scratch
         "trc_place": [_P] * 6 + [_I] * 7 + [_P],
     },
     "rans_o1_kernel.cu": {
         "trc_o1_model": [_P] * 5 + [_I] * 3 + [_P],
-        # K6: tile and rate, then rans_o1_kernel.decode_launch's threads,
-        # shared-memory bytes and three region offsets
-        "trc_o1_decode": [_P] * 6 + [_I] * 9 + [_P],
+        # K6: tile and rate
+        "trc_o1_decode": [_P] * 6 + [_I] * 4 + [_P],
     },
     "bittree_kernel.cu": {
         "trc_tree_model": [_P] * 3 + [_I] * 2 + [_P],

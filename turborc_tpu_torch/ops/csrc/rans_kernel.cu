@@ -481,6 +481,7 @@ constexpr int kCoderStageBytes = kCoderBufs * kCoderSlots * kCoderLanes * 4;
 constexpr int kCoderSmem = kCoderStageBytes + kTotal * 4;  // + the table
 static_assert(kLanes % kCoderLanes == 0, "a group is whole CTAs");
 static_assert(kCoderBufs >= 2, "one stage in flight at least");
+static_assert(kCoderSmem <= kSmemMax, "K3's stages and table fit a CTA");
 
 // x / freq for every x < 2^31 and freq in [1, 2^15] as umulhi(2x, m) >> l
 // (Granlund and Montgomery, "Division by invariant integers using
@@ -850,25 +851,23 @@ int trc_decode_x2(const void* streams, const void* hi_tbl,
                        stream);
 }
 
-// K3: tile, then rans_kernel.coder_launch's lanes a CTA, CTAs, slots a
-// stage, stages, stage buffers and shared-memory bytes.  A plan that does
-// not fit the tile returns cudaErrorInvalidValue.
+// K3: tile; the launch follows from S and G (L / kCoderLanes CTAs,
+// ceil(S / kCoderSlots) stages, kCoderSmem bytes).  A tile it cannot code
+// returns cudaErrorInvalidValue.
 int trc_coder(const void* probs, const void* init, void* words, void* emit,
-              void* fstate, int S, int G, int lanes, int ctas, int slots,
-              int stages, int bufs, int smem, void* stream) {
+              void* fstate, int S, int G, void* stream) {
   const long long L = (long long)G * kLanes;
-  const bool ok = lanes == kCoderLanes && slots == kCoderSlots &&
-                  bufs == kCoderBufs && S >= 0 && S <= INT_MAX - kCoderSlots &&
-                  G >= 1 && L <= INT_MAX &&
-                  (long long)ctas * kCoderLanes == L &&
-                  stages == (S + kCoderSlots - 1) / kCoderSlots &&
-                  smem == kCoderSmem && smem <= kSmemMax &&
+  const bool ok = S >= 0 && S <= INT_MAX - kCoderSlots && G >= 1 &&
+                  L <= INT_MAX &&
                   (reinterpret_cast<uintptr_t>(probs) & 15) == 0;
   if (!ok) return int(cudaErrorInvalidValue);
   cudaError_t e = cudaFuncSetAttribute(
-      coder_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      coder_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kCoderSmem);
   if (e != cudaSuccess) return int(e);
-  coder_kernel<<<ctas, kCoderLanes, smem, static_cast<cudaStream_t>(stream)>>>(
+  const int ctas = int(L / kCoderLanes);
+  const int stages = (S + kCoderSlots - 1) / kCoderSlots;
+  coder_kernel<<<ctas, kCoderLanes, kCoderSmem,
+                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(probs), static_cast<const int*>(init),
       static_cast<int*>(words), static_cast<uint8_t*>(emit),
       static_cast<int*>(fstate), S, int(L), stages);

@@ -174,26 +174,31 @@ o1_model_kernel(const uint8_t* __restrict__ cols,
 // would have to define the 16 entries, and the loaded side waited for the
 // L2 there (a 730-cycle stall a byte).  The store comes before the load in
 // the thread's program order, so a row read again later sees its update.
-struct O1Carve {
-  int ring, lo, rank;  // byte offsets in dynamic shared memory
-};
+// Its dynamic shared memory: the ring of stream words, every lane's lo
+// rows, the per-warp rank counts (one byte a warp, double-buffered).
+constexpr int kO1Ring = 0;
+constexpr int kO1Lo = kO1Ring + kRingWords * 4;
+constexpr int kO1Rank = kO1Lo + kLrows * kLanes * 32;
+constexpr int kO1Smem = (kO1Rank + 2 * kWarps + 15) / 16 * 16;
+static_assert(kO1Lo % 16 == 0 && kO1Rank % 16 == 0, "16-byte regions");
+static_assert(kO1Smem <= kSmemMax, "K6's carve fits a CTA");
 
 __global__ void __launch_bounds__(kLanes, 1)
 o1_decode_kernel(const int* __restrict__ streams,
                  const int* __restrict__ hi_tbl,
                  const int* __restrict__ lo_tbl, uint16_t* __restrict__ hi_rows,
                  uint8_t* __restrict__ out, int* __restrict__ fstate, int K,
-                 int G, int R, int rate, O1Carve c) {
+                 int G, int R, int rate) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint16_t* lo = reinterpret_cast<uint16_t*>(smem_raw + c.lo);
-  uint8_t* rank = smem_raw + c.rank;
+  uint16_t* lo = reinterpret_cast<uint16_t*>(smem_raw + kO1Lo);
+  uint8_t* rank = smem_raw + kO1Rank;
   const int g = blockIdx.x;
   const size_t plane = size_t(G) * kLanes;
   const size_t col = size_t(g) * kLanes + threadIdx.x;
   const int limit = R * kLanes;
   Ring r[1];
   ring_init(r[0], streams + size_t(g) * R * kLanes,
-            reinterpret_cast<int*>(smem_raw + c.ring), limit);
+            reinterpret_cast<int*>(smem_raw + kO1Ring), limit);
   cp_async_commit();
   uint32_t state[1] = {(uint32_t(r[0].src[threadIdx.x]) << 16) |
                        uint32_t(r[0].src[kLanes + threadIdx.x])};
@@ -283,33 +288,23 @@ int trc_o1_model(const void* cols, const void* hi_tbl, const void* lo_tbl,
   return int(cudaGetLastError());
 }
 
-// K6: tile and rate, then rans_o1_kernel.decode_launch's threads,
-// shared-memory bytes and three region offsets (ring, lo rows, rank
-// counts).  A launch that does not fit returns cudaErrorInvalidValue.
+// K6: tile and rate; the launch is fixed (kLanes threads, kO1Smem bytes).
+// A tile it cannot decode returns cudaErrorInvalidValue.
 int trc_o1_decode(const void* streams, const void* hi_tbl, const void* lo_tbl,
                   void* hi_rows, void* out, void* fstate, int K, int G, int R,
-                  int rate, int threads, int smem, int c_ring, int c_lo,
-                  int c_rank, void* stream) {
-  const int off[3] = {c_ring, c_lo, c_rank};
-  const int size[3] = {kRingWords * 4, kLrows * kLanes * 32, 2 * kWarps};
-  bool ok = threads == kLanes && smem <= kSmemMax && rate >= 7 &&
-            rate <= 10 && K >= 0 && G >= 1 && R >= 2 &&
-            R <= (INT_MAX - 2 * kRingWords) / kLanes &&
-            (reinterpret_cast<uintptr_t>(streams) & 15) == 0;
-  int end = 0;
-  for (int i = 0; i < 3; ++i) {
-    ok = ok && off[i] % 16 == 0 && off[i] >= end;
-    end = off[i] + size[i];
-  }
-  if (!ok || end > smem) return int(cudaErrorInvalidValue);
+                  int rate, void* stream) {
+  const bool ok = rate >= 7 && rate <= 10 && K >= 0 && G >= 1 && R >= 2 &&
+                  R <= (INT_MAX - 2 * kRingWords) / kLanes &&
+                  (reinterpret_cast<uintptr_t>(streams) & 15) == 0;
+  if (!ok) return int(cudaErrorInvalidValue);
   cudaError_t e = cudaFuncSetAttribute(
-      o1_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      o1_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kO1Smem);
   if (e != cudaSuccess) return int(e);
-  o1_decode_kernel<<<G, kLanes, smem, static_cast<cudaStream_t>(stream)>>>(
+  o1_decode_kernel<<<G, kLanes, kO1Smem,
+                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(streams), static_cast<const int*>(hi_tbl),
       static_cast<const int*>(lo_tbl), static_cast<uint16_t*>(hi_rows),
-      static_cast<uint8_t*>(out), static_cast<int*>(fstate), K, G, R, rate,
-      O1Carve{c_ring, c_lo, c_rank});
+      static_cast<uint8_t*>(out), static_cast<int*>(fstate), K, G, R, rate);
   return int(cudaGetLastError());
 }
 

@@ -46,14 +46,15 @@ GLANES = 128
 # RING_LAG top-ups in flight; K2 stages its input bytes COL_STEPS byte
 # steps at a time, one stage ahead (a ring of two stages).  K4 runs two
 # launches over G x chunks CTAs of PLACE_THREADS threads, PLACE_CHUNK
-# slots each (place_launch).  K3 runs CTAs of CODER_LANES lanes, each
-# staging its probs CODER_SLOTS slots at a time in CODER_BUFS buffers
-# beside a table of the reciprocals of every 15-bit frequency
-# (coder_launch, div_magic).  The sources (csrc/rans_kernel.cu; the ring's
+# slots each (place_launch).  The sources (csrc/rans_kernel.cu; the ring's
 # numbers and SMEM_MAX in csrc/rans_common.cuh) hold the same numbers
 # (kRingWords, kRingEvery, kRingLag, kColSteps, kPlaceChunk,
-# kPlaceThreads, kCoderLanes, kCoderSlots, kCoderBufs); their C entries
-# refuse a launch that does not match.  The o1 decoder K6 shares the ring
+# kPlaceThreads); their C entries refuse a launch that does not match.
+# K3 plans its own launch from S and G: CTAs of CODER_LANES lanes, each
+# staging its probs CODER_SLOTS slots at a time in CODER_BUFS buffers
+# beside a table of the reciprocals of every 15-bit frequency (div_magic);
+# the numbers here are the source's kCoderLanes, kCoderSlots, kCoderBufs,
+# for the tests' mirror of the plan.  The o1 decoder K6 shares the ring
 # (ops/rans_o1_kernel.py).
 RING_WORDS = 4096
 RING_EVERY = 8
@@ -328,32 +329,6 @@ def coder(probs: torch.Tensor, init_states: torch.Tensor):
     return words, emit, state
 
 
-@dataclasses.dataclass(frozen=True)
-class CoderLaunch:
-    """K3's launch over S slots of G groups: ``ctas`` CTAs of ``lanes``
-    lanes (one thread a lane), each walking its lanes' probs backward in
-    ``stages`` stages of ``slots`` slots (the top one partial when S is not
-    a multiple), staged in ``bufs`` buffers of shared memory; ``smem``
-    bytes hold them and the table of ``div_magic``'s m for every freq in
-    [1, 2^15] (u32)."""
-    S: int
-    G: int
-    lanes: int
-    ctas: int
-    slots: int
-    stages: int
-    bufs: int
-    smem: int
-
-
-def coder_launch(S: int, G: int) -> CoderLaunch:
-    """K3's launch plan (the C entry ``trc_coder`` re-checks it)."""
-    return CoderLaunch(S, G, CODER_LANES, G * GLANES // CODER_LANES,
-                       CODER_SLOTS, -(-S // CODER_SLOTS), CODER_BUFS,
-                       CODER_BUFS * CODER_SLOTS * CODER_LANES * 4
-                       + (1 << 15) * 4)
-
-
 def div_magic(freq):
     """K3's reciprocal of ``freq`` (1 to 2^15, an int or an int64 array):
     (m, l) such that ``x // freq == ((2 * x * m) >> 32) >> l`` for every
@@ -368,12 +343,10 @@ def div_magic(freq):
 
 
 def coder_cargs(probs, init_states, words, emit, state) -> list:
-    """The arguments of ``trc_coder`` (without the stream): the tile and
-    ``coder_launch``'s numbers."""
-    S, G = probs.shape[0], probs.shape[1]
-    ln = coder_launch(S, G)
-    return [probs, init_states, words, emit, state, S, G, ln.lanes, ln.ctas,
-            ln.slots, ln.stages, ln.bufs, ln.smem]
+    """The arguments of ``trc_coder`` (without the stream): the tile, S
+    and G (the C entry derives its launch from them)."""
+    return [probs, init_states, words, emit, state, probs.shape[0],
+            probs.shape[1]]
 
 
 def place(words: torch.Tensor, emit: torch.Tensor, state: torch.Tensor,

@@ -13,7 +13,7 @@ Kernel (CUDA, ``csrc/rans_o1_kernel.cu``)  replaces (TPU)      plain version
 K7 keeps every lane's 112 table rows in a device scratch.  K6 runs on the
 o0 decoders' ring of stream words (``rans_kernel.ring_check`` mirrors it,
 two fetches a byte) with each lane's 48 lo rows in shared memory and its
-64 hi rows in a device scratch (``decode_launch``, ``hi_scratch``).
+64 hi rows in a device scratch (``hi_scratch``).
 
 Warm tables are per group, hi [64, 16, G] and lo [48, 16, G] int32
 cumulative rows, strictly increasing from 0 (as ``codecs/rans_cdf_r1_p``
@@ -130,25 +130,13 @@ def hi_scratch(G: int, device) -> torch.Tensor:
                        device=device)
 
 
-# K6's dynamic shared memory: the ring of stream words, every lane's lo
-# rows (``rans_kernel``'s row layout) and the per-warp rank counts (one
-# byte a warp, double-buffered), as byte offsets that the C entry checks.
-REGIONS = ("ring", "lo", "rank")
-
-
-def decode_launch() -> K_.TableLaunch:
-    """K6's launch: one thread a lane, one CTA a group."""
-    return K_.table_launch((K_.RING_WORDS * 4, R1.LROWS * GLANES * 32,
-                            2 * (GLANES // 32)))
-
-
 def decode_cargs(gstreams, K: int, hi_tbl, lo_tbl, geom: Geom, scratch,
                  out, fstates) -> list:
-    """The arguments of ``trc_o1_decode`` (without the stream): the tile,
-    the rate and ``decode_launch``'s numbers."""
-    ln = decode_launch()
+    """The arguments of ``trc_o1_decode`` (without the stream): the tile
+    and the rate (the launch is the source's own: 128 threads, the ring,
+    every lane's lo rows and the rank counts in shared memory)."""
     return [gstreams, hi_tbl, lo_tbl, scratch, out, fstates, K, geom.groups,
-            gstreams.shape[1], geom.rate, ln.threads, ln.smem, *ln.offsets]
+            gstreams.shape[1], geom.rate]
 
 
 def model(cols: torch.Tensor, hi_tbl: torch.Tensor, lo_tbl: torch.Tensor,

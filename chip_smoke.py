@@ -11,15 +11,15 @@ every ported path through the port's ``compress``/``decompress``
 flagships; the bit-tree ``rc-p`` on K9, K3, K4 and K8), checks every
 container against the golden hashes the JAX package wrote, then times
 the kernels.  The decoders on a shared-memory ring of stream words (the
-o0 K1 and K5, the o1 K6) are also held against their plain versions
-where the ring wraps and on corrupt streams, the placement K4 on edge
-cases of emit (every lane, none, one, slot counts that are not a
-multiple of its chunk), and the coder K3 on edge cases of probabilities
-and states (``coder-edge``).  With ``--before COMMIT``, the coder K3 and
-the o1 decoder K6 are timed in turns against those of a ``git archive
-COMMIT`` unpacked in ``_archive/COMMIT/``.  It imports no JAX and
-nothing of ``turborc_tpu``; the corpora under ``turborc_tpu/bench/_data/``
-are read as files.
+o0 K1 and K5, the o1 K6, the bit-tree K8) are also held against their
+plain versions where the ring wraps and on corrupt streams, the
+placement K4 on edge cases of emit (every lane, none, one, slot counts
+that are not a multiple of its chunk), and the coder K3 on edge cases of
+probabilities and states (``coder-edge``).  With ``--before COMMIT``, the
+o1 model K7 and the bit-tree decoder K8 are timed in turns against those
+of a ``git archive COMMIT`` unpacked in ``_archive/COMMIT/``.  It imports
+no JAX and nothing of ``turborc_tpu``; the corpora under
+``turborc_tpu/bench/_data/`` are read as files.
 
 The phases run in a child process under a wall-clock budget, so a kernel
 that hangs becomes a non-zero exit that names the phase.  The last line,
@@ -52,11 +52,11 @@ BENCH_GEOM_X2 = BENCH_GEOM + "x2"
 # --before COMMIT: the timing-before-after phase builds the sources of
 # _archive/COMMIT/ (a git archive of COMMIT unpacked there) that hold the
 # kernels in REDESIGNED and times those against the current ones.  Their
-# C signatures there, as (pointers, ints) before the stream: those of the
-# one-CTA-a-group coder and the o1 decoder of 9ed2fbe and earlier.
+# C signatures there, as (pointers, ints) before the stream: those of
+# e3484f9 and earlier, whose o1 model takes a device scratch for its rows.
 # Without it the phase is skipped.
 BEFORE_FLAG = "--before"
-BEFORE_ARGS = {"trc_coder": (5, 2), "trc_o1_decode": (6, 4)}
+BEFORE_ARGS = {"trc_o1_model": (5, 3), "trc_tree_decode": (4, 3)}
 ARCHIVE = ROOT / "_archive"
 CSRC_REL = "turborc_tpu_torch/ops/csrc"
 CHILD_FLAG = "--child"
@@ -80,7 +80,7 @@ REPLACES = {
     "tree_model": "turborc_tpu/ops/pallas/bittree_kernel.py:333",
 }
 # Kernels timed against a parent's with --before.
-REDESIGNED = ("coder", "o1_decode")
+REDESIGNED = ("o1_model", "tree_decode")
 # Each path's kernels in stage order: model, coder, place, decode.
 KERNELS = {"o0": ("model", "coder", "place", "decode"),
            "o1": ("o1_model", "coder", "place", "o1_decode"),
@@ -192,6 +192,24 @@ def _codec(kind: str):
     return {"o0": C0, "x2": C0, "o1": C1, "tree": CT}[kind]
 
 
+def _decode_fn(kind: str, args, geom, kernel: bool):
+    """gstreams -> (bytes, final states): path ``kind``'s decoder
+    (``KERNELS``), the kernel or its plain version, on ``args``' tables
+    and K."""
+    from turborc_tpu_torch.ops import bittree_kernel as B
+    from turborc_tpu_torch.ops import rans_kernel as K_
+    from turborc_tpu_torch.ops import rans_o1_kernel as K1
+    K = args.K
+    if kind == "tree":
+        fn = B.tree_decode_tile if kernel else B.tree_decode_plain
+        extra = (geom,) if kernel else ()
+        return lambda gs: fn(gs, K, args.tree, *extra)
+    fn = {"o0": (K_.decode_tile, K_.decode_plain),
+          "x2": (K_.decode_tile_x2, K_.decode_x2_plain),
+          "o1": (K1.decode_tile, K1.decode_plain)}[kind][not kernel]
+    return lambda gs: fn(gs, K, args.hi_tbl, args.lo_tbl, geom)
+
+
 def _stages(kind: str, args, geom, kernels: bool):
     """The encode-decode chain of one block's arguments: model -> coder ->
     place -> decode of path ``kind`` (``KERNELS``), through the kernels
@@ -210,18 +228,11 @@ def _stages(kind: str, args, geom, kernels: bool):
     if kind == "tree":
         model = ((lambda c: B.tree_model(c, args.tree, geom)) if kernels
                  else (lambda c: B.tree_model_plain(c, args.tree)))
-        decode = ((lambda gs: B.tree_decode_tile(gs, K, args.tree, geom))
-                  if kernels else
-                  (lambda gs: B.tree_decode_plain(gs, K, args.tree)))
     else:
         mod = K1 if kind == "o1" else K_
         mfn = mod.model if kernels else mod.model_plain
         model = lambda c: mfn(c, args.hi_tbl, args.lo_tbl, geom)  # noqa: E731
-        dfn = {"o0": (K_.decode_tile, K_.decode_plain),
-               "x2": (K_.decode_tile_x2, K_.decode_x2_plain),
-               "o1": (K1.decode_tile, K1.decode_plain)}[kind][not kernels]
-        decode = lambda gs: dfn(gs, K, args.hi_tbl,  # noqa: E731
-                                args.lo_tbl, geom)
+    decode = _decode_fn(kind, args, geom, kernels)
     if kind != "x2":
         return ((m, model, lambda o: (cols,)),
                 ("coder", coder, lambda o: (o[m], args.init_states)),
@@ -301,10 +312,13 @@ def _check_block(label: str, args, outs: dict, decode: str) -> None:
 BRANCH_GEOMS = ("g2c2s1y2l4a16r4", "g4c4s32y4l8a0r0", "g1c8s64y8l32a16r4",
                 "g1c8s128y8l32a8r2u9", "g2c2s8y2l4a4r4", "g2c8s16y8l16a16r20")
 # The o1 kernels at the default geometry (1 MB: 4 warm-table segments)
-# and at three small ones: groups 1, 2 and 4, chunk 2 and 8, the 600 KB
-# case with two segments over two groups.
+# and at small ones: groups 1, 2 and 4, chunk 2 and 8, the 600 KB case
+# with two segments over two groups, one group at K = 2048, and id 61's
+# g4 and g8 (K = 2048 and 1024), where K7 has 16 and 32 CTAs.
 O1_GEOMS = ((None, 1 << 20), ("g1c2s8y2l4a16r4", 1 << 16),
-            ("g2c8s8y4l32a16r4", 600_000), ("g4c2s8y2l4a16r4", 1 << 16))
+            ("g2c8s8y4l32a16r4", 600_000), ("g4c2s8y2l4a16r4", 1 << 16),
+            ("g1c8s8y4l32a16r4", 1 << 18), ("g4c8s8y4l32a16r4", 1 << 20),
+            ("g8c8s8y4l32a16r4", 1 << 20))
 
 
 # The bit-tree kernels at groups 1, 2 and 4, chunk 2 and 8, K of 16 to
@@ -344,24 +358,23 @@ def _kernel_cases(label: str, kind: str, cases, dev,
 # The decoders' ring wraps: one group at K = 2048 on 256 KB of textbwt.
 # o0: about 11 rings of words in the group stream (4 at least); under x2
 # the lo set's stream wraps as often, the hi set's (mostly rank-0
-# nibbles) holds under half a ring; o1 (K6): the same bytes at the
-# default geometry cut to one group.
+# nibbles) holds under half a ring; o1 (K6) and bit-tree (K8): the same
+# bytes at the default geometry cut to one group.
 RING_CASES = (("o0", "g1c8s8y8l32a4r4"), ("x2", "g1c8s8y8l32a4r4x2"),
-              ("o1", "g1c8s8y4l32a16r4"))
-# Corrupt streams for K1, K5 and K6: two groups, K = 256 (o0) or 512 (o1).
+              ("o1", "g1c8s8y4l32a16r4"), ("tree", "g1c8s8y4l32a16r4"))
+# Corrupt streams for K1, K5, K6 and K8: two groups, K = 256 (o0) or 512
+# (o1, bit-tree).
 CORRUPT_CASES = (("o0", "g2c8s8y8l32a4r4"), ("x2", "g2c8s8y8l32a4r4x2"),
-                 ("o1", "g2c8s8y4l32a16r4"))
+                 ("o1", "g2c8s8y4l32a16r4"), ("tree", "g2c8s8y4l32a16r4"))
 
 
 def phase_decode_cases(dev) -> None:
-    """K1, K5 and K6 where the ring wraps many times, and on corrupt
+    """K1, K5, K6 and K8 where the ring wraps many times, and on corrupt
     streams: flipped words, and streams cut short (fewer rows than the
     block needs, down to the two state rows).  Each kernel equals its
     plain version, final states included; a hang would overrun the
     budget."""
     import torch
-    from turborc_tpu_torch.ops import rans_kernel as K_
-    from turborc_tpu_torch.ops import rans_o1_kernel as K1
     from turborc_tpu_torch.ops.geom import Geom
     text = _corpus("textbwt_16777216.bin", 1 << 18)
     for kind, spec in RING_CASES:
@@ -387,13 +400,9 @@ def phase_decode_cases(dev) -> None:
                  f"R cut to {used // 2} of {used} rows":
                      gs[..., :used // 2, :].contiguous(),
                  "R cut to 2": gs[..., :2, :].contiguous()}
-        kern_fn, plain_fn = {"o0": (K_.decode_tile, K_.decode_plain),
-                             "x2": (K_.decode_tile_x2, K_.decode_x2_plain),
-                             "o1": (K1.decode_tile, K1.decode_plain)}[kind]
         for what, bad in cases.items():
-            k_out, k_fs = kern_fn(bad, args.K, args.hi_tbl, args.lo_tbl, geom)
-            p_out, p_fs = plain_fn(bad, args.K, args.hi_tbl, args.lo_tbl,
-                                   geom)
+            k_out, k_fs = _decode_fn(kind, args, geom, True)(bad)
+            p_out, p_fs = _decode_fn(kind, args, geom, False)(bad)
             err = max(_max_abs(k_out, p_out), _max_abs(k_fs, p_fs))
             if err:
                 raise AssertionError(f"decode-corrupt {spec} {what}: kernel "
@@ -539,7 +548,8 @@ def _bound_ms(name: str, geom, K: int, glens_sum: int) -> tuple[float, str]:
     Bytes count each input read once and each output written once; only
     the words the streams hold are read (by the decoders) or placed (by
     place, which reads the words of emitting lanes alone); the o1
-    kernels' per-lane table rows are scratch, not input or output.  Under
+    kernels' per-lane table rows are working state, not input or
+    output.  Under
     a split-state geometry coder and place run once per stream set, each
     over S = K slots (else S = 2K), and ``glens_sum`` sums both sets.  Ops
     count the algorithm's integer operations per lane and step: a CDF16
@@ -677,9 +687,9 @@ def _time_path(label: str, kind: str, corpus: str, geom, dev) -> dict:
 
 
 def phase_before_after(dev, before: str | None, libs: dict) -> dict:
-    """K3 and K6 of commit ``before`` against the current ones: K3 on id
-    57's 64 MB block at BENCH_GEOM (probs from K2), K6 on id 60's 16 MB
-    realsrcbwt block at the default geometry (its streams from K7, K3 and
+    """K7 and K8 of commit ``before`` against the current ones: K7 on id
+    60's 16 MB realsrcbwt block at the default geometry, K8 on id 8's
+    16 MB textbwt block at the same geometry (its streams from K9, K3 and
     K4).  A warm-up, then 3 repetitions on distinct rotations, the two
     builds in turns (before first on odd repetitions), CUDA events around
     the bare C entry of each: outputs and scratch are allocated
@@ -697,7 +707,7 @@ def phase_before_after(dev, before: str | None, libs: dict) -> dict:
     if not libs:
         log(f"{label}: skipped, no {BEFORE_FLAG} COMMIT")
         return {}
-    K_, K1, _ = _kernel_modules()
+    _, K1, B = _kernel_modules()
     fns = {}
     for name, path in libs.items():  # that commit's signatures
         fn = getattr(ctypes.CDLL(str(path)), "trc_" + name)
@@ -706,9 +716,10 @@ def phase_before_after(dev, before: str | None, libs: dict) -> dict:
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fns[name] = fn
-    text, real = _corpus("textbwt_67108864.bin"), \
-        _corpus("realsrcbwt_16777216.bin")
-    bench, geom1 = Geom.parse(BENCH_GEOM), Geom()
+    real, text = _corpus("realsrcbwt_16777216.bin"), \
+        _corpus("textbwt_16777216.bin")
+    geom = Geom()
+    G = geom.groups
     ms = {k: {"before": [], "after": []} for k in REDESIGNED}
 
     def timed(fn, cargs) -> float:
@@ -745,42 +756,38 @@ def phase_before_after(dev, before: str | None, libs: dict) -> dict:
                                  "differ")
 
     for r in range(4):  # rep 0 is the warm-up
-        a = _codec("o0").encode_args(np.roll(text, 7919 * (r + 1)), bench,
+        a = _codec("o1").encode_args(np.roll(real, 7919 * (r + 1)), geom,
                                      dev)
-        G = bench.groups
-        cols = a.block.T.contiguous().reshape(a.K, G, 128)
-        probs = K_.model(cols, a.hi_tbl, a.lo_tbl, bench)
-        S = probs.shape[0]
+        K = a.K
+        cols = a.block.T.contiguous().reshape(K, G, 128)
 
-        def coder(who):
-            outs = (torch.empty((S, G, 128), dtype=torch.int32, device=dev),
-                    torch.empty((S, G, 128), dtype=torch.uint8, device=dev),
-                    torch.empty((G, 128), dtype=torch.int32, device=dev))
-            return outs, K_.coder_cargs(probs, a.init_states, *outs)
-
-        turns("coder", coder, r)
-        del a, cols, probs
-        b = _codec("o1").encode_args(np.roll(real, 7919 * (r + 1)), geom1,
-                                     dev)
-        G, K = geom1.groups, b.K
-        gs, _ = K1.encode_tile(b.block, K, b.hi_tbl, b.lo_tbl,
-                               b.init_states, geom1)
-
-        def o1_decode(who):
-            outs = (torch.empty((K, G, 128), dtype=torch.uint8, device=dev),
-                    torch.empty((G, 128), dtype=torch.int32, device=dev))
+        def o1_model(who):
+            outs = (torch.empty((2 * K, G, 128), dtype=torch.int32,
+                                device=dev),)
             if who == "before":  # all 112 rows a lane in its scratch
                 rows = torch.empty((G * 128, 112, 16), dtype=torch.int16,
                                    device=dev)
-                return outs, [gs, b.hi_tbl, b.lo_tbl, rows, *outs, K, G,
-                              gs.shape[1], geom1.rate]
-            return outs, K1.decode_cargs(gs, K, b.hi_tbl, b.lo_tbl, geom1,
-                                         K1.hi_scratch(G, dev), *outs)
+                return outs, [cols, a.hi_tbl, a.lo_tbl, rows, *outs, K, G,
+                              geom.rate]
+            return outs, K1.model_cargs(cols, a.hi_tbl, a.lo_tbl, *outs,
+                                        geom)
 
-        turns("o1_decode", o1_decode, r)
+        turns("o1_model", o1_model, r)
+        del a, cols
+        b = _codec("tree").encode_args(np.roll(text, 7919 * (r + 1)), geom,
+                                       dev)
+        K = b.K
+        gs, _ = B.encode_tile(b.block, K, b.tree, b.init_states, geom)
+
+        def tree_decode(who):
+            outs = (torch.empty((K, G, 128), dtype=torch.uint8, device=dev),
+                    torch.empty((G, 128), dtype=torch.int32, device=dev))
+            return outs, B.tree_decode_cargs(gs, K, b.tree, *outs)
+
+        turns("tree_decode", tree_decode, r)
         del b, gs
-    log(f"{label} " + json.dumps(dict(geoms={"coder": BENCH_GEOM,
-                                             "o1_decode": geom1.spec},
+    log(f"{label} " + json.dumps(dict(geoms={k: geom.spec
+                                             for k in REDESIGNED},
                                       before=before, ms=ms)))
     return ms
 
@@ -942,7 +949,7 @@ def child(before: str | None) -> int:
                     main_r1["launches"], timed)
             + _rows(("decode_x2",), tx, bench_x2, main_x2["launches"])
             + _rows(("tree_model", "tree_decode"), tt, Geom(),
-                    main_rcp["launches"]))
+                    main_rcp["launches"], timed))
     log("card (nvidia-smi name, power.limit):")
     log(_smi())
     log(json.dumps({"kernels": rows}))
@@ -1010,7 +1017,7 @@ def _args(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(CHILD_FLAG, action="store_true", help=argparse.SUPPRESS)
     ap.add_argument(BEFORE_FLAG, metavar="COMMIT",
-                    help="also time K3 and K6 of the git archive of COMMIT "
+                    help="also time K7 and K8 of the git archive of COMMIT "
                     "unpacked in _archive/COMMIT/")
     return ap.parse_args(argv)
 

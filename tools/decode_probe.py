@@ -2,13 +2,18 @@
 cycles go, what ptxas and the SASS say, and what each part of the step
 costs.  With ``--kernel model``, the o0 model K2 instead (see
 ``probe_model``); with ``--kernel o1_decode``, the o1 decoder K6 (the
-same split, SASS and ablations on id 60's block, ``probe_o1``); with
+same split, SASS and ablations on id 60's block, ``probe_split``); with
 ``--kernel coder``, the coder K3 (SASS and ablations on id 57's block,
 ``probe_coder``).  For these three ``--src`` may also be the ``csrc`` of
-9ed2fbe, whose K6 and K3 each layout tells apart.
+9ed2fbe, whose K6 and K3 each layout tells apart.  With ``--kernel
+o1_model`` or ``--kernel tree_decode``, the o1 model K7 on id 60's block
+or the bit-tree decoder K8 on id 8's (the split, SASS, CTAs an SM and
+ablations, ``probe_split``); ``--src`` may also be the ``csrc`` of
+e3484f9, whose K7 and K8 each layout tells apart.
 
     python3 tools/decode_probe.py [--src DIR] [--ablate no-rejoin,...]
-        [--label NAME] [--out FILE] [--kernel decode|model|o1_decode|coder]
+        [--label NAME] [--out FILE]
+        [--kernel decode|model|o1_decode|coder|o1_model|tree_decode]
 
 ``--src`` is a ``csrc`` directory: the port's own (the default), or that
 of commit ff11eb3 (a ``git archive ff11eb3`` unpacked into a git-ignored
@@ -525,14 +530,12 @@ def _section_variants(base: str, header: str, section: tuple,
     return out
 
 
-# K6 (``--kernel o1_decode``): the o1 decoder of rans_o1_kernel.cu on id
-# 60's main-path block.  Two layouts: "l2" (9ed2fbe: every row in a device
-# scratch, each word loaded from device memory by ``fetch``) and "ring"
-# (the port's).  Stamps, segments and ablations as for K1.
-O1_SOURCE = "rans_o1_kernel.cu"
+# K6 (``--kernel o1_decode``, one of SPLIT_KERNELS): the o1 decoder of
+# rans_o1_kernel.cu on id 60's main-path block.  Two layouts: "l2"
+# (9ed2fbe: every row in a device scratch, each word loaded from device
+# memory by ``fetch``) and "ring" (the port's).  Stamps, segments and
+# ablations as for K1.
 O1_CORPUS = CORPUS.parent / "realsrcbwt_16777216.bin"
-O1_LOOP_IN = "o1_decode_kernel("
-O1_SECTION = ("// ---- K6: decode", "}  // namespace")
 O1_STAMPS = {
     "l2": [
         ("row_load(hp, c);", 1, 0, "c[15]"),
@@ -586,84 +589,6 @@ O1_ABLATIONS = {
         "no-barrier": ABLATIONS["no-barrier"],
     },
 }
-
-
-def _o1_layout(source: str) -> str:
-    """"l2" where K6's fetch reads device memory, else "ring"."""
-    return ("l2" if "fetch(state, s, limit, base, wsum, buf);" in source
-            else "ring")
-
-
-def probe_o1(opt, dev, res: dict, work: Path) -> dict:
-    """K6 of the source in ``--src``: ptxas and SASS, the clock64() split
-    of its byte step, and the bare C entry timed (a warm-up, then 3
-    repetitions on distinct rotations of realsrcbwt 16 MB as one id-60
-    block at the default geometry), base and stamped builds held byte for
-    byte against the port's K6 wrapper, ablations timed only."""
-    from turborc_tpu_torch.codecs import rans_cdf_r1_p as C1
-    from turborc_tpu_torch.ops import rans_o1_kernel as O1
-    src = Path(opt.src).resolve()
-    base = (src / O1_SOURCE).read_text()
-    layout = _o1_layout(base)
-    res["layout"] = layout
-    variants = _section_variants(base, (src / "rans_common.cuh").read_text(),
-                                 O1_SECTION, O1_ABLATIONS[layout],
-                                 [x for x in opt.ablate.split(",") if x])
-    variants["stamped"] = stamped(base, O1_LOOP_IN, O1_STAMPS[layout])
-    libs, reports, res["nvcc_s"] = _build_all(variants, src, work, O1_SOURCE)
-    res["ptxas"] = {k: _ptxas(v, "o1_decode").get("o1_decode")
-                    for k, v in reports.items()}
-    res["sass"] = _sass(libs["base"], "o1_decode")
-    types = _argtypes(base, "trc_o1_decode")
-    fns = {}
-    for k, lib in libs.items():
-        fns[k] = getattr(ctypes.CDLL(str(lib)), "trc_o1_decode")
-        fns[k].argtypes, fns[k].restype = types, ctypes.c_int
-    geom = Geom()
-    G, L = geom.groups, geom.lanes
-    times = {k: [] for k in variants}
-    data = np.fromfile(O1_CORPUS, np.uint8)
-    split = None
-    for r in range(4):  # rep 0 is the warm-up
-        a = C1.encode_args(np.roll(data, 7919 * (r + 1)), geom, dev)
-        gs, _ = O1.encode_tile(a.block, a.K, a.hi_tbl, a.lo_tbl,
-                               a.init_states, geom)
-        ref = O1.decode_tile(gs, a.K, a.hi_tbl, a.lo_tbl, geom)
-        for k, fn in fns.items():
-            out = torch.empty_like(ref[0])
-            fs = torch.empty_like(ref[1])
-            if layout == "l2":
-                scratch = torch.empty((L, 112, 16), dtype=torch.int16,
-                                      device=dev)
-                args = [gs, a.hi_tbl, a.lo_tbl, scratch, out, fs, a.K, G,
-                        gs.shape[1], geom.rate]
-            else:
-                args = O1.decode_cargs(gs, a.K, a.hi_tbl, a.lo_tbl, geom,
-                                       O1.hi_scratch(G, dev), out, fs)
-            ms = _bare(fn, args)
-            if k in ("base", "stamped") and not (
-                    torch.equal(out, ref[0]) and torch.equal(fs, ref[1])):
-                raise AssertionError(f"{k} differs from the port's K6")
-            if r:
-                times[k].append(ms)
-            if k == "stamped":
-                acc = (ctypes.c_ulonglong * 16)()
-                libs_k = ctypes.CDLL(str(libs[k]))
-                libs_k.trc_split_read(ctypes.cast(acc, ctypes.c_void_p))
-                split = [int(x) for x in acc[:len(O1_SEGMENTS[layout])]]
-            del out, fs, args
-        K = a.K
-        del a, gs, ref
-    total = sum(split)
-    res["split"] = {
-        "K": K, "thread": "lane 0 of warp 0 of CTA 0",
-        "cycles_total": total, "cycles_per_byte": total / K,
-        "segments": [{"segment": O1_SEGMENTS[layout][i], "cycles": c,
-                      "per_byte": c / K, "share": c / total}
-                     for i, c in enumerate(split)]}
-    res["ms"] = times
-    res["mean_ms"] = {k: sum(v) / len(v) for k, v in times.items()}
-    return res
 
 
 # K3 (``--kernel coder``): the backward coder of rans_kernel.cu on id 57's
@@ -741,14 +666,299 @@ def probe_coder(opt, dev, res: dict, work: Path) -> dict:
     return res
 
 
+# K6 (``--kernel o1_decode``), K7 (``--kernel o1_model``) and K8
+# (``--kernel tree_decode``): the split of a byte step, ptxas, SASS,
+# occupancy and ablations, on the kernel's main-path block (id 60's
+# realsrcbwt 16 MB for K6 and K7, id 8's textbwt 16 MB for K8, one block
+# each at the default geometry).  Layouts: K6 as above; K7 "l2"
+# (e3484f9: every row in a device scratch, read through L2, the linear
+# cdf_lookup) and "smem" (the port's); K8 "fetch" (e3484f9: each word
+# loaded from device memory by ``fetch``, the tree node-major in shared
+# memory) and "ring" (the port's).  Stamps, segments and ablations as for
+# K1; ``OCCUPANCY`` names the kernel, threads and shared-memory bytes whose
+# resident CTAs an SM the probe asks the CUDA runtime for.
+SPLIT_KERNELS = {
+    "o1_decode": dict(
+        source="rans_o1_kernel.cu", entry="trc_o1_decode",
+        loop_in="o1_decode_kernel(",
+        section=("// ---- K6: decode", "}  // namespace"),
+        layout=lambda src: "l2"
+        if "fetch(state, s, limit, base, wsum, buf);" in src else "ring",
+        stamps=O1_STAMPS, segments=O1_SEGMENTS, ablations=O1_ABLATIONS,
+        occupancy={},
+    ),
+    "o1_model": dict(
+        source="rans_o1_kernel.cu", entry="trc_o1_model",
+        loop_in="o1_model_kernel(",
+        section=("// ---- K7: forward model pass", "// ---- K6: decode."),
+        layout=lambda src: "l2" if "uint16_t* __restrict__ tables" in src
+        else "smem",
+        stamps={
+            "l2": [("row_load(hp, c);", 1, 0, "c[15]"),
+                   ("cdf_lookup(c, hs, low_h, fr_h);", 1, 1, "low_h"),
+                   ("cdf_update(c, low_h, rate);", 1, 2, "c[15]"),
+                   ("row_store(hp, c);", 1, 3, "c[0]"),
+                   ("row_load(lp, c);", 1, 4, "c[15]"),
+                   ("cdf_lookup(c, ls, low_l, fr_l);", 1, 5, "low_l"),
+                   ("cdf_update(c, low_l, rate);", 1, 6, "c[15]"),
+                   ("row_store(lp, c);", 1, 7, "c[0]"),
+                   ("prev = b;", 1, 8, "prev")],
+            "smem": [("              : 0;", 1, 0, "bn"),
+                     ("lookup_pick(lrow, b & 15, low_l, fr_l);", 1, 1,
+                      "low_h + low_l"),
+                     ("ld_row(model_row(rows, ln), kModelHalf, lnext);", 1,
+                      2, "hnext[15] + lnext[15]"),
+                     ("cdf_update(lrow, low_l, rate);", 1, 3,
+                      "hrow[15] + lrow[15]"),
+                     ("out += 2 * L;", 1, 4, "low_l"),
+                     ("b = bn;", 1, 5, "hrow[0] + lrow[0]")],
+        },
+        segments={
+            "l2": ["cols load, hi row load (L2)", "hi lookup (linear)",
+                   "hi update", "hi row store", "lo row load (L2)",
+                   "lo lookup (linear)", "lo update", "lo row store",
+                   "probs stores"],
+            "smem": ["stage wait, next byte", "hi + lo lookups",
+                     "next byte's rows (shared loads)", "hi + lo updates",
+                     "row stores, probs stores", "forward selects"],
+        },
+        ablations={
+            "l2": {},
+            "smem": {
+                "no-update": [("    cdf_update(hrow, low_h, rate);\n", ""),
+                              ("    cdf_update(lrow, low_l, rate);\n", "")],
+                "no-row": [
+                    ("    ld_row(model_row(rows, hn), kModelHalf, hnext);\n"
+                     "    ld_row(model_row(rows, ln), kModelHalf, lnext);\n",
+                     "#pragma unroll\n    for (int i = 0; i < 16; ++i) {\n"
+                     "      hnext[i] = hrow[i] ^ hn;\n"
+                     "      lnext[i] = lrow[i] ^ ln;\n    }\n"),
+                    ("    st_row(model_row(rows, hc), kModelHalf, hrow);\n"
+                     "    st_row(model_row(rows, lc), kModelHalf, lrow);\n",
+                     "")],
+                "no-forward": [
+                    ("hrow[i] = hn == hc ? hrow[i] : hnext[i];",
+                     "hrow[i] = hnext[i];"),
+                    ("lrow[i] = ln == lc ? lrow[i] : lnext[i];",
+                     "lrow[i] = lnext[i];")],
+            },
+        },
+        occupancy={"smem": ("o1_model_kernel", "kModelLanes", "kO1MSmem")},
+    ),
+    "tree_decode": dict(
+        source="bittree_kernel.cu", entry="trc_tree_decode",
+        loop_in="tree_decode_kernel(",
+        section=("// ---- K8: decode.", "}  // namespace"),
+        layout=lambda src: "fetch"
+        if "fetch(state, s, limit, base, wsum, buf);" in src else "ring",
+        stamps={
+            "fetch": [("const int low = descend<kLanes>(tree, node, w, bit);",
+                       1, 0, "low"),
+                      ("state = uint32_t(w) * (state >> 15) + "
+                       "uint32_t(value - low);", 1, 1, "state"),
+                      ("fetch(state, s, limit, base, wsum, buf);", 1, 2,
+                       "state"),
+                      ("out[size_t(t) * plane + col] = uint8_t(node - 256);",
+                       1, 3, "node")],
+            "ring": [("state[0] = uint32_t(w) * (state[0] >> 15) + value - "
+                      "uint32_t(low);", 1, 0, "state[0]"),
+                     ("fetch_post(state, bal, rank, buf, nfetch);", 1, 1,
+                      "bal[0]"),
+                     ("ld_row(lp, kHalf, lrow);", 1, 2, "lrow[15]"),
+                     ("update_path(hi, hs, p);", 1, 3, "hi[0] + hi[14]"),
+                     ("fetch_take(state, bal, r, limit, rank, buf, nfetch);",
+                      1, 4, "state[0]"),
+                     ("state[0] = uint32_t(w) * (state[0] >> 15) + value - "
+                      "uint32_t(low);", 2, 5, "state[0]"),
+                     ("fetch_post(state, bal, rank, buf, nfetch);", 2, 6,
+                      "bal[0]"),
+                     ("update_path(lrow, ls, p);", 1, 7,
+                      "lrow[0] + lrow[14]"),
+                     ("out_t += plane;", 1, 8, "ls"),
+                     ("fetch_take(state, bal, r, limit, rank, buf, nfetch);",
+                      2, 9, "state[0]")],
+        },
+        segments={
+            "fetch": ["descent (4 dependent shared loads, updates)",
+                      "state step", "fetch (ballot, barrier, device word)",
+                      "out byte"],
+            "ring": ["hi descent + state",
+                     "fetch 1 post (ballot, counts, barrier)",
+                     "lo row load", "hi path updates",
+                     "fetch 1 take (prefix, word)", "lo descent + state",
+                     "fetch 2 post (ballot, counts, barrier)",
+                     "lo path updates", "lo row store, out byte",
+                     "fetch 2 take (prefix, word)"],
+        },
+        ablations={
+            "fetch": {},
+            "ring": {
+                "no-update": [("    update_path(hi, hs, p);\n", ""),
+                              ("    update_path(lrow, ls, p);\n", "")],
+                "no-lo-row": [
+                    ("    ld_row(lp, kHalf, lrow);\n",
+                     "#pragma unroll\n    for (int i = 0; i < 16; ++i) "
+                     "lrow[i] = hi[i] + hs;\n"),
+                    ("    st_row(lp, kHalf, lrow);\n", "")],
+                "no-word": ABLATIONS["no-word"],
+                "no-barrier": ABLATIONS["no-barrier"],
+            },
+        },
+        occupancy={"ring": ("tree_decode_kernel", "kLanes", "kTreeSmem")},
+    ),
+}
+
+
+def _occupancy_entry(kernel: str, threads: str, smem: str) -> str:
+    """A C entry that asks the CUDA runtime how many CTAs of ``kernel``
+    an SM holds at its launch's threads and shared memory."""
+    return f"""
+extern "C" int trc_probe_occupancy(int* ctas) {{
+  cudaError_t e = cudaFuncSetAttribute(
+      {kernel}, cudaFuncAttributeMaxDynamicSharedMemorySize, {smem});
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute({kernel},
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             int(cudaSharedmemCarveoutMaxShared));
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, {kernel},
+                                                      {threads}, {smem});
+  return int(e);
+}}
+"""
+
+
+def _split_inputs(kernel: str, dev, geom: Geom, rot: int):
+    """(C arguments maker, reference outputs) of one main-path block:
+    make(layout, outputs) -> the C entry's arguments."""
+    if kernel == "o1_decode":
+        from turborc_tpu_torch.codecs import rans_cdf_r1_p as C1
+        from turborc_tpu_torch.ops import rans_o1_kernel as O1
+        a = C1.encode_args(np.roll(np.fromfile(O1_CORPUS, np.uint8), rot),
+                           geom, dev)
+        gs, _ = O1.encode_tile(a.block, a.K, a.hi_tbl, a.lo_tbl,
+                               a.init_states, geom)
+        ref = O1.decode_tile(gs, a.K, a.hi_tbl, a.lo_tbl, geom)
+
+        def make(layout, outs):
+            if layout == "l2":  # all 112 rows a lane in its scratch
+                rows = torch.empty((geom.lanes, 112, 16), dtype=torch.int16,
+                                   device=dev)
+                return [gs, a.hi_tbl, a.lo_tbl, rows, *outs, a.K,
+                        geom.groups, gs.shape[1], geom.rate]
+            return O1.decode_cargs(gs, a.K, a.hi_tbl, a.lo_tbl, geom,
+                                   O1.hi_scratch(geom.groups, dev), *outs)
+        return make, ref, a.K
+    if kernel == "o1_model":
+        from turborc_tpu_torch.codecs import rans_cdf_r1_p as C1
+        from turborc_tpu_torch.ops import rans_o1_kernel as O1
+        a = C1.encode_args(np.roll(np.fromfile(O1_CORPUS, np.uint8), rot),
+                           geom, dev)
+        cols = a.block.T.contiguous().reshape(a.K, geom.groups, 128)
+        ref = (O1.model(cols, a.hi_tbl, a.lo_tbl, geom),)
+
+        def make(layout, outs):
+            if layout == "l2":
+                rows = torch.empty((geom.lanes, 112, 16), dtype=torch.int16,
+                                   device=dev)
+                return [cols, a.hi_tbl, a.lo_tbl, rows, *outs, a.K,
+                        geom.groups, geom.rate]
+            return O1.model_cargs(cols, a.hi_tbl, a.lo_tbl, *outs, geom)
+        return make, ref, a.K
+    from turborc_tpu_torch.codecs import rc_tree as CT
+    from turborc_tpu_torch.ops import bittree_kernel as B
+    a = CT.encode_args(np.roll(np.fromfile(TREE_CORPUS, np.uint8), rot),
+                       geom, dev)
+    gs, _ = B.encode_tile(a.block, a.K, a.tree, a.init_states, geom)
+    ref = B.tree_decode_tile(gs, a.K, a.tree, geom)
+
+    def make(layout, outs):
+        return B.tree_decode_cargs(gs, a.K, a.tree, *outs)
+    return make, ref, a.K
+
+
+TREE_CORPUS = CORPUS.parent / "textbwt_16777216.bin"
+
+
+def probe_split(opt, dev, res: dict, work: Path) -> dict:
+    """K7 or K8 (``SPLIT_KERNELS[opt.kernel]``) of the source in ``--src``:
+    ptxas and SASS, CTAs an SM, the clock64() split of its byte step, and
+    the bare C entry timed (a warm-up, then 3 repetitions on distinct
+    rotations of the kernel's main-path block), base and stamped builds
+    held byte for byte against the port's wrapper, ablations timed
+    only."""
+    spec = SPLIT_KERNELS[opt.kernel]
+    src = Path(opt.src).resolve()
+    base = (src / spec["source"]).read_text()
+    layout = spec["layout"](base)
+    res["layout"] = layout
+    variants = _section_variants(base, (src / "rans_common.cuh").read_text(),
+                                 spec["section"], spec["ablations"][layout],
+                                 [x for x in opt.ablate.split(",") if x])
+    variants["stamped"] = stamped(base, spec["loop_in"],
+                                  spec["stamps"][layout])
+    occ = spec["occupancy"].get(layout)
+    if occ:
+        variants = {k: ((v[0] + _occupancy_entry(*occ), v[1])
+                        if isinstance(v, tuple)
+                        else v + _occupancy_entry(*occ))
+                    for k, v in variants.items()}
+    libs, reports, res["nvcc_s"] = _build_all(variants, src, work,
+                                              spec["source"])
+    res["ptxas"] = {k: _ptxas(v, opt.kernel).get(opt.kernel)
+                    for k, v in reports.items()}
+    res["sass"] = _sass(libs["base"], opt.kernel)
+    types = _argtypes(base, spec["entry"])
+    fns, loaded = {}, {}
+    for k, lib in libs.items():
+        loaded[k] = ctypes.CDLL(str(lib))
+        fns[k] = getattr(loaded[k], spec["entry"])
+        fns[k].argtypes, fns[k].restype = types, ctypes.c_int
+    if occ:
+        n = ctypes.c_int(0)
+        err = loaded["base"].trc_probe_occupancy(ctypes.byref(n))
+        res["ctas_per_sm"] = n.value if err == 0 else f"CUDA error {err}"
+    geom = Geom()
+    times = {k: [] for k in variants}
+    segs = spec["segments"][layout]
+    split, K = None, 0
+    for r in range(4):  # rep 0 is the warm-up
+        make, ref, K = _split_inputs(opt.kernel, dev, geom, 7919 * (r + 1))
+        for k, fn in fns.items():
+            outs = [torch.empty_like(x) for x in ref]
+            ms = _bare(fn, make(layout, outs))
+            if k in ("base", "stamped") and not all(map(torch.equal, outs,
+                                                        ref)):
+                raise AssertionError(f"{k} differs from the port's "
+                                     f"{opt.kernel}")
+            if r:
+                times[k].append(ms)
+            if k == "stamped":
+                acc = (ctypes.c_ulonglong * 16)()
+                loaded[k].trc_split_read(ctypes.cast(acc, ctypes.c_void_p))
+                split = [int(x) for x in acc[:len(segs)]]
+            del outs
+        del make, ref
+    total = sum(split)
+    res["split"] = {
+        "K": K, "thread": "lane 0 of warp 0 of CTA 0",
+        "cycles_total": total, "cycles_per_byte": total / K,
+        "segments": [{"segment": segs[i], "cycles": c, "per_byte": c / K,
+                      "share": c / total} for i, c in enumerate(split)]}
+    res["ms"] = times
+    res["mean_ms"] = {k: sum(v) / len(v) for k, v in times.items()}
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=str(build.CSRC))
     ap.add_argument("--ablate", default="")
     ap.add_argument("--label", default="")
     ap.add_argument("--out", default="")
-    ap.add_argument("--kernel", choices=("decode", "model", "o1_decode",
-                                         "coder"), default="decode")
+    ap.add_argument("--kernel", choices=("decode", "model", "coder",
+                                         *SPLIT_KERNELS),
+                    default="decode")
     opt = ap.parse_args()
     if not torch.cuda.is_available():
         print("decode_probe: no CUDA device", file=sys.stderr)
@@ -762,9 +972,10 @@ def main() -> int:
         work.mkdir(parents=True)
         res = {"label": label, "kernel": opt.kernel, "src": opt.src,
                "card": _smi(),
-               "geom": Geom().spec if opt.kernel == "o1_decode" else GEOM}
-        probe = {"model": probe_model, "o1_decode": probe_o1,
-                 "coder": probe_coder}[opt.kernel]
+               "geom": GEOM if opt.kernel in ("model", "coder")
+               else Geom().spec}
+        probe = {"model": probe_model, "coder": probe_coder,
+                 **dict.fromkeys(SPLIT_KERNELS, probe_split)}[opt.kernel]
         res = probe(opt, dev, res, work)
         text = json.dumps(res, indent=1)
         print(text)

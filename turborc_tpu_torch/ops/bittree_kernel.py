@@ -27,7 +27,11 @@ A wrapper validates its inputs, then runs the plain version when they lie
 on the CPU and launches the kernel when they lie on a CUDA device; there
 is no fallback.  ``launches[name]`` counts kernel launches only.  Tree
 entries stay in [1, 32767] under the update, so the kernels keep them as
-u16.
+u16.  K8 runs on the o0 decoders' ring of stream words
+(``rans_kernel.ring_check`` mirrors it, two fetches a byte) and holds the
+tree as 16 subtree rows of 15 heap slots: the hi nibble's subtree (nodes
+1-15) in registers, the lo subtree under node 16 + hi in shared memory,
+the node of level l on path j of a subtree at slot 2^l - 1 + j.
 """
 from __future__ import annotations
 
@@ -197,13 +201,23 @@ def tree_decode_tile(gstreams: torch.Tensor, K: int, tree_tbl: torch.Tensor,
     K_._check("tree_tbl", tree_tbl, torch.int32, (256,), dev)
     if R < 2:
         raise ValueError("gstreams: needs the two flush-state rows")
+    K_.check_ring_stream(gstreams)
     if not gstreams.is_cuda:
         return tree_decode_plain(gstreams, K, tree_tbl)
     out = torch.empty((K, G, GLANES), dtype=torch.uint8, device=dev)
     fstates = torch.empty((G, GLANES), dtype=torch.int32, device=dev)
-    K_.launch("tree_decode", "trc_tree_decode", gstreams, tree_tbl, out,
-              fstates, K, G, R, counts=launches)
+    K_.launch("tree_decode", "trc_tree_decode",
+              *tree_decode_cargs(gstreams, K, tree_tbl, out, fstates),
+              counts=launches)
     return out, fstates
+
+
+def tree_decode_cargs(gstreams, K: int, tree_tbl, out, fstates) -> list:
+    """The arguments of ``trc_tree_decode`` (without the stream): the
+    tile (the launch is the source's own: 128 threads, the ring, every
+    lane's 16 lo subtree rows and the rank counts in shared memory)."""
+    return [gstreams, tree_tbl, out, fstates, K, gstreams.shape[0],
+            gstreams.shape[1]]
 
 
 def encode_tile(block: torch.Tensor, K: int, tree_tbl: torch.Tensor,

@@ -46,12 +46,14 @@ SIGNATURES = {
         "trc_place": [_P] * 6 + [_I] * 7 + [_P],
     },
     "rans_o1_kernel.cu": {
-        "trc_o1_model": [_P] * 5 + [_I] * 3 + [_P],
+        # K7: tile and rate
+        "trc_o1_model": [_P] * 4 + [_I] * 3 + [_P],
         # K6: tile and rate
         "trc_o1_decode": [_P] * 6 + [_I] * 4 + [_P],
     },
     "bittree_kernel.cu": {
         "trc_tree_model": [_P] * 3 + [_I] * 2 + [_P],
+        # K8: tile
         "trc_tree_decode": [_P] * 4 + [_I] * 3 + [_P],
     },
 }

@@ -1,10 +1,9 @@
 // Device functions shared by the rANS kernels of rans_kernel.cu (order 0)
 // and rans_o1_kernel.cu (order 1) and the bit-tree decoder of
 // bittree_kernel.cu: the CDF16 table math, the per-lane row layout in
-// shared memory, and the decoders' group-ordered word fetch, from device
-// memory (fetch) or from a ring of stream words staged in shared memory
-// (Ring, fetch_post, fetch_take).  Header-only; each source includes it
-// into its own anonymous namespace.
+// shared memory, and the decoders' group-ordered word fetch from a ring of
+// stream words staged in shared memory (Ring, fetch_post, fetch_take).
+// Header-only; each source includes it into its own anonymous namespace.
 #pragma once
 
 #include <cstdint>
@@ -20,20 +19,12 @@ constexpr int kIC = 10;
 constexpr int kMixd = 32736;  // (kTotal - 1) & ~31
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kSmemMax = 232448;  // shared memory a CTA may have
+// Shared memory of an SM, and what the system keeps of it for each CTA:
+// n CTAs of c bytes each fit an SM when n (c + kSmemCta) <= kSmemSm.
+constexpr int kSmemSm = 233472;
+constexpr int kSmemCta = 1024;
 
 // ---- CDF16 table math (models/cdf16.py); a table is 16 ints in registers
-
-__device__ __forceinline__ void cdf_lookup(const int (&c)[16], int sym,
-                                           int& low, int& freq) {
-  int lo = 0, nx = kTotal;
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    lo = (i == sym) ? c[i] : lo;
-    nx = (i == sym + 1) ? c[i] : nx;
-  }
-  low = lo;
-  freq = nx - lo;
-}
 
 // Single-symbol staircase update.  No repair or clamp: for rate >= 7 and a
 // strictly increasing table they are the identity
@@ -83,9 +74,10 @@ __device__ __forceinline__ int pick(const int (&c)[16], unsigned e) {
   return v[0];
 }
 
-// cdf_lookup by picks: entry sym and entry sym + 1 (2^15 past 15).  Both
-// picks are taken unconditionally: the second under the condition became
-// a branch, and K1 slower.
+// The lookup of a symbol by picks: its low is entry sym, its freq entry
+// sym + 1 (2^15 past 15) less low.  Both picks are taken
+// unconditionally: the second under the condition became a branch, and
+// K1 slower.
 __device__ __forceinline__ void lookup_pick(const int (&c)[16], int sym,
                                             int& low, int& freq) {
   const unsigned s = unsigned(sym), s1 = s + 1;
@@ -95,14 +87,16 @@ __device__ __forceinline__ void lookup_pick(const int (&c)[16], int sym,
 }
 
 // ---- Per-lane rows in shared memory.  Row h of a region holds two
-// 16-byte halves, each half of the row stored for all 128 lanes side by
-// side, so the 16-byte loads and stores of a warp meet no bank conflict.
+// 16-byte halves, each half of the row stored for all N lanes of the CTA
+// side by side (N = 128 for a group's CTA), so the 16-byte loads and
+// stores of a warp meet no bank conflict.
 
-// This lane's row h of a region: its first half; the second is kHalf
-// entries further.
+// This lane's row h of a region of N lanes: its first half; the second is
+// N * 8 entries (kHalf at N = 128) further.
 constexpr int kHalf = kLanes * 8;
+template <int N = kLanes>
 __device__ __forceinline__ uint16_t* lane_row(uint16_t* rows, int h) {
-  return rows + h * 2 * kHalf + threadIdx.x * 8;
+  return rows + h * 2 * (N * 8) + threadIdx.x * 8;
 }
 
 // The 16 u16 entries of a row <-> registers: entries 0-7 at p, 8-15 at
@@ -134,50 +128,8 @@ __device__ __forceinline__ void st_row(uint16_t* p, int half,
         make_uint4(w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3]);
 }
 
-// ---- The decoders' fetch from device memory (K8).
-
-// Lane-order rank of the flagged lanes of the CTA: rank = flagged lanes
-// before this one, total = flagged lanes in the CTA.  One __syncthreads; the
-// partials are double-buffered so the next call cannot overwrite them while
-// a slow warp still reads.
-__device__ __forceinline__ void block_rank(bool flag, int* wsum, int& buf,
-                                           int& rank, int& total) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const unsigned bal = __ballot_sync(kFull, flag);
-  int* ws = wsum + buf * kWarps;
-  if (lane == 0) ws[warp] = __popc(bal);
-  __syncthreads();
-  int off = 0, tot = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    const int c = ws[w];
-    off += (w < warp) ? c : 0;
-    tot += c;
-  }
-  rank = off + __popc(bal & ((1u << lane) - 1u));
-  total = tot;
-  buf ^= 1;
-}
-
-// Decoders' renormalisation: lanes with state < 2^15 take the next word of
-// their group's stream in lane order across the CTA's 128 lanes; reads at or
-// past `limit` give 0, so a corrupt stream never reads out of bounds.
-__device__ __forceinline__ void fetch(uint32_t& state, const int* s,
-                                      long long limit, long long& base,
-                                      int* wsum, int& buf) {
-  const bool need = state < kAnsLow;
-  int rank, total;
-  block_rank(need, wsum, buf, rank, total);
-  if (need) {
-    const long long p = base + rank;
-    const uint32_t word = p < limit ? uint32_t(s[p]) : 0u;
-    state = (state << 16) | word;
-  }
-  base += total;
-}
-
 // ---- The ring: one stream set's words staged in shared memory (K1, K5,
-// K6).
+// K6, K8).
 //
 // Stream position p sits in slot p % kRingWords.  Positions below `hi`
 // have been requested with cp.async.  Every kRingEvery-th fetch is a
@@ -262,14 +214,17 @@ __device__ __forceinline__ void warp_prefix(const uint8_t* counts, int& off,
   tot = int(__reduce_add_sync(kFull, wl < kWarps ? c : 0u));
 }
 
-// The decoders' renormalisation (fetch above) for NS stream sets at once,
-// in two halves.  fetch_post: one ballot per set, masked to one bit a
-// lane, the per-warp counts to `rank` ([2][NS][kWarps] bytes in shared
-// memory), the barrier.  fetch_take, after work that needs no word: each
-// lane that needs a word takes the next one of its set in lane order, from
-// the ring; reads at or past `limit` give 0.  Counts are double-buffered:
-// buffer f % 2 is written again at fetch f + 2, after the barrier of fetch
-// f + 1, which every thread reaches only after its reads of fetch f.
+// The decoders' renormalisation for NS stream sets at once, in two
+// halves: lanes with state < 2^15 take the next word of their set's
+// stream in lane order across the CTA's 128 lanes.  fetch_post: one
+// ballot per set, masked to one bit a lane, the per-warp counts to `rank`
+// ([2][NS][kWarps] bytes in shared memory), the barrier.  fetch_take,
+// after work that needs no word: each lane that needs a word takes the
+// next one of its set in lane order, from the ring; reads at or past
+// `limit` give 0, so a corrupt stream never reads out of bounds.  Counts
+// are double-buffered: buffer f % 2 is written again at fetch f + 2,
+// after the barrier of fetch f + 1, which every thread reaches only
+// after its reads of fetch f.
 template <int NS>
 __device__ __forceinline__ void fetch_post(const uint32_t (&state)[NS],
                                            unsigned (&bal)[NS],

@@ -16,18 +16,21 @@
 // The TPU's row-select ladders, write-back mask loops, register queue and
 // sliding window are not reproduced: a row is indexed.
 //
-// K7: the tables are 112 rows x 16 entries per lane, 3.5 KB as u16 and
-// 448 KB per 128-lane group, more than a CTA's shared memory.  They live in
-// a device scratch buffer that the wrapper allocates, [lane][row][16] u16,
-// filled from the warm tables at the kernel's start.  A row is one 32-byte
-// sector, read and written as two 16-byte vectors by its own lane; lanes
-// select different rows, so a lane-contiguous row keeps every sector
-// fetched fully used.  At the default 8192 lanes the scratch is 29.4 MB,
-// which stays in the 50 MB L2.  K7 has no cross-lane step, so its CTAs are
-// one warp each and spread over all SMs.  What bounds it: not bytes and not
-// operations, but a chain of dependent steps a byte (row load -> lookup ->
-// update -> row store) whose row loads wait on the L2: the time is that
-// latency times K.
+// K7 knows every byte in advance (it is the input), so it has no search and
+// no fetch, and its lanes are independent: CTAs of kModelLanes = 32 lanes,
+// four a group, which spread over every SM.  Each CTA holds every row of
+// its lanes in shared memory, 112 rows x 32 B x 32 lanes = 114,688 B in
+// the decoders' conflict-free row layout, beside a two-stage ring of its
+// input bytes that cp.async fills; two CTAs fit an SM.  The tables of a
+// byte step are in registers, looked up by select trees (lookup_pick).
+// Both rows of byte t + 1 (ctx_of(b_t), locx_of(b_t, hi of b_t+1)) are
+// known before byte t's updates are done, so they are read from shared
+// memory before byte t's rows are stored, and where a row repeats its
+// updated registers are forwarded instead: that is the one dependence
+// between bytes.  The hi and lo chains of a byte are independent of each
+// other.  What bounds it: not bytes and not operations, but the chain of
+// a byte step (lookup, update, forward select) on 2 warps an SM
+// (tools/decode_probe.py --kernel o1_model, PERF.md sections 6 and 7).
 //
 // K6 keeps one 128-lane group per CTA: its fetch ranks the lanes that need
 // a word across the whole group.  It runs on the o0 decoders' byte step
@@ -41,12 +44,13 @@
 // the hi rows' traffic to L2 (tools/decode_probe.py --kernel o1_decode,
 // PERF.md sections 6 and 7).
 //
-// Rules kept: __syncthreads() only inside a fetch, reached by all 128
-// threads every step; no loop bound taken from data; every stream read is
-// bounds-checked, so a corrupt stream decodes to wrong bytes, never to an
-// out-of-bounds access or a hang; row indices are contexts, ctx_of <= 63
-// and locx_of <= 47 by construction.  Each C entry point returns
-// cudaGetLastError() after its launch.
+// Rules kept: __syncthreads() only inside a fetch (K6) or at a stage of
+// input bytes (K7), where every thread of the CTA arrives, under
+// conditions on the byte index alone; no loop bound taken from data;
+// every stream read is bounds-checked, so a corrupt stream decodes to
+// wrong bytes, never to an out-of-bounds access or a hang; row indices
+// are contexts, ctx_of <= 63 and locx_of <= 47 by construction.  Each C
+// entry point returns cudaGetLastError() after its launch.
 
 #include <climits>
 
@@ -58,7 +62,6 @@ constexpr int kNctx = 64;                 // hi rows
 constexpr int kLrows = 48;                // lo rows
 constexpr int kLin = kNctx - 8;           // exact-rank hi rows
 constexpr int kRows = kNctx + kLrows;     // rows per lane
-constexpr int kModelThreads = 32;
 
 // hi context row: prev < 56 exact, else 56 + min(bitlen(prev - 55), 7).
 __device__ __forceinline__ int ctx_of(int prev) {
@@ -93,12 +96,6 @@ __device__ __forceinline__ void pack_row(const int (&c)[16], uint4 (&w)[2]) {
   w[1] = make_uint4(v[4], v[5], v[6], v[7]);
 }
 
-__device__ __forceinline__ void row_load(const uint16_t* p, int (&c)[16]) {
-  const uint4* q = reinterpret_cast<const uint4*>(p);
-  const uint4 w[2] = {q[0], q[1]};
-  unpack_row(w, c);
-}
-
 __device__ __forceinline__ void row_store(uint16_t* p, const int (&c)[16]) {
   uint4 w[2];
   pack_row(c, w);
@@ -107,54 +104,124 @@ __device__ __forceinline__ void row_store(uint16_t* p, const int (&c)[16]) {
   q[1] = w[1];
 }
 
-// Group g's warm tables hi [64, 16, G], lo [48, 16, G] int32 -> the lane's
-// rows (hi rows 0..63, lo rows 64..111).
-__device__ __forceinline__ void init_tables(const int* hi_tbl,
-                                            const int* lo_tbl, int G, int g,
-                                            uint16_t* tab) {
-  for (int r = 0; r < kRows; ++r) {
-    const int* src = r < kNctx ? hi_tbl + size_t(r) * 16 * G
-                               : lo_tbl + size_t(r - kNctx) * 16 * G;
-    int c[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) c[i] = src[size_t(i) * G + g];
-    row_store(tab + r * 16, c);
-  }
-}
-
 // ---- K7: forward model pass.  cols [K, G, 128] u8 -> probs [2K, G, 128]
 // int32 = (low << 16) | freq per nibble slot (hi slot 2t, lo slot 2t+1).
-__global__ void __launch_bounds__(kModelThreads)
+// A CTA is kModelLanes lanes of one group, one thread a lane.  Its dynamic
+// shared memory: every lane's 112 rows ([112][2 halves][32 lanes][8] u16;
+// hi rows 0..63, lo rows 64..111), then the ring of input bytes, two
+// stages of kModelSteps byte steps x 32 lanes.  At byte t + 1 = 0 mod
+// kModelSteps the warp waits for the stage that starts there (requested a
+// stage earlier), the barrier frees the stage before it, and the CTA
+// requests the next stage into that one.
+constexpr int kModelLanes = 32;                       // lanes (threads) a CTA
+constexpr int kModelSteps = 16;                       // byte steps a stage
+constexpr int kModelHalf = kModelLanes * 8;
+constexpr int kO1MRows = 0;
+constexpr int kO1MCols = kO1MRows + kRows * kModelLanes * 32;
+constexpr int kO1MSmem = kO1MCols + 2 * kModelSteps * kModelLanes;
+static_assert(kLanes % kModelLanes == 0, "a group is whole CTAs");
+static_assert(kO1MCols % 16 == 0 && kO1MSmem % 16 == 0, "16-byte regions");
+static_assert(kModelSteps * kModelLanes / 16 == kModelLanes,
+              "a stage is one 16-byte copy a thread");
+static_assert(2 * (kO1MSmem + kSmemCta) <= kSmemSm,
+              "two of K7's CTAs fit an SM");
+
+__device__ __forceinline__ uint16_t* model_row(uint16_t* rows, int h) {
+  return lane_row<kModelLanes>(rows, h);
+}
+
+// The CTA requests byte steps [t0, t0 + kModelSteps) below K of its lanes
+// (their bytes start at src, a step every L bytes) into the ring, 16 lanes
+// a copy.
+__device__ __forceinline__ void model_stage(uint8_t* ring,
+                                            const uint8_t* src, int t0,
+                                            int K, size_t L) {
+  const int t = t0 + (threadIdx.x >> 1), part = (threadIdx.x & 1) * 16;
+  if (t < K)
+    cp_async16(ring + (t & (2 * kModelSteps - 1)) * kModelLanes + part,
+               src + size_t(t) * L + part);
+}
+
+__global__ void __launch_bounds__(kModelLanes, 2)
 o1_model_kernel(const uint8_t* __restrict__ cols,
                 const int* __restrict__ hi_tbl, const int* __restrict__ lo_tbl,
-                uint16_t* __restrict__ tables, int* __restrict__ probs, int K,
-                int G, int rate) {
+                int* __restrict__ probs, int K, int G, int rate) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint16_t* rows = reinterpret_cast<uint16_t*>(smem_raw + kO1MRows);
+  uint8_t* ring = smem_raw + kO1MCols;
   const size_t L = size_t(G) * kLanes;
-  const size_t lane = size_t(blockIdx.x) * kModelThreads + threadIdx.x;
-  if (lane >= L) return;
-  uint16_t* tab = tables + lane * kRows * 16;
-  init_tables(hi_tbl, lo_tbl, G, int(lane / kLanes), tab);
-  int prev = 0;
-  for (int t = 0; t < K; ++t) {
-    const int b = cols[size_t(t) * L + lane];
-    const int hs = b >> 4, ls = b & 15;
-    int c[16];
-    uint16_t* hp = tab + ctx_of(prev) * 16;
-    row_load(hp, c);
-    int low_h, fr_h;
-    cdf_lookup(c, hs, low_h, fr_h);
-    cdf_update(c, low_h, rate);
-    row_store(hp, c);
-    uint16_t* lp = tab + (kNctx + locx_of(prev, hs)) * 16;
-    row_load(lp, c);
-    int low_l, fr_l;
-    cdf_lookup(c, ls, low_l, fr_l);
-    cdf_update(c, low_l, rate);
-    row_store(lp, c);
-    probs[size_t(2 * t) * L + lane] = (low_h << 16) | fr_h;
-    probs[size_t(2 * t + 1) * L + lane] = (low_l << 16) | fr_l;
-    prev = b;
+  const size_t lane0 = size_t(blockIdx.x) * kModelLanes;
+  const uint8_t* src = cols + lane0;
+  model_stage(ring, src, 0, K, L);
+  cp_async_commit();
+  model_stage(ring, src, kModelSteps, K, L);
+  cp_async_commit();
+
+  // Group g's warm tables hi [64, 16, G], lo [48, 16, G] int32 -> every
+  // lane's rows.  The CTA reads each of the 1,792 entries once: entry k =
+  // 16 h + e (rows 2c and 2c + 1 at chunk c) is read by thread k % 32 and
+  // handed to every lane by shuffles.
+  const int g = int(lane0 / kLanes);
+  for (int c = 0; c < kRows / 2; ++c) {
+    const int k = 32 * c + threadIdx.x, h = k >> 4, e = k & 15;
+    const int v = h < kNctx ? hi_tbl[(size_t(h) * 16 + e) * G + g]
+                            : lo_tbl[(size_t(h - kNctx) * 16 + e) * G + g];
+    int r0[16], r1[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      r0[i] = __shfl_sync(kFull, v, i);
+      r1[i] = __shfl_sync(kFull, v, 16 + i);
+    }
+    st_row(model_row(rows, 2 * c), kModelHalf, r0);
+    st_row(model_row(rows, 2 * c + 1), kModelHalf, r1);
   }
+  cp_async_wait<1>();
+  __syncthreads();
+
+  // the rows of byte 0 (prev = 0: hi context 0)
+  int b = K > 0 ? ring[threadIdx.x] : 0;
+  int hc = 0, lc = kNctx + locx_of(0, b >> 4);
+  int hrow[16], lrow[16];
+  ld_row(model_row(rows, hc), kModelHalf, hrow);
+  ld_row(model_row(rows, lc), kModelHalf, lrow);
+  int* out = probs + lane0 + threadIdx.x;  // slot 2t of this lane
+  for (int t = 0; t < K; ++t) {
+    const int u = t + 1;
+    if ((u & (kModelSteps - 1)) == 0) {
+      cp_async_wait<0>();
+      __syncthreads();
+      model_stage(ring, src, u + kModelSteps, K, L);
+      cp_async_commit();
+    }
+    const int bn =
+        u < K ? ring[(u & (2 * kModelSteps - 1)) * kModelLanes + threadIdx.x]
+              : 0;
+    int low_h, fr_h, low_l, fr_l;
+    lookup_pick(hrow, b >> 4, low_h, fr_h);
+    lookup_pick(lrow, b & 15, low_l, fr_l);
+    // the rows of byte t + 1, read before this byte's stores
+    const int hn = ctx_of(b), ln = kNctx + locx_of(b, bn >> 4);
+    int hnext[16], lnext[16];
+    ld_row(model_row(rows, hn), kModelHalf, hnext);
+    ld_row(model_row(rows, ln), kModelHalf, lnext);
+    cdf_update(hrow, low_h, rate);
+    cdf_update(lrow, low_l, rate);
+    st_row(model_row(rows, hc), kModelHalf, hrow);
+    st_row(model_row(rows, lc), kModelHalf, lrow);
+    out[0] = (low_h << 16) | fr_h;
+    out[L] = (low_l << 16) | fr_l;
+    out += 2 * L;
+    // a row that repeats keeps its updated registers
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      hrow[i] = hn == hc ? hrow[i] : hnext[i];
+      lrow[i] = ln == lc ? lrow[i] : lnext[i];
+    }
+    hc = hn;
+    lc = ln;
+    b = bn;
+  }
+  cp_async_wait<0>();
 }
 
 // ---- K6: decode.  streams [G, R, 128] int32 (rows 0/1 = initial state
@@ -276,15 +343,26 @@ o1_decode_kernel(const int* __restrict__ streams,
 
 extern "C" {
 
+// K7: tile and rate; the launch is fixed (4 CTAs a group of kModelLanes
+// threads, kO1MSmem bytes).  A tile it cannot take returns
+// cudaErrorInvalidValue.
 int trc_o1_model(const void* cols, const void* hi_tbl, const void* lo_tbl,
-                 void* tables, void* probs, int K, int G, int rate,
-                 void* stream) {
-  const int blocks = G * (kLanes / kModelThreads);
-  o1_model_kernel<<<blocks, kModelThreads, 0,
+                 void* probs, int K, int G, int rate, void* stream) {
+  const bool ok = rate >= 7 && rate <= 10 && K >= 0 && G >= 1 &&
+                  G <= INT_MAX / kLanes &&
+                  (reinterpret_cast<uintptr_t>(cols) & 15) == 0;
+  if (!ok) return int(cudaErrorInvalidValue);
+  cudaError_t e = cudaFuncSetAttribute(
+      o1_model_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kO1MSmem);
+  if (e == cudaSuccess)  // the most shared memory, for two CTAs an SM
+    e = cudaFuncSetAttribute(o1_model_kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             int(cudaSharedmemCarveoutMaxShared));
+  if (e != cudaSuccess) return int(e);
+  o1_model_kernel<<<G * (kLanes / kModelLanes), kModelLanes, kO1MSmem,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(cols), static_cast<const int*>(hi_tbl),
-      static_cast<const int*>(lo_tbl), static_cast<uint16_t*>(tables),
-      static_cast<int*>(probs), K, G, rate);
+      static_cast<const int*>(lo_tbl), static_cast<int*>(probs), K, G, rate);
   return int(cudaGetLastError());
 }
 

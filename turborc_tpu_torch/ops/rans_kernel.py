@@ -54,8 +54,8 @@ GLANES = 128
 # staging its probs CODER_SLOTS slots at a time in CODER_BUFS buffers
 # beside a table of the reciprocals of every 15-bit frequency (div_magic);
 # the numbers here are the source's kCoderLanes, kCoderSlots, kCoderBufs,
-# for the tests' mirror of the plan.  The o1 decoder K6 shares the ring
-# (ops/rans_o1_kernel.py).
+# for the tests' mirror of the plan.  The o1 decoder K6 and the bit-tree
+# decoder K8 share the ring (ops/rans_o1_kernel.py, ops/bittree_kernel.py).
 RING_WORDS = 4096
 RING_EVERY = 8
 RING_LAG = 1
@@ -534,6 +534,18 @@ def ring_check(takes, limit: int, ring: int = RING_WORDS,
         base = min(base + take, limit)
 
 
+def check_ring_stream(gstreams: torch.Tensor) -> None:
+    """What a decoder on the ring (K1, K5, K6, K8) needs of its streams
+    [..., R, 128] int32, on every device alike: int32 stream positions
+    (R * 128 and two rings past it) and 16-byte alignment (the ring copies
+    16 bytes at a time).  Raises ValueError otherwise."""
+    R = gstreams.shape[-2]
+    if R * GLANES > INT32_MAX - 2 * RING_WORDS:
+        raise ValueError(f"gstreams: {R} rows exceed the int32 positions")
+    if gstreams.data_ptr() % 16:
+        raise ValueError("gstreams: must be 16-byte aligned")
+
+
 def decode_cargs(gstreams, K: int, hi_tbl, lo_tbl, geom: Geom, out,
                  fstates) -> list:
     """The arguments of ``trc_decode`` / ``trc_decode_x2`` (without the
@@ -555,14 +567,11 @@ def _decode(gstreams, K, hi_tbl, lo_tbl, geom):
     _check_geom(geom, G)
     if R < 2:
         raise ValueError("gstreams: needs the two flush-state rows")
+    check_ring_stream(gstreams)
     plain, name = ((decode_plain, "decode") if ns == 1
                    else (decode_x2_plain, "decode_x2"))
     if not gstreams.is_cuda:
         return plain(gstreams, K, hi_tbl, lo_tbl, geom)
-    if R * GLANES > 2**31 - 1 - 2 * RING_WORDS:  # int32 stream positions
-        raise ValueError(f"gstreams: {R} rows exceed the int32 positions")
-    if gstreams.data_ptr() % 16:  # the ring copies 16 bytes at a time
-        raise ValueError("gstreams: must be 16-byte aligned")
     out = torch.empty((K, G, GLANES), dtype=torch.uint8, device=dev)
     fstates = torch.empty((*lead, G, GLANES), dtype=torch.int32, device=dev)
     launch(name, "trc_" + name,

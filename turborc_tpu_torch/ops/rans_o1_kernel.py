@@ -10,10 +10,12 @@ Kernel (CUDA, ``csrc/rans_o1_kernel.cu``)  replaces (TPU)      plain version
   model   K7: bytes -> slot probs          _make_model_kernel  model_plain
   decode  K6: group streams -> bytes       _make_decode_kernel decode_plain
 
-K7 keeps every lane's 112 table rows in a device scratch.  K6 runs on the
-o0 decoders' ring of stream words (``rans_kernel.ring_check`` mirrors it,
-two fetches a byte) with each lane's 48 lo rows in shared memory and its
-64 hi rows in a device scratch (``hi_scratch``).
+K7 runs on CTAs of 32 lanes, each holding all 112 table rows of its
+lanes in shared memory beside a ring of its input bytes (the launch is
+the source's own).  K6 runs on the o0 decoders' ring of stream words
+(``rans_kernel.ring_check`` mirrors it, two fetches a byte) with each
+lane's 48 lo rows in shared memory and its 64 hi rows in a device scratch
+(``hi_scratch``).
 
 Warm tables are per group, hi [64, 16, G] and lo [48, 16, G] int32
 cumulative rows, strictly increasing from 0 (as ``codecs/rans_cdf_r1_p``
@@ -117,17 +119,20 @@ def _check_geom(geom: Geom, G: int) -> None:
     require_o1(geom)
 
 
-def _scratch(G: int, device) -> torch.Tensor:
-    """K7's per-lane table rows, [L, 112, 16] u16 (as int16)."""
-    return torch.empty((G * GLANES, R1.NCTX + R1.LROWS, 16),
-                       dtype=torch.int16, device=device)
-
-
 def hi_scratch(G: int, device) -> torch.Tensor:
     """K6's per-lane hi rows, [L, 64, 16] u16 (as int16); its lo rows are
     in shared memory."""
     return torch.empty((G * GLANES, R1.NCTX, 16), dtype=torch.int16,
                        device=device)
+
+
+def model_cargs(cols, hi_tbl, lo_tbl, probs, geom: Geom) -> list:
+    """The arguments of ``trc_o1_model`` (without the stream): the tile
+    and the rate (the launch is the source's own: 4 CTAs a group of 32
+    threads, every lane's rows and the input bytes' ring in shared
+    memory)."""
+    return [cols, hi_tbl, lo_tbl, probs, cols.shape[0], geom.groups,
+            geom.rate]
 
 
 def decode_cargs(gstreams, K: int, hi_tbl, lo_tbl, geom: Geom, scratch,
@@ -148,10 +153,12 @@ def model(cols: torch.Tensor, hi_tbl: torch.Tensor, lo_tbl: torch.Tensor,
     _check_tables(hi_tbl, lo_tbl, G, cols.device)
     if not cols.is_cuda:
         return model_plain(cols, hi_tbl, lo_tbl, geom)
+    if cols.data_ptr() % 16:  # the ring copies 16 bytes at a time
+        raise ValueError("cols: must be 16-byte aligned")
     probs = torch.empty((2 * K, G, GLANES), dtype=torch.int32,
                         device=cols.device)
-    K_.launch("o1_model", "trc_o1_model", cols, hi_tbl, lo_tbl,
-              _scratch(G, cols.device), probs, K, G, geom.rate,
+    K_.launch("o1_model", "trc_o1_model",
+              *model_cargs(cols, hi_tbl, lo_tbl, probs, geom),
               counts=launches)
     return probs
 
@@ -167,12 +174,9 @@ def decode_tile(gstreams: torch.Tensor, K: int, hi_tbl: torch.Tensor,
     _check_tables(hi_tbl, lo_tbl, G, dev)
     if R < 2:
         raise ValueError("gstreams: needs the two flush-state rows")
+    K_.check_ring_stream(gstreams)
     if not gstreams.is_cuda:
         return decode_plain(gstreams, K, hi_tbl, lo_tbl, geom)
-    if R * GLANES > K_.INT32_MAX - 2 * K_.RING_WORDS:  # int32 positions
-        raise ValueError(f"gstreams: {R} rows exceed the int32 positions")
-    if gstreams.data_ptr() % 16:  # the ring copies 16 bytes at a time
-        raise ValueError("gstreams: must be 16-byte aligned")
     out = torch.empty((K, G, GLANES), dtype=torch.uint8, device=dev)
     fstates = torch.empty((G, GLANES), dtype=torch.int32, device=dev)
     K_.launch("o1_decode", "trc_o1_decode",

@@ -15,9 +15,11 @@ o0 K1 and K5, the o1 K6, the bit-tree K8) are also held against their
 plain versions where the ring wraps and on corrupt streams, the
 placement K4 on edge cases of emit (every lane, none, one, slot counts
 that are not a multiple of its chunk), and the coder K3 on edge cases of
-probabilities and states (``coder-edge``).  With ``--before COMMIT``, the
-o1 model K7 and the bit-tree decoder K8 are timed in turns against those
-of a ``git archive COMMIT`` unpacked in ``_archive/COMMIT/``.  It imports
+probabilities and states (``coder-edge``), and the bit-tree model K9 where
+its input ring holds less than a stage or ends inside one, and on tiles
+its C entry must refuse.  With ``--before COMMIT``, K9 is timed in turns
+against that of a ``git archive COMMIT`` unpacked in
+``_archive/COMMIT/``.  It imports
 no JAX and nothing of ``turborc_tpu``; the corpora under
 ``turborc_tpu/bench/_data/`` are read as files.
 
@@ -53,10 +55,9 @@ BENCH_GEOM_X2 = BENCH_GEOM + "x2"
 # _archive/COMMIT/ (a git archive of COMMIT unpacked there) that hold the
 # kernels in REDESIGNED and times those against the current ones.  Their
 # C signatures there, as (pointers, ints) before the stream: those of
-# e3484f9 and earlier, whose o1 model takes a device scratch for its rows.
-# Without it the phase is skipped.
+# af41c8b, the same as now.  Without it the phase is skipped.
 BEFORE_FLAG = "--before"
-BEFORE_ARGS = {"trc_o1_model": (5, 3), "trc_tree_decode": (4, 3)}
+BEFORE_ARGS = {"trc_tree_model": (3, 2)}
 ARCHIVE = ROOT / "_archive"
 CSRC_REL = "turborc_tpu_torch/ops/csrc"
 CHILD_FLAG = "--child"
@@ -80,7 +81,7 @@ REPLACES = {
     "tree_model": "turborc_tpu/ops/pallas/bittree_kernel.py:333",
 }
 # Kernels timed against a parent's with --before.
-REDESIGNED = ("o1_model", "tree_decode")
+REDESIGNED = ("tree_model",)
 # Each path's kernels in stage order: model, coder, place, decode.
 KERNELS = {"o0": ("model", "coder", "place", "decode"),
            "o1": ("o1_model", "coder", "place", "o1_decode"),
@@ -321,10 +322,13 @@ O1_GEOMS = ((None, 1 << 20), ("g1c2s8y2l4a16r4", 1 << 16),
             ("g8c8s8y4l32a16r4", 1 << 20))
 
 
-# The bit-tree kernels at groups 1, 2 and 4, chunk 2 and 8, K of 16 to
-# 1168 byte steps, and at the default geometry on 1 MB.
+# The bit-tree kernels at groups 1, 2 and 4, chunk 2 and 8, K of 128 to
+# 1176 byte steps, and at the default geometry on 1 MB; then K9's input
+# ring at K = 14, below one stage of 16 byte steps, and K = 24, not a
+# multiple of it.
 TREE_GEOMS = (("g1c2s8y2l4a16r4", 1 << 16), ("g2c8s8y4l32a16r4", 300_000),
-              ("g4c2s8y2l4a16r4", 1 << 16), (None, 1 << 20))
+              ("g4c2s8y2l4a16r4", 1 << 16), (None, 1 << 20),
+              ("g1c2s8y2l4a16r4", 2000), ("g2c8s8y4l32a16r4", 5000))
 
 
 def _kernel_cases(label: str, kind: str, cases, dev,
@@ -480,6 +484,48 @@ def phase_kernels(dev) -> None:
     _kernel_cases("tree-kernels-vs-plain", "tree",
                   [(Geom.parse(spec) if spec else Geom(), full[:n])
                    for spec, n in TREE_GEOMS], dev)
+    _tree_model_refusals(dev)
+
+
+def _tree_model_refusals(dev) -> None:
+    """K9's wrapper refuses misaligned cols, and ``trc_tree_model`` tiles
+    it cannot take, each as cudaErrorInvalidValue (1) before any launch:
+    a negative K, no group, cols 1 byte past a 16-byte boundary.  No
+    launch is counted."""
+    import torch
+    from turborc_tpu_torch.ops import bittree_kernel as B
+    from turborc_tpu_torch.ops import rans_kernel as K_
+    from turborc_tpu_torch.ops.geom import Geom
+    K, G = 16, 1
+    buf = torch.zeros(K * G * 128 + 16, dtype=torch.uint8, device=dev)
+    cols, off = buf[:-16].view(K, G, 128), buf[1:1 - 16].view(K, G, 128)
+    tree = torch.ones(256, dtype=torch.int32, device=dev)
+    probs = torch.empty((2 * K, G, 128), dtype=torch.int32, device=dev)
+    before = B.launches["tree_model"]
+    try:
+        B.tree_model(off, tree, Geom(groups=G))
+    except ValueError as e:
+        log(f"tree-kernels-vs-plain: the K9 wrapper refuses cols 1 byte past "
+            f"a 16-byte boundary ({e})")
+    else:
+        raise AssertionError("tree_model took misaligned cols")
+    for what, cargs in (("K = -1", [cols, tree, probs, -1, G]),
+                        ("G = 0", [cols, tree, probs, K, 0]),
+                        ("cols 1 byte past a 16-byte boundary",
+                         [off, tree, probs, K, G])):
+        try:
+            K_.launch("tree_model", "trc_tree_model", *cargs,
+                      counts=B.launches)
+        except RuntimeError as e:
+            if not str(e).endswith("CUDA error 1"):
+                raise
+        else:
+            raise AssertionError(f"trc_tree_model took a tile with {what}")
+        log(f"tree-kernels-vs-plain: trc_tree_model refuses {what} (CUDA "
+            "error 1, no launch)")
+    if B.launches["tree_model"] != before:
+        raise AssertionError("tree-kernels-vs-plain: a refused tile counted "
+                             "a launch")
 
 
 def _golden(path: Path) -> dict:
@@ -687,15 +733,14 @@ def _time_path(label: str, kind: str, corpus: str, geom, dev) -> dict:
 
 
 def phase_before_after(dev, before: str | None, libs: dict) -> dict:
-    """K7 and K8 of commit ``before`` against the current ones: K7 on id
-    60's 16 MB realsrcbwt block at the default geometry, K8 on id 8's
-    16 MB textbwt block at the same geometry (its streams from K9, K3 and
-    K4).  A warm-up, then 3 repetitions on distinct rotations, the two
-    builds in turns (before first on odd repetitions), CUDA events around
-    the bare C entry of each: outputs and scratch are allocated
-    beforehand, and a new allocator segment inside a span fails the
-    phase.  Their outputs must be equal.  Returns {name: {"before": ms per
-    repetition, "after": ...}}, empty without ``before``."""
+    """K9 of commit ``before`` against the current one, on id 8's 16 MB
+    textbwt block at the default geometry.  A warm-up, then 3 repetitions
+    on distinct rotations, the two builds in turns (before first on odd
+    repetitions), CUDA events around the bare C entry of each: outputs
+    are allocated beforehand, and a new allocator segment inside a span
+    fails the phase.  Their outputs must be equal.  Returns {name:
+    {"before": ms per repetition, "after": ...}}, empty without
+    ``before``."""
     import ctypes
 
     import numpy as np
@@ -707,7 +752,7 @@ def phase_before_after(dev, before: str | None, libs: dict) -> dict:
     if not libs:
         log(f"{label}: skipped, no {BEFORE_FLAG} COMMIT")
         return {}
-    _, K1, B = _kernel_modules()
+    _, _, B = _kernel_modules()
     fns = {}
     for name, path in libs.items():  # that commit's signatures
         fn = getattr(ctypes.CDLL(str(path)), "trc_" + name)
@@ -716,8 +761,7 @@ def phase_before_after(dev, before: str | None, libs: dict) -> dict:
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fns[name] = fn
-    real, text = _corpus("realsrcbwt_16777216.bin"), \
-        _corpus("textbwt_16777216.bin")
+    text = _corpus("textbwt_16777216.bin")
     geom = Geom()
     G = geom.groups
     ms = {k: {"before": [], "after": []} for k in REDESIGNED}
@@ -756,36 +800,18 @@ def phase_before_after(dev, before: str | None, libs: dict) -> dict:
                                  "differ")
 
     for r in range(4):  # rep 0 is the warm-up
-        a = _codec("o1").encode_args(np.roll(real, 7919 * (r + 1)), geom,
-                                     dev)
-        K = a.K
-        cols = a.block.T.contiguous().reshape(K, G, 128)
-
-        def o1_model(who):
-            outs = (torch.empty((2 * K, G, 128), dtype=torch.int32,
-                                device=dev),)
-            if who == "before":  # all 112 rows a lane in its scratch
-                rows = torch.empty((G * 128, 112, 16), dtype=torch.int16,
-                                   device=dev)
-                return outs, [cols, a.hi_tbl, a.lo_tbl, rows, *outs, K, G,
-                              geom.rate]
-            return outs, K1.model_cargs(cols, a.hi_tbl, a.lo_tbl, *outs,
-                                        geom)
-
-        turns("o1_model", o1_model, r)
-        del a, cols
         b = _codec("tree").encode_args(np.roll(text, 7919 * (r + 1)), geom,
                                        dev)
         K = b.K
-        gs, _ = B.encode_tile(b.block, K, b.tree, b.init_states, geom)
+        cols = b.block.T.contiguous().reshape(K, G, 128)
 
-        def tree_decode(who):
-            outs = (torch.empty((K, G, 128), dtype=torch.uint8, device=dev),
-                    torch.empty((G, 128), dtype=torch.int32, device=dev))
-            return outs, B.tree_decode_cargs(gs, K, b.tree, *outs)
+        def tree_model(who):
+            outs = (torch.empty((2 * K, G, 128), dtype=torch.int32,
+                                device=dev),)
+            return outs, B.tree_model_cargs(cols, b.tree, *outs)
 
-        turns("tree_decode", tree_decode, r)
-        del b, gs
+        turns("tree_model", tree_model, r)
+        del b, cols
     log(f"{label} " + json.dumps(dict(geoms={k: geom.spec
                                              for k in REDESIGNED},
                                       before=before, ms=ms)))
@@ -980,7 +1006,8 @@ def main(argv) -> int:
         lines.put(None)
 
     threading.Thread(target=pump, daemon=True).start()
-    deadline = time.monotonic() + BUDGET_S
+    t_start = time.monotonic()
+    deadline = t_start + BUDGET_S
     current, device, done = "start", None, False
     while True:
         left = deadline - time.monotonic()
@@ -1006,6 +1033,8 @@ def main(argv) -> int:
         print(f"chip_smoke: FAILED in phase {current} (child exit {rc})",
               file=sys.stderr)
         return 1
+    print(f"chip_smoke: every phase in {time.monotonic() - t_start:.1f} s "
+          f"of the {BUDGET_S} s budget", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["kind"],
         "count": device["count"]}}), flush=True)
@@ -1017,7 +1046,7 @@ def _args(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(CHILD_FLAG, action="store_true", help=argparse.SUPPRESS)
     ap.add_argument(BEFORE_FLAG, metavar="COMMIT",
-                    help="also time K7 and K8 of the git archive of COMMIT "
+                    help="also time K9 of the git archive of COMMIT "
                     "unpacked in _archive/COMMIT/")
     return ap.parse_args(argv)
 

@@ -6,14 +6,16 @@ same split, SASS and ablations on id 60's block, ``probe_split``); with
 ``--kernel coder``, the coder K3 (SASS and ablations on id 57's block,
 ``probe_coder``).  For these three ``--src`` may also be the ``csrc`` of
 9ed2fbe, whose K6 and K3 each layout tells apart.  With ``--kernel
-o1_model`` or ``--kernel tree_decode``, the o1 model K7 on id 60's block
-or the bit-tree decoder K8 on id 8's (the split, SASS, CTAs an SM and
-ablations, ``probe_split``); ``--src`` may also be the ``csrc`` of
-e3484f9, whose K7 and K8 each layout tells apart.
+o1_model``, ``--kernel tree_decode`` or ``--kernel tree_model``, the o1
+model K7 on id 60's block, the bit-tree decoder K8 or model K9 on id 8's
+(the split, SASS, CTAs an SM and ablations, ``probe_split``); ``--src``
+may also be the ``csrc`` of e3484f9 (K7, K8) or af41c8b (K9), whose
+layouts it tells apart.
 
     python3 tools/decode_probe.py [--src DIR] [--ablate no-rejoin,...]
         [--label NAME] [--out FILE]
-        [--kernel decode|model|o1_decode|coder|o1_model|tree_decode]
+        [--kernel decode|model|o1_decode|coder|o1_model|tree_decode|
+                  tree_model]
 
 ``--src`` is a ``csrc`` directory: the port's own (the default), or that
 of commit ff11eb3 (a ``git archive ff11eb3`` unpacked into a git-ignored
@@ -123,14 +125,18 @@ SEGMENTS = {
              "fetch 2 take (prefix, word)"],
 }
 PRELUDE = r"""
-__device__ unsigned long long trc_split_acc[16];
+__device__ unsigned long long trc_split_acc[32];
 extern "C" int trc_split_read(void* out) {
   return int(cudaMemcpyFromSymbol(out, trc_split_acc, sizeof(trc_split_acc)));
 }
+#ifndef TRC_SECOND
+#define TRC_SECOND 0
+#endif
 #define TRC_SPLIT_BEGIN                                                    \
   unsigned long long trc_acc[10] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};       \
   unsigned trc_sink = 0;                                                   \
-  const bool trc_on = blockIdx.x == 0 && threadIdx.x == 0;                 \
+  const bool trc_on = blockIdx.x == 0 &&                                   \
+                      (threadIdx.x == 0 || threadIdx.x == TRC_SECOND);     \
   long long trc_last = clock64();
 #define TRC_STAMP(k, v)                                                    \
   if (trc_on) {                                                            \
@@ -141,21 +147,29 @@ extern "C" int trc_split_read(void* out) {
   }
 #define TRC_SPLIT_END                                                      \
   if (trc_on) {                                                            \
-    for (int k = 0; k < 10; ++k) trc_split_acc[k] = trc_acc[k];            \
-    trc_split_acc[15] = trc_sink;                                          \
+    const int trc_at = threadIdx.x == 0 ? 0 : 16;                          \
+    for (int k = 0; k < 10; ++k) trc_split_acc[trc_at + k] = trc_acc[k];   \
+    trc_split_acc[trc_at + 15] = trc_sink;                                 \
   }
 """
 
 
-def stamped(source: str, loop_in: str, stamps: list) -> str:
+def stamped(source: str, loop_in: str, stamps: list,
+            second: str | None = None) -> str:
     """The source with clock64() stamps (``STAMPS``' form) in the byte
-    loop of the function that starts at ``loop_in``."""
+    loop of the function that starts at ``loop_in``, for thread 0 of CTA 0
+    and, with ``second`` (a C expression), that thread too (its sums at
+    ``trc_split_acc[16:]``)."""
     head, sep, rest = source.partition('#include "rans_common.cuh"\n')
     if not sep:
         raise ValueError("rans_common.cuh include not found")
     start = rest.index(loop_in)
     loop = rest.index("for (int t = 0; t < K; ++t) {", start)
     end = rest.index("\n  }\n", loop) + len("\n  }\n")
+    line = rest.rfind("\n", 0, loop) + 1
+    pragma = rest.rfind("\n", 0, line - 1) + 1
+    if rest[pragma:line].startswith("#pragma unroll"):  # stays on the loop
+        loop = pragma
     body = rest[loop:end]
     for anchor, nth, seg, val in stamps:
         at = -1
@@ -164,7 +178,9 @@ def stamped(source: str, loop_in: str, stamps: list) -> str:
         eol = body.index("\n", at)
         body = (body[:eol] + f"\n    TRC_STAMP({seg}, {val});"
                 + body[eol:])
-    return (head + sep + PRELUDE + rest[:loop] + "TRC_SPLIT_BEGIN\n  "
+    define = f"#define TRC_SECOND {second}\n" if second else ""
+    return (head + sep + define + PRELUDE + rest[:loop]
+            + "TRC_SPLIT_BEGIN\n  "
             + body + "  TRC_SPLIT_END\n" + rest[end:])
 
 
@@ -666,17 +682,23 @@ def probe_coder(opt, dev, res: dict, work: Path) -> dict:
     return res
 
 
-# K6 (``--kernel o1_decode``), K7 (``--kernel o1_model``) and K8
-# (``--kernel tree_decode``): the split of a byte step, ptxas, SASS,
-# occupancy and ablations, on the kernel's main-path block (id 60's
-# realsrcbwt 16 MB for K6 and K7, id 8's textbwt 16 MB for K8, one block
-# each at the default geometry).  Layouts: K6 as above; K7 "l2"
-# (e3484f9: every row in a device scratch, read through L2, the linear
-# cdf_lookup) and "smem" (the port's); K8 "fetch" (e3484f9: each word
-# loaded from device memory by ``fetch``, the tree node-major in shared
-# memory) and "ring" (the port's).  Stamps, segments and ablations as for
-# K1; ``OCCUPANCY`` names the kernel, threads and shared-memory bytes whose
-# resident CTAs an SM the probe asks the CUDA runtime for.
+# K6 (``--kernel o1_decode``), K7 (``--kernel o1_model``), K8
+# (``--kernel tree_decode``) and K9 (``--kernel tree_model``): the split
+# of a byte step, ptxas, SASS, occupancy and ablations, on the kernel's
+# main-path block (id 60's realsrcbwt 16 MB for K6 and K7, id 8's textbwt
+# 16 MB for K8 and K9, one block each at the default geometry).  Layouts:
+# K6 as above; K7 "l2" (e3484f9: every row in a device scratch, read
+# through L2, the linear cdf_lookup) and "smem" (the port's); K8 "fetch"
+# (e3484f9: each word loaded from device memory by ``fetch``, the tree
+# node-major in shared memory) and "ring" (the port's); K9 "node"
+# (af41c8b: the tree node-major in shared memory walked by dependent
+# loads, one warp a CTA, the byte read from device memory) and "path" (the
+# port's: the path nodes addressed by the known byte).  Stamps, segments
+# and ablations as for K1; ``second`` names a thread stamped beside
+# thread 0 (K9's hi chain), ``exact`` the variants held byte for byte like
+# the base (design alternatives, not cuts); ``occupancy`` names the
+# kernel, threads and shared-memory bytes whose resident CTAs an SM the
+# probe asks the CUDA runtime for.
 SPLIT_KERNELS = {
     "o1_decode": dict(
         source="rans_o1_kernel.cu", entry="trc_o1_decode",
@@ -806,6 +828,83 @@ SPLIT_KERNELS = {
         },
         occupancy={"ring": ("tree_decode_kernel", "kLanes", "kTreeSmem")},
     ),
+    "tree_model": dict(
+        source="bittree_kernel.cu", entry="trc_tree_model",
+        loop_in="tree_model_kernel(",
+        section=("// ---- K9: forward model pass", "// ---- K8: decode."),
+        layout=lambda src: "node"
+        if "descend(tree, node, w, b >> 4)" in src else "path",
+        stamps={
+            "node": [("const int b = cols[size_t(t) * L + lane];", 1, 0, "b"),
+                     ("int low = descend(tree, node, w, b >> 4);", 1, 1,
+                      "low + w"),
+                     ("probs[size_t(2 * t) * L + lane] = (low << 16) | w;",
+                      1, 2, "low"),
+                     ("low = descend(tree, node, w, b & 15);", 1, 3,
+                      "low + w"),
+                     ("probs[size_t(2 * t + 1) * L + lane] = "
+                      "(low << 16) | w;", 1, 4, "low")],
+            "path": [("kTreeLanes + lane] : 0;", 1, 0, "b2"),
+                     ("const int sym = tree_splits(cur[k], n);", 1, 1,
+                      "sym"),
+                     ("tree_updates(cur[k], n, np);", 1, 2, "np[0] + np[3]"),
+                     ("out[k] += 2 * L;", 1, 3, "0"),
+                     ("ld[l] = nodes[tree_node(r2, n2, l)];", 1, 4, "0"),
+                     ("cur[k][l] = same && (x >> (4 - l)) == 0 ? np[l] : "
+                      "nxt[k][l];", 1, 5, "cur[k][0] + cur[k][3]")],
+        },
+        segments={
+            "node": ["byte load (device memory)",
+                     "hi descent (dependent shared loads, stores)",
+                     "hi probs store", "lo descent", "lo probs store"],
+            "path": ["stage wait, byte t + 2", "splits (the w chain)",
+                     "counter updates", "node stores, probs store",
+                     "read-ahead of byte t + 2's nodes (loads sent)",
+                     "forward selects"],
+        },
+        # the hi chain's thread (warp 1), stamped beside thread 0 (lo)
+        second={"path": "kTreeLanes"},
+        ablations={
+            "node": {},
+            "path": {
+                "one-thread": [("constexpr int kTreeSplit = 2;",
+                                "constexpr int kTreeSplit = 1;")],
+                "unroll-1": [("constexpr int kTreeUnroll = 4;",
+                              "constexpr int kTreeUnroll = 1;")],
+                "unroll-2": [("constexpr int kTreeUnroll = 4;",
+                              "constexpr int kTreeUnroll = 2;")],
+                "unroll-8": [("constexpr int kTreeUnroll = 4;",
+                              "constexpr int kTreeUnroll = 8;")],
+                "unroll-16": [("constexpr int kTreeUnroll = 4;",
+                              "constexpr int kTreeUnroll = 16;")],
+                "no-forward": [("cur[k][l] = same && (x >> (4 - l)) == 0 ? "
+                                "np[l] : nxt[k][l];",
+                                "cur[k][l] = nxt[k][l];")],
+                "no-update": [("tree_updates(cur[k], n, np);",
+                               "for (int l = 0; l < 4; ++l) np[l] = "
+                               "cur[k][l];")],
+                "no-store": [("      for (int l = 0; l < 4; ++l) "
+                              "nodes[tree_node(r, n, l)] = np[l];\n", "")],
+                "no-stage": [(
+                    "    if ((u & (kTreeSteps - 1)) == 0) {\n"
+                    "      cp_async_wait<0>();\n      __syncthreads();\n"
+                    "      model_stage<kTreeLanes, kTreeSteps, kTreeThreads>(\n"
+                    "          ring, src, u + kTreeSteps, K, L);\n"
+                    "      cp_async_commit();\n    }\n"
+                    "    const int b2 =\n"
+                    "        u < K ? ring[(u & (2 * kTreeSteps - 1)) * "
+                    "kTreeLanes + lane] : 0;\n",
+                    "    const int b2 = u < K ? src[size_t(u) * L + lane] "
+                    ": 0;\n")],
+            },
+        },
+        # design alternatives: their output must be right too
+        exact=("one-thread", "unroll-1", "unroll-2", "unroll-8",
+               "unroll-16"),
+        occupancy={"path": ("tree_model_kernel", "kTreeThreads",
+                            "kTreeMSmem"),
+                   "node": ("tree_model_kernel", "kModelThreads", "0")},
+    ),
 }
 
 
@@ -869,6 +968,11 @@ def _split_inputs(kernel: str, dev, geom: Geom, rot: int):
     from turborc_tpu_torch.ops import bittree_kernel as B
     a = CT.encode_args(np.roll(np.fromfile(TREE_CORPUS, np.uint8), rot),
                        geom, dev)
+    if kernel == "tree_model":  # both layouts take the tile alone
+        cols = a.block.T.contiguous().reshape(a.K, geom.groups, 128)
+        ref = (B.tree_model(cols, a.tree, geom),)
+        return (lambda layout, outs: B.tree_model_cargs(cols, a.tree,
+                                                        *outs)), ref, a.K
     gs, _ = B.encode_tile(a.block, a.K, a.tree, a.init_states, geom)
     ref = B.tree_decode_tile(gs, a.K, a.tree, geom)
 
@@ -881,12 +985,12 @@ TREE_CORPUS = CORPUS.parent / "textbwt_16777216.bin"
 
 
 def probe_split(opt, dev, res: dict, work: Path) -> dict:
-    """K7 or K8 (``SPLIT_KERNELS[opt.kernel]``) of the source in ``--src``:
-    ptxas and SASS, CTAs an SM, the clock64() split of its byte step, and
-    the bare C entry timed (a warm-up, then 3 repetitions on distinct
-    rotations of the kernel's main-path block), base and stamped builds
-    held byte for byte against the port's wrapper, ablations timed
-    only."""
+    """K6, K7, K8 or K9 (``SPLIT_KERNELS[opt.kernel]``) of the source in
+    ``--src``: ptxas and SASS, CTAs an SM, the clock64() split of its byte
+    step, and the bare C entry timed (a warm-up, then 3 repetitions on
+    distinct rotations of the kernel's main-path block), base, stamped and
+    ``exact`` builds held byte for byte against the port's wrapper,
+    ablations timed only."""
     spec = SPLIT_KERNELS[opt.kernel]
     src = Path(opt.src).resolve()
     base = (src / spec["source"]).read_text()
@@ -895,8 +999,9 @@ def probe_split(opt, dev, res: dict, work: Path) -> dict:
     variants = _section_variants(base, (src / "rans_common.cuh").read_text(),
                                  spec["section"], spec["ablations"][layout],
                                  [x for x in opt.ablate.split(",") if x])
+    second = spec.get("second", {}).get(layout)
     variants["stamped"] = stamped(base, spec["loop_in"],
-                                  spec["stamps"][layout])
+                                  spec["stamps"][layout], second)
     occ = spec["occupancy"].get(layout)
     if occ:
         variants = {k: ((v[0] + _occupancy_entry(*occ), v[1])
@@ -921,30 +1026,35 @@ def probe_split(opt, dev, res: dict, work: Path) -> dict:
     geom = Geom()
     times = {k: [] for k in variants}
     segs = spec["segments"][layout]
-    split, K = None, 0
+    split, split2, K = None, None, 0
     for r in range(4):  # rep 0 is the warm-up
         make, ref, K = _split_inputs(opt.kernel, dev, geom, 7919 * (r + 1))
         for k, fn in fns.items():
             outs = [torch.empty_like(x) for x in ref]
             ms = _bare(fn, make(layout, outs))
-            if k in ("base", "stamped") and not all(map(torch.equal, outs,
-                                                        ref)):
+            if (k in ("base", "stamped", *spec.get("exact", ()))
+                    and not all(map(torch.equal, outs, ref))):
                 raise AssertionError(f"{k} differs from the port's "
                                      f"{opt.kernel}")
             if r:
                 times[k].append(ms)
             if k == "stamped":
-                acc = (ctypes.c_ulonglong * 16)()
+                acc = (ctypes.c_ulonglong * 32)()
                 loaded[k].trc_split_read(ctypes.cast(acc, ctypes.c_void_p))
                 split = [int(x) for x in acc[:len(segs)]]
+                split2 = [int(x) for x in acc[16:16 + len(segs)]]
             del outs
         del make, ref
-    total = sum(split)
-    res["split"] = {
-        "K": K, "thread": "lane 0 of warp 0 of CTA 0",
-        "cycles_total": total, "cycles_per_byte": total / K,
-        "segments": [{"segment": segs[i], "cycles": c, "per_byte": c / K,
-                      "share": c / total} for i, c in enumerate(split)]}
+    def report(cycles, thread):
+        total = sum(cycles)
+        return {"K": K, "thread": thread, "cycles_total": total,
+                "cycles_per_byte": total / K,
+                "segments": [{"segment": segs[i], "cycles": c,
+                              "per_byte": c / K, "share": c / total}
+                             for i, c in enumerate(cycles)]}
+    res["split"] = report(split, "thread 0 of CTA 0")
+    if second:
+        res["split_second"] = report(split2, f"thread {second} of CTA 0")
     res["ms"] = times
     res["mean_ms"] = {k: sum(v) / len(v) for k, v in times.items()}
     return res
@@ -1024,7 +1134,7 @@ def main() -> int:
                 if r:
                     times[f"{k} {name}"].append(ms)
                 if k == "stamped" and name == "decode":
-                    acc = (ctypes.c_ulonglong * 16)()
+                    acc = (ctypes.c_ulonglong * 32)()
                     loaded[k].trc_split_read(ctypes.cast(acc,
                                                          ctypes.c_void_p))
                     n = len(SEGMENTS[layout])

@@ -26,12 +26,18 @@ Kernel (CUDA, ``csrc/bittree_kernel.cu``)  replaces (TPU)
 A wrapper validates its inputs, then runs the plain version when they lie
 on the CPU and launches the kernel when they lie on a CUDA device; there
 is no fallback.  ``launches[name]`` counts kernel launches only.  Tree
-entries stay in [1, 32767] under the update, so the kernels keep them as
-u16.  K8 runs on the o0 decoders' ring of stream words
-(``rans_kernel.ring_check`` mirrors it, two fetches a byte) and holds the
-tree as 16 subtree rows of 15 heap slots: the hi nibble's subtree (nodes
-1-15) in registers, the lo subtree under node 16 + hi in shared memory,
-the node of level l on path j of a subtree at slot 2^l - 1 + j.
+entries stay in [1, 32767] under the update, so K8 keeps them as u16 (K9
+one int a node, so that a warp's node accesses meet no bank conflict).
+Both kernels hold the tree as subtree rows of 15 heap slots: the
+hi nibble's subtree (nodes 1-15) and the lo subtree under node 16 + hi,
+the node of level l on path j of a subtree at slot 2^l - 1 + j.  K8 keeps
+the hi subtree in registers and runs on the o0 decoders' ring of stream
+words (``rans_kernel.ring_check`` mirrors it, two fetches a byte).  K9
+keeps all 17 rows in shared memory and reads a nibble's four path nodes
+at the addresses its known byte gives: CTAs of 32 lanes, the lo and the
+hi chain of a lane on two threads, its input bytes staged in a ring of
+two 16-step stages, the path nodes of the next byte read a step ahead
+and forwarded from registers where its path meets this byte's.
 """
 from __future__ import annotations
 
@@ -180,13 +186,22 @@ def tree_model(cols: torch.Tensor, tree_tbl: torch.Tensor,
     _check_geom(geom, G)
     K_._check("cols", cols, torch.uint8, (K, G, GLANES), cols.device)
     K_._check("tree_tbl", tree_tbl, torch.int32, (256,), cols.device)
+    if cols.data_ptr() % 16:  # the input ring copies 16 bytes at a time
+        raise ValueError("cols: must be 16-byte aligned")
     if not cols.is_cuda:
         return tree_model_plain(cols, tree_tbl)
     probs = torch.empty((2 * K, G, GLANES), dtype=torch.int32,
                         device=cols.device)
-    K_.launch("tree_model", "trc_tree_model", cols, tree_tbl, probs, K, G,
-              counts=launches)
+    K_.launch("tree_model", "trc_tree_model",
+              *tree_model_cargs(cols, tree_tbl, probs), counts=launches)
     return probs
+
+
+def tree_model_cargs(cols, tree_tbl, probs) -> list:
+    """The arguments of ``trc_tree_model`` (without the stream): the tile
+    (the launch is the source's own: 4 CTAs a group of 64 threads, every
+    lane's 17 subtree rows and the input bytes' ring in shared memory)."""
+    return [cols, tree_tbl, probs, cols.shape[0], cols.shape[1]]
 
 
 def tree_decode_tile(gstreams: torch.Tensor, K: int, tree_tbl: torch.Tensor,

@@ -52,6 +52,7 @@ SIGNATURES = {
         "trc_o1_decode": [_P] * 6 + [_I] * 4 + [_P],
     },
     "bittree_kernel.cu": {
+        # K9: tile
         "trc_tree_model": [_P] * 3 + [_I] * 2 + [_P],
         # K8: tile
         "trc_tree_decode": [_P] * 4 + [_I] * 3 + [_P],

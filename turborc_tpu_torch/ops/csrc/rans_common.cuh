@@ -1,8 +1,9 @@
 // Device functions shared by the rANS kernels of rans_kernel.cu (order 0)
-// and rans_o1_kernel.cu (order 1) and the bit-tree decoder of
+// and rans_o1_kernel.cu (order 1) and the bit-tree kernels of
 // bittree_kernel.cu: the CDF16 table math, the per-lane row layout in
-// shared memory, and the decoders' group-ordered word fetch from a ring of
-// stream words staged in shared memory (Ring, fetch_post, fetch_take).
+// shared memory, the decoders' group-ordered word fetch from a ring of
+// stream words staged in shared memory (Ring, fetch_post, fetch_take), and
+// the model passes' ring of input bytes (model_stage).
 // Header-only; each source includes it into its own anonymous namespace.
 #pragma once
 
@@ -266,6 +267,25 @@ __device__ __forceinline__ void fetch_take(uint32_t (&state)[NS],
   if (top) cp_async_commit();
   buf ^= 1;
   ++nfetch;
+}
+
+// ---- The input ring of the model passes (K7, K9): the bytes of a CTA's N
+// lanes, D byte steps a stage, two stages; byte step t sits in slot
+// t % 2D (N bytes).  The CTA requests byte steps [t0, t0 + D) below K
+// (its lanes' bytes start at src, a step every L bytes), 16 lanes a copy:
+// the first D N / 16 of its T threads make one copy each.
+template <int N, int D, int T>
+__device__ __forceinline__ void model_stage(uint8_t* ring, const uint8_t* src,
+                                            int t0, int K, size_t L) {
+  constexpr int kPer = N / 16;  // copies a byte step
+  constexpr int kCopies = D * kPer;
+  static_assert(N % 16 == 0 && (D & (D - 1)) == 0 && kCopies <= T,
+                "a stage is at most one 16-byte copy a thread");
+  const unsigned i = threadIdx.x;
+  if (kCopies < T && i >= unsigned(kCopies)) return;
+  const int t = t0 + int(i / kPer), part = int(i % kPer) * 16;
+  if (t < K)
+    cp_async16(ring + (t & (2 * D - 1)) * N + part, src + size_t(t) * L + part);
 }
 
 }  // namespace

@@ -109,7 +109,8 @@ __device__ __forceinline__ void row_store(uint16_t* p, const int (&c)[16]) {
 // A CTA is kModelLanes lanes of one group, one thread a lane.  Its dynamic
 // shared memory: every lane's 112 rows ([112][2 halves][32 lanes][8] u16;
 // hi rows 0..63, lo rows 64..111), then the ring of input bytes, two
-// stages of kModelSteps byte steps x 32 lanes.  At byte t + 1 = 0 mod
+// stages of kModelSteps byte steps x 32 lanes (model_stage in
+// rans_common.cuh, one 16-byte copy a thread).  At byte t + 1 = 0 mod
 // kModelSteps the warp waits for the stage that starts there (requested a
 // stage earlier), the barrier frees the stage before it, and the CTA
 // requests the next stage into that one.
@@ -130,18 +131,6 @@ __device__ __forceinline__ uint16_t* model_row(uint16_t* rows, int h) {
   return lane_row<kModelLanes>(rows, h);
 }
 
-// The CTA requests byte steps [t0, t0 + kModelSteps) below K of its lanes
-// (their bytes start at src, a step every L bytes) into the ring, 16 lanes
-// a copy.
-__device__ __forceinline__ void model_stage(uint8_t* ring,
-                                            const uint8_t* src, int t0,
-                                            int K, size_t L) {
-  const int t = t0 + (threadIdx.x >> 1), part = (threadIdx.x & 1) * 16;
-  if (t < K)
-    cp_async16(ring + (t & (2 * kModelSteps - 1)) * kModelLanes + part,
-               src + size_t(t) * L + part);
-}
-
 __global__ void __launch_bounds__(kModelLanes, 2)
 o1_model_kernel(const uint8_t* __restrict__ cols,
                 const int* __restrict__ hi_tbl, const int* __restrict__ lo_tbl,
@@ -152,9 +141,10 @@ o1_model_kernel(const uint8_t* __restrict__ cols,
   const size_t L = size_t(G) * kLanes;
   const size_t lane0 = size_t(blockIdx.x) * kModelLanes;
   const uint8_t* src = cols + lane0;
-  model_stage(ring, src, 0, K, L);
+  model_stage<kModelLanes, kModelSteps, kModelLanes>(ring, src, 0, K, L);
   cp_async_commit();
-  model_stage(ring, src, kModelSteps, K, L);
+  model_stage<kModelLanes, kModelSteps, kModelLanes>(ring, src, kModelSteps,
+                                                     K, L);
   cp_async_commit();
 
   // Group g's warm tables hi [64, 16, G], lo [48, 16, G] int32 -> every
@@ -190,7 +180,8 @@ o1_model_kernel(const uint8_t* __restrict__ cols,
     if ((u & (kModelSteps - 1)) == 0) {
       cp_async_wait<0>();
       __syncthreads();
-      model_stage(ring, src, u + kModelSteps, K, L);
+      model_stage<kModelLanes, kModelSteps, kModelLanes>(
+          ring, src, u + kModelSteps, K, L);
       cp_async_commit();
     }
     const int bn =

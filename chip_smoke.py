@@ -8,19 +8,23 @@ parallel), holds each kernel against its plain PyTorch version, drives
 every ported path through the port's ``compress``/``decompress``
 (``rans-cdf-o0-p`` on K1-K4 and, split-state, on K2, K3, K4 and K5;
 ``rans-cdf-r1-p`` on K7, K3, K4 and K6; ``rans-auto`` over both
-flagships; the bit-tree ``rc-p`` on K9, K3, K4 and K8), checks every
-container against the golden hashes the JAX package wrote, then times
-the kernels.  The decoders on a shared-memory ring of stream words (the
-o0 K1 and K5, the o1 K6, the bit-tree K8) are also held against their
-plain versions where the ring wraps and on corrupt streams, the
-placement K4 on edge cases of emit (every lane, none, one, slot counts
-that are not a multiple of its chunk), and the coder K3 on edge cases of
-probabilities and states (``coder-edge``), and the bit-tree model K9 where
-its input ring holds less than a stage or ends inside one, and on tiles
-its C entry must refuse.  With ``--before COMMIT``, K9 is timed in turns
-against that of a ``git archive COMMIT`` unpacked in
-``_archive/COMMIT/``.  It imports
-no JAX and nothing of ``turborc_tpu``; the corpora under
+flagships; the bit-tree ``rc-p`` on K9, K3, K4 and K8; the per-lane scan
+codecs ``rans-cdf-o0`` (the default) and ``rans-cdf-s8`` on L1, L2 and
+L3, ``rans-static`` on L2 and L4), checks every container against the
+golden hashes the JAX package wrote, then times the kernels.  The
+decoders on a shared-memory ring of stream words (the o0 K1 and K5, the
+o1 K6, the bit-tree K8) are also held against their plain versions where
+the ring wraps and on corrupt streams, the placement K4 on edge cases of
+emit (every lane, none, one, slot counts that are not a multiple of its
+chunk), the coder K3 on edge cases of probabilities and states
+(``coder-edge``), the bit-tree model K9 where its input ring holds less
+than a stage or ends inside one, and on tiles its C entry must refuse,
+and the lane kernels L1-L4 at 4 to 8192 lanes, spans of 1 to 128 lanes
+and on corrupt streams and length tables, beside the codecs' payloads
+on the card against the CPU's (``lane-kernels-vs-plain``).  With
+``--before COMMIT``, K9 is timed in turns against that of a ``git
+archive COMMIT`` unpacked in ``_archive/COMMIT/``.  It imports no JAX
+and nothing of ``turborc_tpu``; the corpora under
 ``turborc_tpu/bench/_data/`` are read as files.
 
 The phases run in a child process under a wall-clock budget, so a kernel
@@ -48,6 +52,7 @@ GOLDEN = ROOT / "turborc_tpu_torch" / "golden" / "o0p.json"
 GOLDEN_R1 = ROOT / "turborc_tpu_torch" / "golden" / "r1p.json"
 GOLDEN_RCP = ROOT / "turborc_tpu_torch" / "golden" / "rcp.json"
 GOLDEN_X2 = ROOT / "turborc_tpu_torch" / "golden" / "o0p_x2.json"
+GOLDEN_LANE = ROOT / "turborc_tpu_torch" / "golden" / "lane.json"
 BUDGET_S = 600
 BENCH_GEOM = "g64c8s8y8l32a4r4"
 BENCH_GEOM_X2 = BENCH_GEOM + "x2"
@@ -69,6 +74,9 @@ SOURCE.update({k: CSRC + "rans_o1_kernel.cu"
                for k in ("o1_model", "o1_decode")})
 SOURCE.update({k: CSRC + "bittree_kernel.cu"
                for k in ("tree_model", "tree_decode")})
+SOURCE.update({k: CSRC + "rans_lane_kernel.cu"
+               for k in ("lane_model", "lane_coder", "lane_decode",
+                         "lane_static_decode")})
 REPLACES = {
     "model": "turborc_tpu/ops/pallas/rans_kernel.py:807",
     "coder": "turborc_tpu/ops/pallas/rans_kernel.py:883",
@@ -79,6 +87,12 @@ REPLACES = {
     "decode_x2": "turborc_tpu/ops/pallas/rans_kernel.py:569",
     "tree_decode": "turborc_tpu/ops/pallas/bittree_kernel.py:203",
     "tree_model": "turborc_tpu/ops/pallas/bittree_kernel.py:333",
+    # the lane kernels replace XLA scans (no Pallas kernel): the JAX
+    # package's device passes of ids 56 / 58 and 42
+    "lane_model": "turborc_tpu/codecs/rans_cdf_s8.py:134",
+    "lane_coder": "turborc_tpu/ops/rans.py:75",
+    "lane_decode": "turborc_tpu/codecs/rans_cdf_s8.py:182",
+    "lane_static_decode": "turborc_tpu/codecs/rans_static.py:55",
 }
 # Kernels timed against a parent's with --before.
 REDESIGNED = ("tree_model",)
@@ -87,6 +101,10 @@ KERNELS = {"o0": ("model", "coder", "place", "decode"),
            "o1": ("o1_model", "coder", "place", "o1_decode"),
            "x2": ("model", "coder", "place", "decode_x2"),
            "tree": ("tree_model", "coder", "place", "tree_decode")}
+# The lane kernels each per-lane scan codec runs.
+LANE = {"rans-cdf-o0": ("lane_model", "lane_coder", "lane_decode"),
+        "rans-cdf-s8": ("lane_model", "lane_coder", "lane_decode"),
+        "rans-static": ("lane_coder", "lane_static_decode")}
 # H100 SXM peaks: HBM3 bytes/s, and the float32 rate outside the tensor
 # cores, used for 32-bit integer ops (taking the higher of the two rates
 # keeps this a lower bound).
@@ -98,7 +116,11 @@ def log(*parts) -> None:
     print(*parts, flush=True)
 
 
+T_START = time.monotonic()
+
+
 def phase(name: str) -> None:
+    log(f"at {time.monotonic() - T_START:.1f} s")
     log(f"phase {name}")
 
 
@@ -154,8 +176,10 @@ def phase_build(before: str | None):
         fn = None
         for line in info["ptxas"].splitlines():
             m = re.search(r"Compiling entry function '\w*?"
-                          r"(tree_model|tree_decode|decode_x2|o1_model|"
-                          r"o1_decode|place_count|model|coder|place|decode)"
+                          r"(lane_static_decode|lane_model|lane_coder|"
+                          r"lane_decode|tree_model|tree_decode|decode_x2|"
+                          r"o1_model|o1_decode|place_count|model|coder|"
+                          r"place|decode)"
                           r"_kernel", line)
             if m:
                 fn = m.group(1)
@@ -182,6 +206,8 @@ def _max_abs(a, b) -> int:
     import torch
     if a.shape != b.shape:
         raise AssertionError(f"shape {tuple(a.shape)} vs {tuple(b.shape)}")
+    if a.numel() == 0:
+        return 0
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
@@ -535,8 +561,9 @@ def _golden(path: Path) -> dict:
 def _kernel_modules():
     from turborc_tpu_torch.ops import bittree_kernel as B
     from turborc_tpu_torch.ops import rans_kernel as K_
+    from turborc_tpu_torch.ops import rans_lane_kernel as LK
     from turborc_tpu_torch.ops import rans_o1_kernel as K1
-    return K_, K1, B
+    return K_, K1, B, LK
 
 
 def _launch_counts() -> dict:
@@ -557,7 +584,7 @@ def _roundtrip(label: str, case: dict, needs: tuple, dev) -> dict:
     from turborc_tpu_torch.utils.config import CodecConfig
     phase(label)
     data = _corpus(case["file"])
-    geom = Geom.parse(case["geom"]) if case["geom"] else None
+    geom = Geom.parse(case["geom"]) if case.get("geom") else None
     cfg = CodecConfig(codec=case.get("codec", "rans-cdf-o0-p"),
                       block_size=case["block_size"], geom=geom)
     _reset_launches()
@@ -588,6 +615,27 @@ def _roundtrip(label: str, case: dict, needs: tuple, dev) -> dict:
     return res
 
 
+def _lane_ops(kind: str, geom, K: int, decode: bool) -> int:
+    """Integer ops of one lane over K bytes in a model pass (or, with
+    ``decode``, a decode pass: the model plus a search, a state step and
+    a word fetch a nibble) of ``kind`` "o0" (the span model at ``geom``),
+    "o1" or "tree", counted as ``_bound_ms`` says."""
+    import math
+    search = 30
+    if kind == "o1":
+        model_ops = K * (2 * (32 + 80) + 12 + 6)
+    elif kind == "tree":
+        model_ops = K * 8 * 16
+        search = 0  # the descent is the search
+    else:
+        rejoin = 16 * (2 * int(math.log2(geom.share)) + 6) \
+            if geom.share > 1 else 0
+        hot = (K // geom.sync) * (1 + geom.hrows) * rejoin
+        cold = (K // geom.lsync) * max(geom.arows - geom.srows, 0) * rejoin
+        model_ops = K * 2 * (32 + 80) + hot + cold
+    return model_ops + K * 2 * (search + 6 + 6) if decode else model_ops
+
+
 def _bound_ms(name: str, geom, K: int, glens_sum: int) -> tuple[float, str]:
     """Least time for the same work: max(bytes / HBM rate, ops / peak).
 
@@ -604,29 +652,16 @@ def _bound_ms(name: str, geom, K: int, glens_sum: int) -> tuple[float, str]:
     (2 log2(share) + 6) per table row, an o1 hi context 12 and lo context
     6 per byte, a bit-tree level 16 (load and clamp, split, bit, interval,
     counter update, child) and 8 levels per byte."""
-    import math
     G = geom.groups
     L, sets = G * 128, geom.nstates
     S = 2 * K // sets
     R = S + 2 + geom.wrows
-    search = 30
-    if name.startswith("o1_"):
-        tables = (64 + 48) * 16 * G * 4
-        model_ops = K * (2 * (32 + 80) + 12 + 6)
-    elif name.startswith("tree_"):
-        tables = 256 * 4
-        model_ops = K * 8 * 16
-        search = 0  # the descent is the search
-    else:
-        tables = (16 + 256) * G * 4
-        rejoin = 16 * (2 * int(math.log2(geom.share)) + 6) \
-            if geom.share > 1 else 0
-        hot = (K // geom.sync) * (1 + geom.hrows) * rejoin
-        cold = (K // geom.lsync) * max(geom.arows - geom.srows, 0) * rejoin
-        model_ops = K * 2 * (32 + 80) + hot + cold
+    kind = name.split("_")[0] if name.startswith(("o1_", "tree_")) else "o0"
+    tables = {"o1": (64 + 48) * 16 * G * 4, "tree": 256 * 4,
+              "o0": (16 + 256) * G * 4}[kind]
     if name in ("model", "o1_model", "tree_model"):
         nbytes = K * L + 2 * K * L * 4 + tables
-        ops = L * model_ops
+        ops = L * _lane_ops(kind, geom, K, False)
     elif name == "coder":
         nbytes = sets * (S * L * (4 + 4 + 1) + 2 * L * 4)
         ops = sets * L * S * 10
@@ -637,7 +672,7 @@ def _bound_ms(name: str, geom, K: int, glens_sum: int) -> tuple[float, str]:
         ops = sets * L * S * 6
     else:
         nbytes = glens_sum * 4 + tables + K * L + sets * L * 4
-        ops = L * (model_ops + K * 2 * (search + 6 + 6))
+        ops = L * _lane_ops(kind, geom, K, True)
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = ops / PEAK_OPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -752,7 +787,7 @@ def phase_before_after(dev, before: str | None, libs: dict) -> dict:
     if not libs:
         log(f"{label}: skipped, no {BEFORE_FLAG} COMMIT")
         return {}
-    _, _, B = _kernel_modules()
+    _, _, B, _ = _kernel_modules()
     fns = {}
     for name, path in libs.items():  # that commit's signatures
         fn = getattr(ctypes.CDLL(str(path)), "trc_" + name)
@@ -905,6 +940,324 @@ def phase_place_edge(dev) -> None:
             "(CUDA error 1, no launch)")
 
 
+# The lane kernels L1-L4 against their plain versions: (lanes, K, the
+# geometry's fields that differ from PER_LANE's, warm-table segments).
+# 4 to 8192 lanes; per-lane models (ids 56, 42's layout), spans of 8 (id
+# 58's default), 64 and 128 lanes (sets across warps and a whole CTA);
+# static rows (arows 8, 4, 0), srows past arows; rates 7 and 10; K = 0.
+LANE_CASES = ((4, 64, {}, 1), (4, 0, {}, 1), (16, 64, dict(share=8), 2),
+              (512, 64, {}, 1), (512, 64, dict(share=8), 64),
+              (8192, 32, dict(share=64, sync=8, arows=4, srows=2), 64),
+              (8192, 32, dict(share=128, arows=8, rate=10), 16),
+              (128, 32, dict(share=128, arows=0, srows=0, rate=10), 1),
+              (16, 32, dict(share=8, arows=4, srows=8), 2))
+# The codecs on the card against the CPU: (codec, lanes, bytes), at
+# step_quant 256 and the default geometry: an empty block, and one of
+# several K (K = 512).
+LANE_CODEC_CASES = tuple((c, L, n) for c in LANE for L, n in (
+    (16, 0), (16, 5000)))
+
+
+def _static_probs(cols, dev):
+    """id 42's encode model on the card over ``cols``, and its table: the
+    byte histogram's 257-entry CDF (every byte of ``cols`` codeable)."""
+    import torch
+    from turborc_tpu_torch.codecs import rans_static as S42
+    freqs = S42.build_freqs(cols.reshape(-1).cpu().numpy())
+    cdf = torch.from_numpy(S42._cdf(freqs)).to(dev)
+    return S42.slot_probs(cols, cdf), cdf
+
+
+def _corrupt(words, lengths, gen, dev) -> dict:
+    """Corrupt lane streams: every 16th word flipped; the lengths of a
+    quarter of the lanes cut to 2 or raised past 2K + 2 and past the
+    words."""
+    import torch
+    W, L = words.shape[0], lengths.shape[0]
+    flip = words.clone()
+    flip[::16] ^= torch.randint(1, 1 << 15, flip[::16].shape, generator=gen,
+                                dtype=torch.int16).to(dev)
+    cut, long = lengths.clone(), lengths.clone()
+    cut[::4] = 2
+    long[1::4] = 1 << 20
+    return {"flipped words": (flip, lengths), "lengths cut": (words, cut),
+            f"lengths past 2K + 2 and the {W} words": (words, long)}
+
+
+def phase_lane_kernels(dev) -> None:
+    """L1-L4 against their plain versions on the LANE_CASES tiles of
+    textbwt, exact (tolerance 0): L1's probs, L2's streams and lengths,
+    L3's and L4's bytes, which must be the input; then L3 and L4 on the
+    same streams with words flipped.  Then each per-lane scan codec's
+    payload written on the card equals the one written on the CPU, and
+    the card decodes it (LANE_CODEC_CASES)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from turborc_tpu_torch.codecs import blockio
+    from turborc_tpu_torch.codecs import rans_cdf_s8 as S58
+    from turborc_tpu_torch.codecs import registry
+    from turborc_tpu_torch.ops import rans
+    from turborc_tpu_torch.ops import rans_lane_kernel as LK
+    phase("lane-kernels-vs-plain")
+    text = _corpus("textbwt_16777216.bin", 1 << 22)
+    gen = torch.Generator().manual_seed(20261020)
+    for i, (L, K, kw, n_seg) in enumerate(LANE_CASES):
+        geom = dataclasses.replace(LK.PER_LANE, **kw)
+        data = text[i * 7919:i * 7919 + K * L]
+        hi, lo = S58.tables_on(*S58.segment_tables(data, n_seg), dev)
+        cols = torch.from_numpy(data.reshape(K, L).copy()).to(dev)
+        init = torch.full((L,), rans.ANS_LOW, dtype=torch.int32, device=dev)
+        err = {}
+        probs = LK.lane_model(cols, hi, lo, geom)
+        err["lane_model"] = _max_abs(probs,
+                                     LK.lane_model_plain(cols, hi, lo, geom))
+        streams, lengths = LK.lane_coder(probs, init)
+        want = LK.lane_coder_plain(probs, init)
+        err["lane_coder"] = max(_max_abs(streams, want[0]),
+                                _max_abs(lengths, want[1]))
+        words = blockio.device_words(streams, lengths)
+        out = LK.lane_decode(words, lengths, K, hi, lo, geom)
+        err["lane_decode"] = _max_abs(out, LK.lane_decode_plain(
+            words, lengths, K, hi, lo, geom))
+        for what, bad in _corrupt(words, lengths, gen, dev).items():
+            err[f"lane_decode {what}"] = _max_abs(
+                LK.lane_decode(*bad, K, hi, lo, geom),
+                LK.lane_decode_plain(*bad, K, hi, lo, geom))
+        sprobs, cdf = _static_probs(cols, dev)
+        sstreams, slens = LK.lane_coder(sprobs, init)
+        want = LK.lane_coder_plain(sprobs, init)
+        err["lane_coder static"] = max(_max_abs(sstreams, want[0]),
+                                       _max_abs(slens, want[1]))
+        swords = blockio.device_words(sstreams, slens)
+        sout = LK.lane_static_decode(swords, slens, K, cdf)
+        err["lane_static_decode"] = _max_abs(
+            sout, LK.lane_static_decode_plain(swords, slens, K, cdf))
+        for what, bad in _corrupt(swords, slens, gen, dev).items():
+            err[f"lane_static_decode {what}"] = _max_abs(
+                LK.lane_static_decode(*bad, K, cdf),
+                LK.lane_static_decode_plain(*bad, K, cdf))
+        if any(err.values()):
+            raise AssertionError(f"lane kernels L={L} K={K} {geom.spec}: kernel "
+                                 f"differs from plain: {err}")
+        if not (torch.equal(out, cols) and torch.equal(sout, cols)):
+            raise AssertionError(f"lane kernels L={L} K={K} {geom.spec}: decode "
+                                 "did not return the bytes")
+        log(f"lane kernels L={L} K={K} {geom.spec} n_seg={n_seg}: equal to "
+            f"plain, tolerance 0 (max abs err {err}); L3 and L4 return "
+            f"the bytes; {int(lengths.sum())} + {int(slens.sum())} words")
+    for codec, L, n in LANE_CODEC_CASES:
+        c = registry.get(codec)
+        data = np.roll(text, 104729 * n)[:n]
+        kw = dict(lanes=L, step_quant=256)
+        card = c.encode_block(data, device=dev, **kw)
+        cpu = c.encode_block(data, device="cpu", **kw)
+        if card != cpu:
+            raise AssertionError(f"{codec} L={L} n={n}: payload on the card "
+                                 "differs from the CPU's")
+        if not np.array_equal(c.decode_block(card, n, device=dev, **kw),
+                              data):
+            raise AssertionError(f"{codec} L={L} n={n}: round trip failed")
+        log(f"lane codec {codec} L={L} n={n}: card payload equals the CPU's "
+            f"({len(card)} B), decodes on the card")
+
+
+def _lane_bound_ms(name: str, L: int, K: int, geom, n_seg: int,
+                   words: int) -> tuple[float, str]:
+    """``_bound_ms``'s rule for the lane kernels on L lanes and K bytes a
+    lane: bytes each input read once and each output written once (the
+    decoders read only the ``words`` u16 words the streams hold, and a
+    lane's 8-byte offset and 4-byte length), integer ops as
+    ``_lane_ops`` counts them; L4 does a table load, its state step and
+    fetch per byte, and builds its 2^15-entry table by 8 halvings of 3
+    ops in each CTA."""
+    S = 2 * K if name != "lane_static_decode" else K
+    tables = n_seg * (16 + 256) * 4
+    streams = words * 2 + L * (8 + 4)
+    if name == "lane_model":
+        nbytes = K * L + 2 * K * L * 4 + tables
+        ops = L * _lane_ops("o0", geom, K, False)
+    elif name == "lane_coder":
+        nbytes = S * L * 4 + L * 4 + L * (S + 2) * 4 + L * 4
+        ops = L * S * 10
+    elif name == "lane_decode":
+        nbytes = streams + tables + K * L
+        ops = L * _lane_ops("o0", geom, K, True)
+    else:
+        nbytes = streams + 257 * 4 + K * L
+        ops = L * K * (2 + 6 + 6) + -(-L // 128) * (1 << 15) * 24
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_OPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _events_ms(fn, *args):
+    """(output, ms) of one call between two CUDA events, and the new
+    allocator segments inside the span."""
+    import torch
+    seg = _segments()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn(*args)
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end), _segments() - seg
+
+
+def phase_lane_timing(dev) -> dict:
+    """The lane kernels on one 4 MB block of textbwt at the default
+    CodecConfig (512 lanes, K = 8192; id 58 at its default geometry,
+    share 8, 64 segments): per kernel a warm-up, then 3 timed calls on
+    distinct rotations (CUDA events; a cudaMalloc inside a span fails
+    the phase), the plain version once on the card (ids 56 and 42), and
+    end-to-end MB/s of ids 56 and 58 on textbwt 16 MB (api round trips, 4
+    blocks, a warm-up and 2 timed on distinct rotations)."""
+    import numpy as np
+    import torch
+    from turborc_tpu_torch import api
+    from turborc_tpu_torch.codecs import blockio
+    from turborc_tpu_torch.codecs import rans_cdf_s8 as S58
+    from turborc_tpu_torch.ops import rans
+    from turborc_tpu_torch.ops import rans_lane_kernel as LK
+    from turborc_tpu_torch.ops.geom import Geom
+    from turborc_tpu_torch.utils.config import CodecConfig
+    phase("timing-lane")
+    text = _corpus("textbwt_16777216.bin")
+    cfg = CodecConfig()
+    L, B = cfg.lanes, cfg.block_size
+    res = {}
+
+    def block_args(codec, x):
+        if codec == "rans-cdf-s8":
+            geom = Geom(share=8)
+            tabs = S58.segment_tables(x, S58._n_seg(L, 8))
+            block, K = S58.shape_spans(x, L, cfg.step_quant, 8, 32)
+            cols = torch.from_numpy(block).to(dev).permute(1, 0, 2)
+        else:
+            geom = LK.PER_LANE
+            tabs = (t[None] for t in blockio.nibble_tables(x))
+            block, K = blockio.shape_block(x, L, cfg.step_quant)
+            cols = torch.from_numpy(block).to(dev).T
+        hi, lo = S58.tables_on(*tabs, dev)
+        return cols.reshape(K, L).contiguous(), hi, lo, geom, K
+
+    init = torch.full((L,), rans.ANS_LOW, dtype=torch.int32, device=dev)
+    for codec in ("rans-cdf-o0", "rans-cdf-s8", "rans-static"):
+        ms, grew = {k: [] for k in LANE[codec]}, 0
+        for r in range(4):  # rep 0 is the warm-up
+            cols, hi, lo, geom, K = block_args(
+                codec, np.roll(text, 7919 * (r + 1))[:B])
+            if codec == "rans-static":
+                probs, cdf = _static_probs(cols, dev)
+                (st, lens), t_c, g_c = _events_ms(LK.lane_coder, probs, init)
+                words = blockio.device_words(st, lens)
+                out, t_d, g_d = _events_ms(LK.lane_static_decode, words,
+                                           lens, K, cdf)
+                times = (t_c, t_d)
+            else:
+                probs, t_m, g_m = _events_ms(LK.lane_model, cols, hi, lo,
+                                             geom)
+                (st, lens), t_c, g_c = _events_ms(LK.lane_coder, probs, init)
+                words = blockio.device_words(st, lens)
+                out, t_d, g_d = _events_ms(LK.lane_decode, words, lens, K,
+                                           hi, lo, geom)
+                times, g_c = (t_m, t_c, t_d), g_c + g_m
+            if not torch.equal(out, cols):
+                raise AssertionError(f"timing-lane {codec}: round trip")
+            if r:
+                grew += g_c + g_d
+                for k, t in zip(LANE[codec], times):
+                    ms[k].append(t)
+            nwords = int(lens.to(torch.int64).sum())
+            if r < 3:
+                del probs, st, words, out
+        if grew:
+            raise AssertionError(f"timing-lane {codec}: {grew} cudaMallocs "
+                                 "inside the timed spans")
+        plain_ms, plain = {}, {}
+        if codec != "rans-cdf-s8":  # the main paths' plain versions, once
+            t0 = time.perf_counter()
+            if codec == "rans-static":
+                pst = LK.lane_coder_plain(probs, init)[0]
+                _sync()
+                t1 = time.perf_counter()
+                pout = LK.lane_static_decode_plain(words, lens, K, cdf)
+                plain = dict(lane_coder=_max_abs(pst, st),
+                             lane_static_decode=_max_abs(pout, out))
+            else:
+                pprobs = LK.lane_model_plain(cols, hi, lo, geom)
+                _sync()
+                tm = time.perf_counter()
+                pst = LK.lane_coder_plain(probs, init)[0]
+                _sync()
+                t1 = time.perf_counter()
+                pout = LK.lane_decode_plain(words, lens, K, hi, lo, geom)
+                plain = dict(lane_model=_max_abs(pprobs, probs),
+                             lane_coder=_max_abs(pst, st),
+                             lane_decode=_max_abs(pout, out))
+                plain_ms["lane_model"] = (tm - t0) * 1e3
+                t0 = tm
+            _sync()
+            t2 = time.perf_counter()
+            plain_ms[LANE[codec][-2]] = (t1 - t0) * 1e3
+            plain_ms[LANE[codec][-1]] = (t2 - t1) * 1e3
+            if any(plain.values()):
+                raise AssertionError(f"timing-lane {codec}: plain differs "
+                                     f"{plain}")
+        bound = {k: _lane_bound_ms(k, L, K, geom, hi.shape[0], nwords)
+                 for k in LANE[codec]}
+        res[codec] = dict(ms={k: sum(v) / len(v) for k, v in ms.items()},
+                          ms_reps=ms, plain_ms=plain_ms, err=plain, K=K,
+                          words=nwords, bound=bound)
+        del probs, st, words, out
+        log(f"timing-lane {codec} " + json.dumps(res[codec]))
+    for codec in ("rans-cdf-o0", "rans-cdf-s8"):
+        enc, dec = [], []
+        c = CodecConfig(codec=codec)
+        for r in range(3):  # rep 0 is the warm-up
+            x = np.roll(text, 104729 * (r + 1))
+            t0 = time.perf_counter()
+            comp = api.compress(x, c, device=dev)
+            _sync()
+            t1 = time.perf_counter()
+            back = api.decompress(comp, device=dev)
+            _sync()
+            t2 = time.perf_counter()
+            if back != x.tobytes():
+                raise AssertionError(f"timing-lane {codec}: round trip")
+            if r:
+                enc.append(t1 - t0)
+                dec.append(t2 - t1)
+        mb = text.size / 1e6
+        res[codec]["e2e"] = dict(encode_MBps=[mb / s for s in enc],
+                                 decode_MBps=[mb / s for s in dec],
+                                 ratio=len(comp) / x.size)
+        log(f"timing-lane {codec} end-to-end " + json.dumps(dict(
+            codec=codec, corpus="textbwt_16777216.bin", lanes=L,
+            block_size=B, **res[codec]["e2e"])))
+    return res
+
+
+def _lane_rows(timed: dict, launches: dict) -> list:
+    """The kernels-line rows of L1-L4: L1-L3 at id 56's main path (the
+    default codec), L4 at id 42's."""
+    rows = []
+    for name, codec in (("lane_model", "rans-cdf-o0"),
+                        ("lane_coder", "rans-cdf-o0"),
+                        ("lane_decode", "rans-cdf-o0"),
+                        ("lane_static_decode", "rans-static")):
+        t = timed[codec]
+        bound, by = t["bound"][name]
+        rows.append(dict(
+            name=name, route="cuda", source=SOURCE[name],
+            replaces=REPLACES[name], launches=launches[codec][name],
+            max_abs_err=t["err"][name], ms=t["ms"][name],
+            plain_ms=t["plain_ms"][name],
+            bound_ms=bound, bound_by=by, library_ms=None))
+    return rows
+
+
 def _rows(names, timed: dict, geom, launches: dict,
           before: dict | None = None) -> list:
     from turborc_tpu_torch.ops import rans_kernel as K_
@@ -942,6 +1295,7 @@ def child(before: str | None) -> int:
     phase_decode_cases(dev)
     phase_place_edge(dev)
     phase_coder_edge(dev)
+    phase_lane_kernels(dev)
     golden, golden_r1 = _golden(GOLDEN), _golden(GOLDEN_R1)
     golden_rcp, golden_x2 = _golden(GOLDEN_RCP), _golden(GOLDEN_X2)
     main = _roundtrip("roundtrip-64MB-bench-geom",
@@ -961,6 +1315,11 @@ def child(before: str | None) -> int:
     main_rcp = _roundtrip("roundtrip-rcp-16MB-one-block",
                           golden_rcp["textbwt_16777216_rcp"],
                           KERNELS["tree"], dev)
+    golden_lane = _golden(GOLDEN_LANE)
+    main_lane = {codec: _roundtrip(f"roundtrip-{codec}-16MB-default-config",
+                                   golden_lane[f"textbwt_16777216_{codec}"],
+                                   LANE[codec], dev)["launches"]
+                 for codec in LANE}
     bench, bench_x2 = Geom.parse(BENCH_GEOM), Geom.parse(BENCH_GEOM_X2)
     t0 = _time_path("timing", "o0", "textbwt_67108864.bin", bench, dev)
     t1 = _time_path("timing-o1", "o1", "realsrcbwt_16777216.bin", Geom(),
@@ -969,13 +1328,15 @@ def child(before: str | None) -> int:
                     dev)
     tt = _time_path("timing-tree", "tree", "textbwt_16777216.bin", Geom(),
                     dev)
+    tl = phase_lane_timing(dev)
     timed = phase_before_after(dev, before, before_libs)
     rows = (_rows(KERNELS["o0"], t0, bench, main["launches"], timed)
             + _rows(("o1_model", "o1_decode"), t1, Geom(),
                     main_r1["launches"], timed)
             + _rows(("decode_x2",), tx, bench_x2, main_x2["launches"])
             + _rows(("tree_model", "tree_decode"), tt, Geom(),
-                    main_rcp["launches"], timed))
+                    main_rcp["launches"], timed)
+            + _lane_rows(tl, main_lane))
     log("card (nvidia-smi name, power.limit):")
     log(_smi())
     log(json.dumps({"kernels": rows}))

@@ -5,9 +5,12 @@ the same container bytes.  It imports torch and numpy only, never JAX and
 nothing of ``turborc_tpu``.  Ported so far: the flagship codecs
 ``rans-cdf-o0-p`` (id 57, one or two coder states a lane) and
 ``rans-cdf-r1-p`` (id 60), the dispatch between them, ``rans-auto``
-(id 61), and the bit-tree codec ``rc-p`` (id 8), on nine hand-written
-CUDA kernels (``ops/csrc/rans_kernel.cu``, ``ops/csrc/rans_o1_kernel.cu``,
-``ops/csrc/bittree_kernel.cu``), built by nvcc at first use.
+(id 61), the bit-tree codec ``rc-p`` (id 8), and the per-lane scan codecs
+``rans-cdf-o0`` (id 56, the default), ``rans-cdf-s8`` (id 58) and
+``rans-static`` (id 42), on thirteen hand-written CUDA kernels
+(``ops/csrc/rans_kernel.cu``, ``ops/csrc/rans_o1_kernel.cu``,
+``ops/csrc/bittree_kernel.cu``, ``ops/csrc/rans_lane_kernel.cu``), built
+by nvcc at first use.
 """
 from turborc_tpu_torch.api import compress, decompress
 from turborc_tpu_torch.ops.geom import Geom

@@ -36,7 +36,9 @@ def compress(data, cfg: CodecConfig | None = None, device=None) -> bytes:
                             cfg.prm1, cfg.ctx_bits, geom=geom)]
     for off in range(0, max(arr.shape[0], 1), cfg.block_size):
         blk = arr[off:off + cfg.block_size]
-        payload = codec.encode_block(blk, geom=geom, device=dev)
+        payload = codec.encode_block(blk, lanes=cfg.lanes,
+                                     step_quant=cfg.step_quant, geom=geom,
+                                     device=dev)
         stored = len(payload) >= blk.shape[0]
         if stored:
             payload = blk.tobytes()
@@ -56,8 +58,9 @@ def decompress(buf: bytes, device=None) -> bytes:
         if stored:
             blk = np.frombuffer(payload, np.uint8)[:n]
         else:
-            blk = codec.decode_block(payload, n, geom=hdr["geom"],
-                                     device=dev)
+            blk = codec.decode_block(payload, n, lanes=hdr["lanes"],
+                                     step_quant=hdr["step_quant"],
+                                     geom=hdr["geom"], device=dev)
         if zlib.crc32(blk.tobytes()) != crc:
             raise ValueError(
                 "block crc mismatch: corrupt stream or decoder bug")

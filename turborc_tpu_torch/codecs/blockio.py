@@ -1,12 +1,18 @@
-"""Warm-start table construction and wire packing, numpy only.
+"""Block shaping, lane-stream packing, warm-start table construction and
+wire packing.
 
-Counterpart of ``turborc_tpu/codecs/blockio.py``, reduced to what the
-flagship codec (id 57) needs.  Payload bytes must match the reference
-exactly, so the arithmetic is the reference's, line for line.
+Counterpart of ``turborc_tpu/codecs/blockio.py``.  Payload bytes must
+match the reference exactly, so the arithmetic is the reference's, line
+for line.  Everything is numpy but the device functions, which move only
+a block's occupied stream words, as u16, between the host and the
+device: ``pack_device`` from the coder's ``[L, M]`` matrix,
+``push_words`` to the decoders, which read the words as the payload lays
+them out, and ``unpack_device`` to an ``[L, M]`` matrix.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 TOTAL = 1 << 15
 
@@ -21,6 +27,14 @@ def quantize_freqs(counts: np.ndarray) -> np.ndarray:
                       np.take_along_axis(f, idx[..., None], -1)
                       + TOTAL - f.sum(axis=-1, keepdims=True), -1)
     return f.astype(np.uint16)
+
+
+def nibble_tables(data: np.ndarray):
+    """(hi freqs [16], lo freqs [16,16]) from a block's nibbles -
+    warm-start statistics for the adaptive CDF16 models.  A byte is its
+    (hi, lo) nibble pair, so one byte histogram gives both counts."""
+    joint = np.bincount(data, minlength=256).reshape(16, 16)
+    return quantize_freqs(joint.sum(axis=1)), quantize_freqs(joint)
 
 
 def cumulative(freqs: np.ndarray) -> np.ndarray:
@@ -134,3 +148,89 @@ def unpack_codes(buf: bytes, G: int, n_entries: int = 272):
     if codes.min() < 0 or codes.max() > 255:
         raise ValueError("corrupt payload: warm-table codes out of range")
     return codes.astype(np.uint8), off
+
+
+def K_for(n: int, lanes: int, step_quant: int) -> int:
+    """Per-lane symbol count: ceil(n/lanes) padded to step_quant (at
+    least one step)."""
+    K = -(-n // lanes)
+    return max(-(-K // step_quant) * step_quant, step_quant)
+
+
+def shape_block(data: np.ndarray, lanes: int, step_quant: int):
+    """Pad + reshape flat bytes into [lanes, K] contiguous chunks (uint8)."""
+    n = data.shape[0]
+    K = K_for(n, lanes, step_quant)
+    padded = np.zeros(lanes * K, np.uint8)
+    padded[:n] = data
+    return padded.reshape(lanes, K), K
+
+
+def pack(streams: np.ndarray, lengths: np.ndarray) -> bytes:
+    """[L, M] word matrix + [L] lengths -> payload bytes."""
+    if lengths.max() > 0xFFFF:
+        raise ValueError("lane stream exceeds u16 length field")
+    keep = np.arange(streams.shape[1])[None, :] < lengths[:, None]
+    flat = streams[keep].astype(np.uint16)
+    return lengths.astype("<u2").tobytes() + flat.astype("<u2").tobytes()
+
+
+def lane_table(payload: bytes, lanes: int, M: int):
+    """A payload's checked lane length table [lanes] int64 and its u16
+    words, lane after lane (``unpack``'s checks)."""
+    if len(payload) < 2 * lanes:
+        raise ValueError("corrupt payload: truncated lane length table")
+    lengths = np.frombuffer(payload[:2 * lanes], "<u2").astype(np.int64)
+    flat = np.frombuffer(payload[2 * lanes:len(payload) & ~1], "<u2")
+    if lengths.max() > M or lengths.min() < 2 or lengths.sum() != flat.size:
+        raise ValueError("corrupt payload: lane length table inconsistent")
+    return lengths, flat
+
+
+def unpack(payload: bytes, lanes: int, M: int) -> np.ndarray:
+    """payload -> [lanes, M] int32 word matrix (zero padded)."""
+    lengths, flat = lane_table(payload, lanes, M)
+    streams = np.zeros((lanes, M), np.int32)
+    keep = np.arange(M)[None, :] < lengths[:, None]
+    streams[keep] = flat
+    return streams
+
+
+def device_words(streams: torch.Tensor, lengths: torch.Tensor):
+    """Device [L, M] int32 words + [L] lengths -> the occupied words, lane
+    after lane, as int16 (the u16 bits) on the same device."""
+    keep = (torch.arange(streams.shape[1], device=streams.device)[None, :]
+            < lengths.to(torch.int64)[:, None])
+    # the low half of each little-endian int32: the word as u16
+    return streams[keep].view(torch.int16)[0::2].contiguous()
+
+
+def pack_device(streams: torch.Tensor, lengths: torch.Tensor) -> bytes:
+    """Device [L, M] int32 words + [L] lengths -> the payload ``pack``
+    writes; only the occupied words leave the device, as u16."""
+    lens = lengths.cpu().numpy().astype(np.int64)
+    if lens.max() > 0xFFFF:
+        raise ValueError("lane stream exceeds u16 length field")
+    flat = device_words(streams, lengths).cpu().numpy().view("<u2")
+    return lens.astype("<u2").tobytes() + flat.tobytes()
+
+
+def push_words(payload: bytes, lanes: int, M: int, device):
+    """payload -> (words [W] int16, lengths [lanes] int32) on ``device``:
+    the lane streams as the payload holds them, checked as ``unpack``
+    checks them; only the occupied words cross, as u16."""
+    lengths, flat = lane_table(payload, lanes, M)
+    return (torch.from_numpy(flat.view(np.int16).copy()).to(device),
+            torch.from_numpy(lengths.astype(np.int32)).to(device))
+
+
+def unpack_device(payload: bytes, lanes: int, M: int,
+                  device) -> torch.Tensor:
+    """payload -> [lanes, M] int32 word matrix (zero padded) on
+    ``device``; only the occupied words cross to it, as u16."""
+    words, lengths = push_words(payload, lanes, M, device)
+    keep = (torch.arange(M, device=device)[None, :]
+            < lengths.to(torch.int64)[:, None])
+    streams = torch.zeros((lanes, M), dtype=torch.int32, device=device)
+    streams[keep] = words.to(torch.int32) & 0xFFFF
+    return streams

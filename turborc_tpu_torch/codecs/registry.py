@@ -2,18 +2,21 @@
 
 Counterpart of ``turborc_tpu/codecs/registry.py``, holding only what the
 port has, on every device (the kernels on the card, their plain versions
-on the CPU): the flagships ``rans-cdf-o0-p`` (id 57) and
-``rans-cdf-r1-p`` (id 60), ``rans-auto`` (id 61), which picks between
-them per block, and the bit-tree codec ``rc-p`` (id 8).  The JAX package
-registers ids 57, 60 and 8 only off the CPU.  A name or id the JAX
-package knows but the port does not raises KeyError.
+on the CPU): the per-lane scan codecs ``rans-static`` (id 42),
+``rans-cdf-o0`` (id 56, the default) and ``rans-cdf-s8`` (id 58), the
+flagships ``rans-cdf-o0-p`` (id 57) and ``rans-cdf-r1-p`` (id 60),
+``rans-auto`` (id 61), which picks between them per block, and the
+bit-tree codec ``rc-p`` (id 8).  The JAX package registers ids 57, 60
+and 8 only off the CPU.  A name or id the JAX package knows but the port
+does not raises KeyError.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
 
-from turborc_tpu_torch.codecs import (rans_auto, rans_cdf_o0_p, rans_cdf_r1_p,
+from turborc_tpu_torch.codecs import (rans_auto, rans_cdf_o0, rans_cdf_o0_p,
+                                      rans_cdf_r1_p, rans_cdf_s8, rans_static,
                                       rc_tree)
 
 
@@ -26,10 +29,19 @@ class Codec:
 
 
 _CODECS = (
+    # static-CDF byte rANS, per-block histogram, per-lane streams
+    Codec(42, "rans-static", rans_static.encode_block,
+          rans_static.decode_block),
+    # adaptive CDF16 nibble-pair rANS, per-lane models and streams
+    Codec(56, "rans-cdf-o0", rans_cdf_o0.encode_block,
+          rans_cdf_o0.decode_block),
     # flagship adaptive CDF16 nibble-pair rANS, share-span models,
     # group-interleaved streams, on the hand-written CUDA kernels
     Codec(57, "rans-cdf-o0-p", rans_cdf_o0_p.encode_block,
           rans_cdf_o0_p.decode_block),
+    # per-lane streams, share-span models, per-segment warm tables
+    Codec(58, "rans-cdf-s8", rans_cdf_s8.encode_block,
+          rans_cdf_s8.decode_block),
     # order-1 flagship: rank-quantized previous-byte contexts, contiguous
     # spans, per-group conditional warm tables, same stream format
     Codec(60, "rans-cdf-r1-p", rans_cdf_r1_p.encode_block,

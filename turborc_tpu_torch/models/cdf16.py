@@ -14,6 +14,7 @@ tables at rate >= 7.  All values stay in [0, 32767].
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 RC_BITS = 15
@@ -21,6 +22,17 @@ TOTAL = 1 << RC_BITS  # 32768
 CDFRATE = 7
 IC = 10
 MIXD = (TOTAL - 1) & ~((1 << 5) - 1)  # 32736
+
+
+def init(shape=(), device=None) -> torch.Tensor:
+    """Fresh table(s): cdf[j] = j << (RC_BITS-4), shape [..., 16] int32."""
+    base = torch.arange(16, dtype=torch.int32, device=device) << (RC_BITS - 4)
+    return base.expand(*tuple(shape), 16)
+
+
+def init_np(shape=()) -> np.ndarray:
+    base = np.arange(16, dtype=np.int32) << (RC_BITS - 4)
+    return np.broadcast_to(base, tuple(shape) + (16,)).copy()
 
 
 def _iota(cdf: torch.Tensor) -> torch.Tensor:
@@ -67,3 +79,8 @@ def update_rate(cdf: torch.Tensor, low: torch.Tensor,
                 rate: int = CDFRATE) -> torch.Tensor:
     """Adapt after coding a symbol whose cumulative value is ``low``."""
     return clamp_top(_repair(cdf + delta(cdf, low, rate)))
+
+
+def update(cdf: torch.Tensor, low: torch.Tensor) -> torch.Tensor:
+    """``update_rate`` at the default rate 7."""
+    return update_rate(cdf, low, CDFRATE)

@@ -57,6 +57,18 @@ SIGNATURES = {
         # K8: tile
         "trc_tree_decode": [_P] * 4 + [_I] * 3 + [_P],
     },
+    "rans_lane_kernel.cu": {
+        # L1: K, L, n_seg, then the span (share, sync, lsync, arows,
+        # srows, rate)
+        "trc_lane_model": [_P] * 4 + [_I] * 9 + [_P],
+        # L2: S, L
+        "trc_lane_coder": [_P] * 4 + [_I] * 2 + [_P],
+        # L3: the lanes' words, offsets and lengths, the tables, the
+        # output; K, L, W (words), n_seg, then the span
+        "trc_lane_decode": [_P] * 6 + [_I] * 10 + [_P],
+        # L4: words, offsets, lengths, cdf, output; K, L, W
+        "trc_lane_static_decode": [_P] * 5 + [_I] * 3 + [_P],
+    },
 }
 SOURCES = tuple(SIGNATURES)
 

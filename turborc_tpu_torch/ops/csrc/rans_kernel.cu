@@ -107,20 +107,6 @@ struct Geo {
   int share, sync, lsync, arows, srows, hrows, rate;
 };
 
-__device__ __forceinline__ void repair16(int (&c)[16]) {
-  int m = c[0];
-#pragma unroll
-  for (int i = 1; i < 16; ++i) {
-    m = max(m, c[i] - i);
-    c[i] = m + i;
-  }
-}
-
-__device__ __forceinline__ void clamp16(int (&c)[16]) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) c[i] = min(c[i], kTotal - 16 + i);
-}
-
 constexpr int kColSteps = 64;                 // K2: byte steps a cols stage
 static_assert((kColSteps & (kColSteps - 1)) == 0, "kColSteps: 2^n");
 
@@ -176,115 +162,6 @@ __device__ __forceinline__ void load_tables(const int* __restrict__ hi_tbl,
   }
   for (int q = lane; q < (16 - m.arows) * 16; q += kLanes)
     b.fixed[q] = uint16_t(lo_tbl[(m.arows * 16 + q) * G + g]);
-}
-
-// The sum of each of NT tables over every aligned `share`-lane set, all at
-// once (their shuffles and loads pipeline).  Uniform in `share`: every
-// thread of the CTA takes the same branches.
-template <int NT>
-__device__ __forceinline__ void set_sum_n(int (&x)[NT][16], int share,
-                                          int* red) {
-  const int lim = share < 32 ? share : 32;
-  for (int k = 1; k < lim; k <<= 1) {
-#pragma unroll
-    for (int q = 0; q < NT; ++q) {
-#pragma unroll
-      for (int e = 0; e < 16; ++e)
-        x[q][e] += __shfl_xor_sync(kFull, x[q][e], k);
-    }
-  }
-  if (share > 32) {
-    const int warp = threadIdx.x >> 5;
-    const int per = share >> 5;  // warps per set: 2 or 4
-    const int first = warp & ~(per - 1);
-#pragma unroll
-    for (int q = 0; q < NT; ++q) {
-      if ((threadIdx.x & 31) == 0) {
-#pragma unroll
-        for (int e = 0; e < 16; ++e) red[warp * 16 + e] = x[q][e];
-      }
-      __syncthreads();
-#pragma unroll
-      for (int e = 0; e < 16; ++e) {
-        int s = 0;
-        for (int w = first; w < first + per; ++w) s += red[w * 16 + e];
-        x[q][e] = s;
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// Re-join lo rows h .. h + kBatch - 1 (those below h1) and, with kHi, the
-// hi table, all at once: start + the sum over the set of (table - start),
-// repaired and clamped, stored to the row and its start copy.  The start
-// copy is the same in every lane of a set (it is the last re-join's
-// result, or the group's warm table), so the sum is taken as
-// sum(table) - (share - 1) * start: one add fewer a value.  Repair + clamp
-// at the re-join are load-bearing (turborc_tpu/ops/pallas/rans_kernel.py
-// :515-524).
-constexpr int kBatch = 4;  // lo rows a batch, beside the hi table
-template <bool kHi>
-__device__ __forceinline__ void rejoin_batch(const Bufs& b, int h, int h1,
-                                             int share, int (&hi)[16],
-                                             int (&start_hi)[16]) {
-  constexpr int NT = kBatch + (kHi ? 1 : 0), R0 = kHi ? 1 : 0;
-  int d[NT][16], s[NT][16];
-  if constexpr (kHi) {
-#pragma unroll
-    for (int e = 0; e < 16; ++e) {
-      s[0][e] = start_hi[e];
-      d[0][e] = hi[e];
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < kBatch; ++q) {
-    if (h + q < h1) {
-      ld_row(lane_row(b.lo, h + q), kHalf, d[R0 + q]);
-      ld_row(lane_row(b.st, h + q), kHalf, s[R0 + q]);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 16; ++e) d[R0 + q][e] = s[R0 + q][e] = 0;
-    }
-  }
-  set_sum_n(d, share, b.red);
-#pragma unroll
-  for (int q = 0; q < NT; ++q) {
-#pragma unroll
-    for (int e = 0; e < 16; ++e) d[q][e] += (1 - share) * s[q][e];
-    repair16(d[q]);
-    clamp16(d[q]);
-  }
-  if constexpr (kHi) {
-#pragma unroll
-    for (int e = 0; e < 16; ++e) hi[e] = start_hi[e] = d[0][e];
-  }
-#pragma unroll
-  for (int q = 0; q < kBatch; ++q) {
-    if (h + q < h1) {
-      st_row(lane_row(b.lo, h + q), kHalf, d[R0 + q]);
-      st_row(lane_row(b.st, h + q), kHalf, d[R0 + q]);
-    }
-  }
-}
-
-// The re-joins after byte t, counted in byte index (sync and lsync are
-// powers of two): hot (hi table and lo rows < hrows) when t % sync ==
-// sync-1, cold (rows srows..arows-1) when (t+1) % lsync == 0, in batches.
-__device__ __forceinline__ void rejoin_batches_after(int t, const Geo& m,
-                                                     const Bufs& b,
-                                                     int (&hi)[16],
-                                                     int (&start_hi)[16]) {
-  if (m.share == 1) return;
-  if ((t & (m.sync - 1)) == m.sync - 1) {
-    rejoin_batch<true>(b, 0, m.hrows, m.share, hi, start_hi);
-    for (int h = kBatch; h < m.hrows; h += kBatch)
-      rejoin_batch<false>(b, h, m.hrows, m.share, hi, start_hi);
-  }
-  if (m.arows > m.srows && ((t + 1) & (m.lsync - 1)) == 0) {
-    for (int h = m.srows; h < m.arows; h += kBatch)
-      rejoin_batch<false>(b, h, m.arows, m.share, hi, start_hi);
-  }
 }
 
 // ---- K1 and K5: the decoders, one thread per lane, on the search, lookup,

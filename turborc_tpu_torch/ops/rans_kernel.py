@@ -32,8 +32,8 @@ import dataclasses
 
 import torch
 
-from turborc_tpu_torch.codecs import rans_cdf_s8 as S8
 from turborc_tpu_torch.models import cdf16
+from turborc_tpu_torch.models import span as S8
 from turborc_tpu_torch.ops import rans
 from turborc_tpu_torch.ops.geom import DEFAULT, Geom
 

@@ -15,7 +15,8 @@ class CodecConfig:
     """Configuration written into the container header.
 
     Attributes:
-      codec:      registered codec name (ported: "rans-cdf-o0-p",
+      codec:      registered codec name (ported: "rans-static",
+                  "rans-cdf-o0", "rans-cdf-o0-p", "rans-cdf-s8",
                   "rans-cdf-r1-p", "rans-auto", "rc-p").
       lanes:      lane count recorded in the header (power of two).
       block_size: bytes per independently decodable block.

@@ -22,8 +22,8 @@ than a stage or ends inside one, and on tiles its C entry must refuse,
 and the lane kernels L1-L4 at 4 to 8192 lanes, spans of 1 to 128 lanes
 and on corrupt streams and length tables, beside the codecs' payloads
 on the card against the CPU's (``lane-kernels-vs-plain``).  With
-``--before COMMIT``, K9 is timed in turns against that of a ``git
-archive COMMIT`` unpacked in ``_archive/COMMIT/``.  It imports no JAX
+``--before COMMIT``, L1 and L3 are timed in turns against those of a
+``git archive COMMIT`` unpacked in ``_archive/COMMIT/``.  It imports no JAX
 and nothing of ``turborc_tpu``; the corpora under
 ``turborc_tpu/bench/_data/`` are read as files.
 
@@ -60,9 +60,9 @@ BENCH_GEOM_X2 = BENCH_GEOM + "x2"
 # _archive/COMMIT/ (a git archive of COMMIT unpacked there) that hold the
 # kernels in REDESIGNED and times those against the current ones.  Their
 # C signatures there, as (pointers, ints) before the stream: those of
-# af41c8b, the same as now.  Without it the phase is skipped.
+# 95225c7, the same as now.  Without it the phase is skipped.
 BEFORE_FLAG = "--before"
-BEFORE_ARGS = {"trc_tree_model": (3, 2)}
+BEFORE_ARGS = {"trc_lane_model": (4, 9), "trc_lane_decode": (6, 10)}
 ARCHIVE = ROOT / "_archive"
 CSRC_REL = "turborc_tpu_torch/ops/csrc"
 CHILD_FLAG = "--child"
@@ -95,7 +95,7 @@ REPLACES = {
     "lane_static_decode": "turborc_tpu/codecs/rans_static.py:55",
 }
 # Kernels timed against a parent's with --before.
-REDESIGNED = ("tree_model",)
+REDESIGNED = ("lane_model", "lane_decode")
 # Each path's kernels in stage order: model, coder, place, decode.
 KERNELS = {"o0": ("model", "coder", "place", "decode"),
            "o1": ("o1_model", "coder", "place", "o1_decode"),
@@ -768,26 +768,28 @@ def _time_path(label: str, kind: str, corpus: str, geom, dev) -> dict:
 
 
 def phase_before_after(dev, before: str | None, libs: dict) -> dict:
-    """K9 of commit ``before`` against the current one, on id 8's 16 MB
-    textbwt block at the default geometry.  A warm-up, then 3 repetitions
-    on distinct rotations, the two builds in turns (before first on odd
-    repetitions), CUDA events around the bare C entry of each: outputs
-    are allocated beforehand, and a new allocator segment inside a span
-    fails the phase.  Their outputs must be equal.  Returns {name:
-    {"before": ms per repetition, "after": ...}}, empty without
-    ``before``."""
+    """L1 and L3 of commit ``before`` against the current ones, on one
+    4 MB block of textbwt at the default CodecConfig, id 56's geometry
+    (share 1) and id 58's (share 8, 64 segments).  A warm-up, then 3
+    repetitions on distinct rotations, the two builds in turns (before
+    first on odd repetitions), CUDA events around the bare C entry of
+    each: outputs are allocated beforehand, and a new allocator segment
+    inside a span fails the phase.  Their outputs must be equal.  Returns
+    {codec: {name: {"before": ms per repetition, "after": ...}}}, empty
+    without ``before``."""
     import ctypes
 
     import numpy as np
     import torch
-    from turborc_tpu_torch.ops import build
-    from turborc_tpu_torch.ops.geom import Geom
+    from turborc_tpu_torch.codecs import blockio
+    from turborc_tpu_torch.ops import build, rans
+    from turborc_tpu_torch.ops import rans_lane_kernel as LK
+    from turborc_tpu_torch.utils.config import CodecConfig
     label = "timing-before-after"
     phase(label)
     if not libs:
         log(f"{label}: skipped, no {BEFORE_FLAG} COMMIT")
         return {}
-    _, _, B, _ = _kernel_modules()
     fns = {}
     for name, path in libs.items():  # that commit's signatures
         fn = getattr(ctypes.CDLL(str(path)), "trc_" + name)
@@ -797,9 +799,11 @@ def phase_before_after(dev, before: str | None, libs: dict) -> dict:
         fn.restype = ctypes.c_int
         fns[name] = fn
     text = _corpus("textbwt_16777216.bin")
-    geom = Geom()
-    G = geom.groups
-    ms = {k: {"before": [], "after": []} for k in REDESIGNED}
+    cfg = CodecConfig()
+    L = cfg.lanes
+    codecs = ("rans-cdf-o0", "rans-cdf-s8")
+    ms = {c: {k: {"before": [], "after": []} for k in REDESIGNED}
+          for c in codecs}
 
     def timed(fn, cargs) -> float:
         cargs = [x.data_ptr() if isinstance(x, torch.Tensor) else x
@@ -817,39 +821,48 @@ def phase_before_after(dev, before: str | None, libs: dict) -> dict:
             raise AssertionError(f"{label}: cudaMalloc inside the span")
         return start.elapsed_time(end)
 
-    def turns(name, make, r):
-        """make(who) -> (outputs, C arguments), allocated before the span."""
+    def turns(codec, name, make, r):
+        """make() -> (output, C arguments), allocated before the span."""
         got = {}
         for who in (("before", "after") if r % 2 else ("after", "before")):
-            outs, cargs = make(who)
+            out, cargs = make()
             fn = (build.load()["trc_" + name] if who == "after"
                   else fns[name])
             t = timed(fn, cargs)
             if r:
-                ms[name][who].append(t)
-            got[who] = outs
+                ms[codec][name][who].append(t)
+            got[who] = out
             del cargs
-        if not all(torch.equal(x, y)
-                   for x, y in zip(got["before"], got["after"])):
-            raise AssertionError(f"{name}: the kernels of {before} and now "
-                                 "differ")
+        if not torch.equal(got["before"], got["after"]):
+            raise AssertionError(f"{name} {codec}: the kernels of {before} "
+                                 "and now differ")
 
-    for r in range(4):  # rep 0 is the warm-up
-        b = _codec("tree").encode_args(np.roll(text, 7919 * (r + 1)), geom,
-                                       dev)
-        K = b.K
-        cols = b.block.T.contiguous().reshape(K, G, 128)
+    init = torch.full((L,), rans.ANS_LOW, dtype=torch.int32, device=dev)
+    for codec in codecs:
+        for r in range(4):  # rep 0 is the warm-up
+            cols, hi, lo, geom, K = _lane_block(
+                codec, np.roll(text, 7919 * (r + 1))[:cfg.block_size], dev)
+            probs = LK.lane_model(cols, hi, lo, geom)
+            st, lens = LK.lane_coder(probs, init)
+            words = blockio.device_words(st, lens)
+            offs = LK._offsets(lens)
+            del st
 
-        def tree_model(who):
-            outs = (torch.empty((2 * K, G, 128), dtype=torch.int32,
-                                device=dev),)
-            return outs, B.tree_model_cargs(cols, b.tree, *outs)
+            def model():
+                out = torch.empty_like(probs)
+                return out, LK.lane_model_cargs(cols, hi, lo, out, geom)
 
-        turns("tree_model", tree_model, r)
-        del b, cols
-    log(f"{label} " + json.dumps(dict(geoms={k: geom.spec
-                                             for k in REDESIGNED},
-                                      before=before, ms=ms)))
+            def decode():
+                out = torch.empty_like(cols)
+                return out, LK.lane_decode_cargs(words, offs, lens, K, hi,
+                                                 lo, out, geom)
+
+            turns(codec, "lane_model", model, r)
+            turns(codec, "lane_decode", decode, r)
+            del cols, probs, words, offs, lens
+    log(f"{label} " + json.dumps(dict(before=before, T={
+        c: LK.lane_team(8 if c == "rans-cdf-s8" else 1) for c in codecs},
+        ms=ms)))
     return ms
 
 
@@ -943,14 +956,19 @@ def phase_place_edge(dev) -> None:
 # The lane kernels L1-L4 against their plain versions: (lanes, K, the
 # geometry's fields that differ from PER_LANE's, warm-table segments).
 # 4 to 8192 lanes; per-lane models (ids 56, 42's layout), spans of 8 (id
-# 58's default), 64 and 128 lanes (sets across warps and a whole CTA);
-# static rows (arows 8, 4, 0), srows past arows; rates 7 and 10; K = 0.
+# 58's default), 32, 64 and 128 lanes (sets across warps, CTAs of 512 and
+# 1024 threads; L1 and L3 at 16 threads a lane, 8 at share 128); static
+# rows (arows 8, 4, 0), srows past arows; rates 7, 8 and 10; K = 0 and K
+# not a multiple of the team's chunk of steps.
 LANE_CASES = ((4, 64, {}, 1), (4, 0, {}, 1), (16, 64, dict(share=8), 2),
               (512, 64, {}, 1), (512, 64, dict(share=8), 64),
               (8192, 32, dict(share=64, sync=8, arows=4, srows=2), 64),
               (8192, 32, dict(share=128, arows=8, rate=10), 16),
               (128, 32, dict(share=128, arows=0, srows=0, rate=10), 1),
-              (16, 32, dict(share=8, arows=4, srows=8), 2))
+              (16, 32, dict(share=8, arows=4, srows=8), 2),
+              (64, 37, dict(arows=5), 1),
+              (256, 32, dict(share=32, sync=2, lsync=16, srows=20, rate=8),
+               4))
 # The codecs on the card against the CPU: (codec, lanes, bytes), at
 # step_quant 256 and the default geometry: an empty block, and one of
 # several K (K = 512).
@@ -1091,6 +1109,32 @@ def _lane_bound_ms(name: str, L: int, K: int, geom, n_seg: int,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _lane_block(codec: str, x, dev):
+    """One block ``x`` of the default CodecConfig as ids 56 (share 1, one
+    warm-table segment) or 58 (``rans-cdf-s8``: share 8, its segments)
+    shape it: (cols [K, L] on ``dev``, hi, lo tables, geometry, K)."""
+    import torch
+    from turborc_tpu_torch.codecs import blockio
+    from turborc_tpu_torch.codecs import rans_cdf_s8 as S58
+    from turborc_tpu_torch.ops import rans_lane_kernel as LK
+    from turborc_tpu_torch.ops.geom import Geom
+    from turborc_tpu_torch.utils.config import CodecConfig
+    cfg = CodecConfig()
+    L = cfg.lanes
+    if codec == "rans-cdf-s8":
+        geom = Geom(share=8)
+        tabs = S58.segment_tables(x, S58._n_seg(L, 8))
+        block, K = S58.shape_spans(x, L, cfg.step_quant, 8, 32)
+        cols = torch.from_numpy(block).to(dev).permute(1, 0, 2)
+    else:
+        geom = LK.PER_LANE
+        tabs = (t[None] for t in blockio.nibble_tables(x))
+        block, K = blockio.shape_block(x, L, cfg.step_quant)
+        cols = torch.from_numpy(block).to(dev).T
+    hi, lo = S58.tables_on(*tabs, dev)
+    return cols.reshape(K, L).contiguous(), hi, lo, geom, K
+
+
 def _events_ms(fn, *args):
     """(output, ms) of one call between two CUDA events, and the new
     allocator segments inside the span."""
@@ -1117,37 +1161,20 @@ def phase_lane_timing(dev) -> dict:
     import torch
     from turborc_tpu_torch import api
     from turborc_tpu_torch.codecs import blockio
-    from turborc_tpu_torch.codecs import rans_cdf_s8 as S58
     from turborc_tpu_torch.ops import rans
     from turborc_tpu_torch.ops import rans_lane_kernel as LK
-    from turborc_tpu_torch.ops.geom import Geom
     from turborc_tpu_torch.utils.config import CodecConfig
     phase("timing-lane")
     text = _corpus("textbwt_16777216.bin")
     cfg = CodecConfig()
     L, B = cfg.lanes, cfg.block_size
     res = {}
-
-    def block_args(codec, x):
-        if codec == "rans-cdf-s8":
-            geom = Geom(share=8)
-            tabs = S58.segment_tables(x, S58._n_seg(L, 8))
-            block, K = S58.shape_spans(x, L, cfg.step_quant, 8, 32)
-            cols = torch.from_numpy(block).to(dev).permute(1, 0, 2)
-        else:
-            geom = LK.PER_LANE
-            tabs = (t[None] for t in blockio.nibble_tables(x))
-            block, K = blockio.shape_block(x, L, cfg.step_quant)
-            cols = torch.from_numpy(block).to(dev).T
-        hi, lo = S58.tables_on(*tabs, dev)
-        return cols.reshape(K, L).contiguous(), hi, lo, geom, K
-
     init = torch.full((L,), rans.ANS_LOW, dtype=torch.int32, device=dev)
     for codec in ("rans-cdf-o0", "rans-cdf-s8", "rans-static"):
         ms, grew = {k: [] for k in LANE[codec]}, 0
         for r in range(4):  # rep 0 is the warm-up
-            cols, hi, lo, geom, K = block_args(
-                codec, np.roll(text, 7919 * (r + 1))[:B])
+            cols, hi, lo, geom, K = _lane_block(
+                codec, np.roll(text, 7919 * (r + 1))[:B], dev)
             if codec == "rans-static":
                 probs, cdf = _static_probs(cols, dev)
                 (st, lens), t_c, g_c = _events_ms(LK.lane_coder, probs, init)
@@ -1239,9 +1266,12 @@ def phase_lane_timing(dev) -> dict:
     return res
 
 
-def _lane_rows(timed: dict, launches: dict) -> list:
+def _lane_rows(timed: dict, launches: dict, before: dict) -> list:
     """The kernels-line rows of L1-L4: L1-L3 at id 56's main path (the
-    default codec), L4 at id 42's."""
+    default codec), L4 at id 42's; L1 and L3 with T (threads a lane) and,
+    from ``before`` (timing-before-after at id 56), before_ms and
+    after_ms."""
+    from turborc_tpu_torch.ops import rans_lane_kernel as LK
     rows = []
     for name, codec in (("lane_model", "rans-cdf-o0"),
                         ("lane_coder", "rans-cdf-o0"),
@@ -1255,11 +1285,17 @@ def _lane_rows(timed: dict, launches: dict) -> list:
             max_abs_err=t["err"][name], ms=t["ms"][name],
             plain_ms=t["plain_ms"][name],
             bound_ms=bound, bound_by=by, library_ms=None))
+        if name in REDESIGNED:
+            pair = before.get(codec, {}).get(name, {})
+            mean = {w: sum(v) / len(v) if v else None
+                    for w, v in pair.items()}
+            # before_ms / after_ms: bare C entries, in turns, one phase
+            rows[-1].update(T=LK.lane_team(1), before_ms=mean.get("before"),
+                            after_ms=mean.get("after"))
     return rows
 
 
-def _rows(names, timed: dict, geom, launches: dict,
-          before: dict | None = None) -> list:
+def _rows(names, timed: dict, geom, launches: dict) -> list:
     from turborc_tpu_torch.ops import rans_kernel as K_
     rows = []
     for k in names:
@@ -1269,13 +1305,6 @@ def _rows(names, timed: dict, geom, launches: dict,
             launches=launches[k], max_abs_err=timed["err"][k],
             ms=timed["ms"][k], plain_ms=timed["plain_ms"][k],
             bound_ms=bound, bound_by=by, library_ms=None))
-        if k in REDESIGNED:
-            pair = (before or {}).get(k, {})
-            mean = {w: sum(v) / len(v) if v else None
-                    for w, v in pair.items()}
-            # before_ms / after_ms: bare C entries, in turns, one phase
-            rows[-1].update(before_ms=mean.get("before"),
-                            after_ms=mean.get("after"))
         if k in ("decode", "decode_x2"):  # T: threads per lane
             rows[-1].update(T=K_.decode_launch(geom).threads // K_.GLANES)
     return rows
@@ -1330,13 +1359,13 @@ def child(before: str | None) -> int:
                     dev)
     tl = phase_lane_timing(dev)
     timed = phase_before_after(dev, before, before_libs)
-    rows = (_rows(KERNELS["o0"], t0, bench, main["launches"], timed)
+    rows = (_rows(KERNELS["o0"], t0, bench, main["launches"])
             + _rows(("o1_model", "o1_decode"), t1, Geom(),
-                    main_r1["launches"], timed)
+                    main_r1["launches"])
             + _rows(("decode_x2",), tx, bench_x2, main_x2["launches"])
             + _rows(("tree_model", "tree_decode"), tt, Geom(),
-                    main_rcp["launches"], timed)
-            + _lane_rows(tl, main_lane))
+                    main_rcp["launches"])
+            + _lane_rows(tl, main_lane, timed))
     log("card (nvidia-smi name, power.limit):")
     log(_smi())
     log(json.dumps({"kernels": rows}))
@@ -1407,7 +1436,7 @@ def _args(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(CHILD_FLAG, action="store_true", help=argparse.SUPPRESS)
     ap.add_argument(BEFORE_FLAG, metavar="COMMIT",
-                    help="also time K9 of the git archive of COMMIT "
+                    help="also time L1 and L3 of the git archive of COMMIT "
                     "unpacked in _archive/COMMIT/")
     return ap.parse_args(argv)
 

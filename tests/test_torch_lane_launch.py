@@ -322,8 +322,9 @@ def test_words_equal_the_zero_padded_matrix():
 
 
 # ---------------------------------------------------------------------------
-# L1 / L3: re-join of `share` lanes by warp butterflies and, past a warp,
-# per-warp sums in shared memory
+# The one-thread-a-lane re-join of `share` lanes (rans_common.cuh, which K1,
+# K2 and K5 run): warp butterflies and, past a warp, per-warp sums in
+# shared memory.  L1 and L3's team port: tests/test_torch_lane_team.py.
 # ---------------------------------------------------------------------------
 
 def set_sum_mirror(x: np.ndarray, share: int, cross_warp: bool = True):
@@ -385,10 +386,10 @@ def test_rejoin_mirror_negative_control(share):
 
 
 def test_prefetch_queue_order():
-    """L1's and L2's queue of kPre loads ahead (q[0] taken, the rest
-    shifted down, the step kPre ahead requested into q[kPre - 1]): every
-    step t < K is read once, in order, by the step that takes it, and
-    nothing at or past K is read."""
+    """L2's queue of kPre loads ahead (q[0] taken, the rest shifted down,
+    the step kPre ahead requested into q[kPre - 1]): every step t < K is
+    read once, in order, by the step that takes it, and nothing at or
+    past K is read."""
     P = LK.PRE_STEPS
     for K in (0, 1, P - 1, P, P + 1, 3 * P + 5, 64):
         reads = [u for u in range(P) if u < K]

@@ -10,12 +10,16 @@ o1_model``, ``--kernel tree_decode`` or ``--kernel tree_model``, the o1
 model K7 on id 60's block, the bit-tree decoder K8 or model K9 on id 8's
 (the split, SASS, CTAs an SM and ablations, ``probe_split``); ``--src``
 may also be the ``csrc`` of e3484f9 (K7, K8) or af41c8b (K9), whose
-layouts it tells apart.
+layouts it tells apart.  With ``--kernel lane_model`` or ``--kernel
+lane_decode``, the lane kernels L1 or L3 (teams of T threads a lane) on a
+4 MB block at ids 56's and 58's geometries: the T sweep (4, 8, 16), the
+split, ptxas of each instantiation, the team launch and CTAs an SM, and
+ablations (``probe_lane``; the port's source only).
 
     python3 tools/decode_probe.py [--src DIR] [--ablate no-rejoin,...]
         [--label NAME] [--out FILE]
         [--kernel decode|model|o1_decode|coder|o1_model|tree_decode|
-                  tree_model]
+                  tree_model|lane_model|lane_decode]
 
 ``--src`` is a ``csrc`` directory: the port's own (the default), or that
 of commit ff11eb3 (a ``git archive ff11eb3`` unpacked into a git-ignored
@@ -236,8 +240,10 @@ def _sass(lib: Path, names: str = "decode_x2|decode") -> dict:
             keep.append(line)
         m = re.search(r"Function : (\S+)", line)
         if m:
-            k = re.search(rf"\d({names})_kernel", m.group(1))
-            cur = k.group(1) if k else None
+            k = re.search(rf"\d({names})_kernel(?:I(\w*?E)EEv)?",
+                          m.group(1))
+            cur = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
+                   if k else None)
             if cur:
                 funcs[cur] = []
             continue
@@ -1060,6 +1066,280 @@ def probe_split(opt, dev, res: dict, work: Path) -> dict:
     return res
 
 
+# L1 (``--kernel lane_model``) and L3 (``--kernel lane_decode``): the
+# per-lane scan codecs' team kernels of rans_lane_kernel.cu on one 4 MB
+# block of textbwt at the default CodecConfig (512 lanes, K = 8192), at id
+# 56's geometry (share 1, one segment) and id 58's (share 8, 64 segments).
+# Stamps and segments as for K1 (thread 0 of CTA 0: team thread 0 of lane
+# 0), on the lines of the byte loop; "team-N" builds the kernels at kTeam
+# = N (the T sweep, held byte for byte); ablations are timed only.
+LANE_CORPUS = CORPUS.parent / "textbwt_16777216.bin"
+LANE_GEOMS = {"id56": dict(share=1), "id58": dict(share=8)}
+LANE_TEAMS = (4, 8, 16)
+# Ablations of the team re-join (both kernels): no barrier, no prefix-max
+# repair scans (the check of increasing tables stays), the scans on every
+# table (no check), no sums across warps, no butterfly within a warp.
+LANE_REJOIN_ABLATIONS = {
+    "no-barrier": [("    __syncthreads();\n", "")],
+    "no-repair": [("  if (!__all_sync(kFull, inc)) {", "  if (false) {")],
+    "scan-always": [("  if (!__all_sync(kFull, inc)) {", "  if (true) {")],
+    "no-cross-warp": [("  if (span > 32) {", "  if (false) {")],
+    "no-butterfly": [("  for (int k = T; k < lim; k <<= 1) {",
+                      "  for (int k = T; k < 0; k <<= 1) {")],
+}
+LANE_SPLIT = {
+    "lane_model": dict(
+        entry="trc_lane_model", loop_in="lane_model_kernel(",
+        section=("// ---- The team of a lane", "// ---- L2:"),
+        stamps=[("sym_next = __shfl_sync(kFull, cur, (t + 1) & (T - 1), T);",
+                 1, 0, "sym"),
+                ("ld_part<E>(rp, row);", 1, 1, "row[0]"),
+                ("team_lookup<T>(hi, hs, low_h, fr_h);", 1, 2,
+                 "low_h + fr_h"),
+                ("team_update<T>(hi, low_h, m.rate, j);", 1, 3, "hi[0]"),
+                ("team_lookup<T>(row, ls, low_l, fr_l);", 1, 4,
+                 "low_l + fr_l"),
+                ("slot_l = take ? (low_l << 16) | fr_l : slot_l;", 1, 5,
+                 "slot_h + slot_l"),
+                ("      team_rejoins_after<T>(t, m, b, n, j, buf, hi, "
+                 "start_hi);", 1, 6, "hi[0]")],
+        segments=["next byte (shuffle), chunk load", "lo row load",
+                  "hi lookup (two shuffles)", "hi update",
+                  "lo lookup (two shuffles)",
+                  "lo update, row store, slot select",
+                  "slot stores (every T steps), re-join"],
+        ablations={
+            "no-rejoin": [("    if constexpr (kShared)\n"
+                           "      team_rejoins_after<T>(t, m, b, n, j, buf, "
+                           "hi, start_hi);\n", "")],
+            "no-update": [("    team_update<T>(hi, low_h, m.rate, j);\n", ""),
+                          ("      team_update<T>(row, low_l, m.rate, j);\n",
+                           "")],
+            "no-row": [("    ld_part<E>(rp, row);\n",
+                        "#pragma unroll\n    for (int e = 0; e < E; ++e) "
+                        "row[e] = hi[e] + hs;\n"),
+                       ("      st_part<E>(rp, row);\n", "")],
+            **LANE_REJOIN_ABLATIONS,
+        }),
+    "lane_decode": dict(
+        entry="trc_lane_decode", loop_in="lane_decode_kernel(",
+        section=("// ---- The team of a lane", "// ---- L4:"),
+        stamps=[("const int hs = team_search<T>(hi, int(value), j, mask);", 1,
+                 0, "hs"),
+                ("team_lookup<T>(hi, hs, low_h, fr_h);", 1, 1,
+                 "low_h + fr_h"),
+                ("team_words_renorm<T>(w, state, j);", 1, 2, "state"),
+                ("team_update<T>(hi, low_h, m.rate, j);", 1, 3, "hi[0]"),
+                ("const int ls = team_search<T>(row, int(value), j, mask);",
+                 1, 4, "ls"),
+                ("team_lookup<T>(row, ls, low_l, fr_l);", 1, 5,
+                 "low_l + fr_l"),
+                ("team_words_renorm<T>(w, state, j);", 2, 6, "state"),
+                ("if (j == (t & (T - 1))) mine = uint8_t((hs << 4) | ls);", 1,
+                 7, "row[0] + mine"),
+                ("      team_rejoins_after<T>(t, m, b, n, j, buf, hi, "
+                 "start_hi);", 1, 8, "hi[0]")],
+        segments=["hi search (ballot, popc)", "hi lookup (two shuffles)",
+                  "hi state step, renorm", "hi update",
+                  "lo search (row load, ballot, popc)",
+                  "lo lookup (two shuffles)", "lo state step, renorm",
+                  "lo update, row store, byte select",
+                  "byte stores (every T steps), re-join"],
+        ablations={
+            "no-rejoin": [("    if constexpr (kShared)\n"
+                           "      team_rejoins_after<T>(t, m, b, n, j, buf, "
+                           "hi, start_hi);\n", "")],
+            "no-update": [("    team_update<T>(hi, low_h, m.rate, j);\n", ""),
+                          ("      team_update<T>(row, low_l, m.rate, j);\n",
+                           "")],
+            "no-word": [("  w.next = __shfl_sync(kFull, w.cur, w.pos & (T - 1), "
+                         "T);", "  w.next = uint32_t(w.pos) & 0xFFFFu;")],
+            **LANE_REJOIN_ABLATIONS,
+        }),
+}
+
+
+def _lane_occupancy(kernel: str) -> str:
+    """A C entry that reports, for the geometry it is given, the team
+    launch (T, threads, shared memory, CTAs) and the CTAs an SM that the
+    CUDA runtime's occupancy query allows for it."""
+    return f"""
+extern "C" int trc_probe_occupancy(int* res, int K, int L, int n_seg,
+                                   int share, int sync, int lsync,
+                                   int arows, int srows, int rate) {{
+  Span m;
+  if (!make_span(K, L, n_seg, share, sync, lsync, arows, srows, rate, m))
+    return int(cudaErrorInvalidValue);
+  return team_dispatch(m, [&](auto team, auto shared) {{
+    constexpr int T = decltype(team)::value;
+    constexpr bool S = decltype(shared)::value;
+    const TeamLaunch g = team_launch(m, L, T);
+    cudaError_t e = cudaFuncSetAttribute(
+        {kernel}<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(res, {kernel}<T, S>,
+                                                        g.threads, g.smem);
+    res[1] = T;
+    res[2] = g.threads;
+    res[3] = g.smem;
+    res[4] = g.grid;
+    return int(e);
+  }});
+}}
+"""
+
+
+def _lane_ptxas(report: str, kernel: str) -> dict:
+    """Registers, stack, spills of each instantiation ``kernel<T>``."""
+    res, key = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line \
+                or "Function properties for" in line:
+            m = re.search(rf"{kernel}_kernelILi(\d+)ELb([01])E", line)
+            key = f"T={m.group(1)},shared={m.group(2)}" if m else None
+            if key:
+                res.setdefault(key, {})
+            continue
+        if key:
+            for k, pat in (("stack_bytes", r"(\d+) bytes stack frame"),
+                           ("spill_stores", r"(\d+) bytes spill stores"),
+                           ("spill_loads", r"(\d+) bytes spill loads"),
+                           ("registers", r"Used (\d+) registers")):
+                m3 = re.search(pat, line)
+                if m3:
+                    res[key][k] = int(m3.group(1))
+    return res
+
+
+def _lane_inputs(kernel: str, geom_name: str, dev, rot: int):
+    """(geometry, C arguments maker, reference output, K) of one block:
+    make(outs) -> the C entry's arguments, outs shaped like the
+    reference."""
+    import dataclasses
+
+    from turborc_tpu_torch.codecs import blockio
+    from turborc_tpu_torch.codecs import rans_cdf_s8 as S58
+    from turborc_tpu_torch.ops import rans
+    from turborc_tpu_torch.ops import rans_lane_kernel as LK
+    from turborc_tpu_torch.utils.config import CodecConfig
+    cfg = CodecConfig()
+    L = cfg.lanes
+    x = np.roll(np.fromfile(LANE_CORPUS, np.uint8), rot)[:cfg.block_size]
+    geom = dataclasses.replace(LK.PER_LANE, **LANE_GEOMS[geom_name])
+    if geom.share > 1:
+        tabs = S58.segment_tables(x, S58._n_seg(L, geom.share))
+        block, K = S58.shape_spans(x, L, cfg.step_quant, geom.share,
+                                   geom.lsync)
+        cols = torch.from_numpy(block).to(dev).permute(1, 0, 2)
+    else:
+        tabs = (t[None] for t in blockio.nibble_tables(x))
+        block, K = blockio.shape_block(x, L, cfg.step_quant)
+        cols = torch.from_numpy(block).to(dev).T
+    hi, lo = S58.tables_on(*tabs, dev)
+    cols = cols.reshape(K, L).contiguous()
+    probs = LK.lane_model(cols, hi, lo, geom)
+    if kernel == "lane_model":
+        return geom, (lambda outs: LK.lane_model_cargs(
+            cols, hi, lo, outs[0], geom)), probs, K
+    st, lens = LK.lane_coder(probs, torch.full(
+        (L,), rans.ANS_LOW, dtype=torch.int32, device=dev))
+    words = blockio.device_words(st, lens)
+    offs = LK._offsets(lens)
+    return geom, (lambda outs: LK.lane_decode_cargs(
+        words, offs, lens, K, hi, lo, outs[0], geom)), cols, K
+
+
+def probe_lane(opt, dev, res: dict, work: Path) -> dict:
+    """L1 or L3 (``LANE_SPLIT[opt.kernel]``) of the port's source at ids
+    56's and 58's geometries: ptxas of each instantiation, the team launch
+    and CTAs an SM, the clock64() split of the byte step, and the bare C
+    entry timed (a warm-up, then 3 repetitions on distinct rotations of
+    the block) for the base, the stamped build, the T sweep (``team-N``,
+    held byte for byte like the base) and the ablations (timed only)."""
+    spec = LANE_SPLIT[opt.kernel]
+    src = Path(opt.src).resolve()
+    base = (src / "rans_lane_kernel.cu").read_text()
+    m = re.search(r"constexpr int kTeam = (\d+);", base)
+    if m is None:
+        raise ValueError(f"{src}: no team kernels (kTeam)")
+    res["kTeam"] = int(m.group(1))
+    header = (src / "rans_common.cuh").read_text()
+    variants = {"base": base}
+    for name in [x for x in opt.ablate.split(",") if x]:
+        variants[name] = _ablate(name, base, header, spec["section"],
+                                 spec["ablations"][name])
+    for T in LANE_TEAMS:
+        if T != res["kTeam"]:
+            variants[f"team-{T}"] = base.replace(m.group(0),
+                                                 f"constexpr int kTeam = {T};")
+    variants["stamped"] = stamped(base, spec["loop_in"], spec["stamps"])
+    exact = ("base", "stamped", *(k for k in variants
+                                  if k.startswith("team-")))
+    occ = _lane_occupancy(opt.kernel + "_kernel")
+    variants = {k: ((v[0] + occ, v[1]) if isinstance(v, tuple) else v + occ)
+                for k, v in variants.items()}
+    libs, reports, res["nvcc_s"] = _build_all(variants, src, work,
+                                              "rans_lane_kernel.cu")
+    res["ptxas"] = {k: _lane_ptxas(v, opt.kernel) for k, v in reports.items()}
+    res["sass"] = _sass(libs["base"], opt.kernel)
+    # the port's kernels run first (they make the inputs), and the builds
+    # load after them
+    _lane_inputs(opt.kernel, "id56", dev, 0)
+    types = build.SIGNATURES["rans_lane_kernel.cu"][spec["entry"]]
+    fns, loaded = {}, {}
+    for k, lib in libs.items():
+        loaded[k] = ctypes.CDLL(str(lib))
+        fns[k] = getattr(loaded[k], spec["entry"])
+        fns[k].argtypes, fns[k].restype = types, ctypes.c_int
+    segs = spec["segments"]
+    res["geoms"] = {}
+    for gname in LANE_GEOMS:
+        times = {k: [] for k in variants}
+        split, K, launch = None, 0, {}
+        for r in range(4):  # rep 0 is the warm-up
+            geom, make, ref, K = _lane_inputs(opt.kernel, gname, dev,
+                                              7919 * (r + 1))
+            if r == 0:
+                for k, lib in loaded.items():
+                    occ_res = (ctypes.c_int * 5)()
+                    ints = [x for x in make([torch.empty_like(ref)])
+                            if not isinstance(x, torch.Tensor)]
+                    if opt.kernel == "lane_decode":
+                        del ints[2]  # W
+                    err = lib.trc_probe_occupancy(occ_res, *ints)
+                    launch[k] = (f"CUDA error {err}" if err else dict(
+                        zip(("ctas_per_sm", "T", "threads", "smem", "ctas"),
+                            occ_res)))
+            for k, fn in fns.items():
+                print(f"probe {gname} rep {r}: {k}", file=sys.stderr,
+                      flush=True)
+                out = torch.empty_like(ref)
+                ms = _bare(fn, make([out]))
+                if k in exact and not torch.equal(out, ref):
+                    raise AssertionError(f"{k} differs from the port's "
+                                         f"{opt.kernel} at {gname}")
+                if r:
+                    times[k].append(ms)
+                if k == "stamped":
+                    acc = (ctypes.c_ulonglong * 32)()
+                    loaded[k].trc_split_read(ctypes.cast(acc,
+                                                         ctypes.c_void_p))
+                    split = [int(x) for x in acc[:len(segs)]]
+                del out
+            del make, ref
+        total = sum(split)
+        res["geoms"][gname] = {
+            "geom": geom.spec, "K": K, "launch": launch,
+            "split": {"thread": "team thread 0 of lane 0, CTA 0",
+                      "cycles_total": total, "cycles_per_byte": total / K,
+                      "segments": [{"segment": segs[i], "cycles": c,
+                                    "per_byte": c / K, "share": c / total}
+                                   for i, c in enumerate(split)]},
+            "ms": times,
+            "mean_ms": {k: sum(v) / len(v) for k, v in times.items()}}
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=str(build.CSRC))
@@ -1067,7 +1347,7 @@ def main() -> int:
     ap.add_argument("--label", default="")
     ap.add_argument("--out", default="")
     ap.add_argument("--kernel", choices=("decode", "model", "coder",
-                                         *SPLIT_KERNELS),
+                                         *SPLIT_KERNELS, *LANE_SPLIT),
                     default="decode")
     opt = ap.parse_args()
     if not torch.cuda.is_available():
@@ -1083,9 +1363,11 @@ def main() -> int:
         res = {"label": label, "kernel": opt.kernel, "src": opt.src,
                "card": _smi(),
                "geom": GEOM if opt.kernel in ("model", "coder")
+               else "CodecConfig()" if opt.kernel in LANE_SPLIT
                else Geom().spec}
         probe = {"model": probe_model, "coder": probe_coder,
-                 **dict.fromkeys(SPLIT_KERNELS, probe_split)}[opt.kernel]
+                 **dict.fromkeys(SPLIT_KERNELS, probe_split),
+                 **dict.fromkeys(LANE_SPLIT, probe_lane)}[opt.kernel]
         res = probe(opt, dev, res, work)
         text = json.dumps(res, indent=1)
         print(text)

@@ -289,8 +289,9 @@ __device__ __forceinline__ void model_stage(uint8_t* ring, const uint8_t* src,
     cp_async16(ring + (t & (2 * D - 1)) * N + part, src + size_t(t) * L + part);
 }
 
-// ---- The o0 share-span re-join (K1, K2 and K5 in rans_kernel.cu, the lane
-// kernels L1 and L3 in rans_lane_kernel.cu).  A kernel passes its
+// ---- The o0 share-span re-join (K1, K2 and K5 in rans_kernel.cu, one
+// thread a lane; the lane kernels L1 and L3 of rans_lane_kernel.cu run
+// their team port of it).  A kernel passes its
 // geometry (share, sync, lsync, arows, srows, hrows = min(srows, arows))
 // as G and its shared memory as B: `lo` and `st`, the lane rows of its
 // adaptive lo tables and of their start copies (lane_row layout), and

@@ -21,39 +21,55 @@
 // lane reads 0 at or past min(len, M) or past the W words (the JAX
 // package's zero-padded [L, M] matrix, for the lengths it accepts).
 //
-// Every kernel runs one thread a lane on CTAs of kLanes = 128 threads; a
-// CTA's threads past L run the loop on dummy data and write nothing, so
-// every barrier and shuffle has all its threads.  A lane is a serial state
-// machine; lanes are coupled only by the re-join of `share`-lane model
-// copies (ids 58; rans_common.cuh's rejoin_batches_after, as K1 and K2 do):
-// lane l's model belongs to span l / share, whose warm tables are those of
-// segment (l / share) * n_seg / (L / share).
+// L2 and L4 run one thread a lane on CTAs of kLanes = 128 threads; L1 and
+// L3 run a team of T threads a lane (below).  A CTA's threads past L run
+// the loop on dummy data and write nothing, so every barrier and shuffle
+// has all its threads.  A lane is a serial state machine; lanes are
+// coupled only by the re-join of `share`-lane model copies (id 58; the
+// team port of rans_common.cuh's rejoin_batches_after, which K1, K2 and
+// K5 run): lane l's model belongs to span l / share, whose warm tables
+// are those of segment (l / share) * n_seg / (L / share).
 //
-// L1 and L3 keep a lane's hi table in registers and its 16 lo rows in
-// shared memory (lane_row layout, 64 KB a CTA), beside the start copies of
-// the adaptive rows when share > 1.  Rows >= arows are the lane's copy of
-// its segment's static row and are never stored.  L1 loads its input
-// bytes kPre byte steps ahead in registers, L2 its probs kPre slots ahead;
-// L3 and L4 load the next stream word of their lane right after taking
-// one, so the load has a step to land.  Reading the payload's u16 words
-// at per-lane offsets, not [L, M] int32 rows, keeps a lane's next words
-// in a line it has read and rows 64 KB apart out of the same cache sets.
-// L2 walks the slots backwards, writes the k-th emitted word at the row's
-// end, position M - 1 - k, then moves the E words to positions 2 .. E + 1
-// and zeroes what is left of them past E + 1 (the wrapper hands it zeroed
-// rows): rans.stitch without a words/emit round trip.  L4 builds the value -> symbol table of the block's static
-// CDF in shared memory (32 KB) by binary search, the JAX package's
-// searchsorted(cdf, value, side="right") - 1.
+// L1 and L3: a team of T consecutive threads of a warp a lane (kTeam, or
+// half of it where a span's teams would pass kMaxThreads), thread j of the
+// team holding entries j E .. j E + E - 1 (E = 16 / T) of each of the
+// lane's tables.  One thread a lane left 512 lanes on 4 CTAs, one warp a
+// scheduler, with a byte step of about 1,000 cycles of serial table work;
+// a CDF16 operation is entry-wise, so a team shortens the chain: the
+// search is a ballot and a popc, a lookup a shuffle, the update one line
+// a thread, the re-join's repair a shuffle scan, its set sums one value a
+// thread.  At 512 lanes and T = 16 that is 64 CTAs of 128 threads.  The
+// hi table lives in registers, the 16 lo rows (and, at share > 1, the
+// start copies of the adaptive rows) in shared memory, each thread's own
+// entries of them; no thread reads another's entries from memory, so only
+// the re-join's set sums across warps need a barrier.  Rows >= arows are
+// the lane's copy of its segment's static row and are never stored.
+// Every thread of a team carries the lane's rANS state (L3); the lane's
+// stream words (L3), input bytes (L1) and outputs are spread over the
+// team, a word or a step a thread, loaded or stored a chunk of T at a
+// time and shuffled to the team a step ahead of their use.  L2 loads its
+// probs kPre slots ahead; L4 loads the next stream word of its lane right
+// after taking one, so the load has a step to land.  Reading the
+// payload's u16 words at per-lane offsets, not [L, M] int32 rows, keeps a
+// lane's next words in a line it has read.  L2 walks the slots
+// backwards, writes the k-th emitted word at the row's end, position
+// M - 1 - k, then moves the E words to positions 2 .. E + 1 and zeroes
+// what is left of them past E + 1 (the wrapper hands it zeroed rows):
+// rans.stitch without a words/emit round trip.  L4 builds the value ->
+// symbol table of the block's static CDF in shared memory (32 KB) by
+// binary search, the JAX package's searchsorted(cdf, value, side="right")
+// - 1.
 //
 // Rules kept: __syncthreads() only where all threads of the CTA arrive
 // (conditions depend on the byte index and the geometry, never on data);
 // no loop bound taken from data; every stream read is bounds-checked (see
-// Words), so a corrupt stream or length table decodes to wrong bytes,
-// never to an out-of-bounds access or a hang.  Each C entry point checks
-// its arguments, returns cudaErrorInvalidValue without a launch when they
-// do not fit, and otherwise cudaGetLastError() after its launch.
+// Words, TeamWords), so a corrupt stream or length table decodes to wrong
+// bytes, never to an out-of-bounds access or a hang.  Each C entry point
+// checks its arguments, returns cudaErrorInvalidValue without a launch
+// when they do not fit, and otherwise cudaGetLastError() after its launch.
 
 #include <climits>
+#include <type_traits>
 
 #include "rans_common.cuh"
 
@@ -65,98 +81,409 @@ struct Span {
   int share, sync, lsync, arows, srows, hrows, rate;
 };
 
-// Shared memory of L1 and L3.
-struct SpanRows {
-  uint16_t* lo;  // [16][2 halves][128 lanes][8] lo rows
-  uint16_t* st;  // [arows][2][128][8] start copies (share > 1)
-  int* red;      // [kWarps][16] set sums across warps (share > 32)
+constexpr int kPre = 8;  // slots L2 loads ahead
+
+// ---- The team of a lane (L1, L3).  Thread j of lane l's team is thread
+// l T + j of the grid and holds entries j E .. j E + E - 1 of the lane's
+// tables, E = 16 / T.  A CTA has max(kCtaMin, share T) threads, so it
+// holds whole spans and its re-join needs no other CTA; where kTeam share
+// would pass kMaxThreads (share 128 at kTeam 16), T is kTeam / 2.
+constexpr int kTeam = 16;         // threads a lane
+constexpr int kCtaMin = 128;      // threads a CTA has at least
+constexpr int kMaxThreads = 1024;  // threads a CTA may have
+static_assert(kTeam == 4 || kTeam == 8 || kTeam == 16, "kTeam: 4, 8, 16");
+static_assert(kTeam / 2 * 128 <= kMaxThreads, "a span of 128 lanes fits");
+
+// Shared memory of a CTA of N = threads / T lanes: lo [16][N][16] u16 (row
+// h of its lane n at (h N + n) 16), st [arows][N][16] u16, the start
+// copies (share > 1), red [2][warps][kBatch + 1][16] int, the set sums
+// across warps (share T > 32), in two buffers taken in turns.
+struct TeamRows {
+  uint16_t* lo;
+  uint16_t* st;
+  int* red;
+  int lanes;  // N
 };
 
-constexpr int kRowBytes = 2 * kLanes * 8 * 2;  // one row of the CTA's lanes
-constexpr int kPre = 8;  // byte steps (L1) or slots (L2) loaded ahead
-
-int span_smem(const Span& m) {
-  return 16 * kRowBytes + (m.share > 1 ? m.arows * kRowBytes : 0) +
-         (m.share > 32 ? kWarps * 16 * 4 : 0);
+int team_smem(const Span& m, int threads, int T) {
+  return (16 + (m.share > 1 ? m.arows : 0)) * (threads / T) * 32 +
+         (m.share * T > 32 ? 2 * (kBatch + 1) * (threads / 32) * 16 * 4 : 0);
 }
 
-__device__ __forceinline__ SpanRows span_rows(const Span& m) {
+template <int T>
+__device__ __forceinline__ TeamRows team_rows(const Span& m) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  SpanRows b;
+  TeamRows b;
+  b.lanes = blockDim.x / T;
   b.lo = reinterpret_cast<uint16_t*>(smem_raw);
-  b.st = b.lo + 16 * kRowBytes / 2;
+  b.st = b.lo + 16 * b.lanes * 16;
   b.red = reinterpret_cast<int*>(
-      smem_raw + 16 * kRowBytes + (m.share > 1 ? m.arows * kRowBytes : 0));
+      smem_raw + (16 + (m.share > 1 ? m.arows : 0)) * b.lanes * 32);
   return b;
 }
 
-// Lane l's warm tables (those of its span's segment) to the hi table in
-// registers and the lo rows in shared memory.  A dummy lane takes
-// segment 0.  Each thread touches only its own rows: no barrier.
-__device__ __forceinline__ void span_tables(const int* __restrict__ hi_tbl,
+// This thread's entries of row h of its lane n.
+template <int T>
+__device__ __forceinline__ uint16_t* team_row(uint16_t* rows, int lanes,
+                                              int h, int n, int j) {
+  return rows + (h * lanes + n) * 16 + j * (16 / T);
+}
+
+// E u16 entries <-> registers, one 2-, 4- or 8-byte access.
+template <int E>
+__device__ __forceinline__ void ld_part(const uint16_t* p, int (&v)[E]) {
+  if constexpr (E == 1) {
+    v[0] = *p;
+  } else if constexpr (E == 2) {
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
+    v[0] = int(w & 0xFFFFu);
+    v[1] = int(w >> 16);
+  } else {
+    const uint2 w = *reinterpret_cast<const uint2*>(p);
+    v[0] = int(w.x & 0xFFFFu);
+    v[1] = int(w.x >> 16);
+    v[2] = int(w.y & 0xFFFFu);
+    v[3] = int(w.y >> 16);
+  }
+}
+
+template <int E>
+__device__ __forceinline__ void st_part(uint16_t* p, const int (&v)[E]) {
+  if constexpr (E == 1) {
+    *p = uint16_t(v[0]);
+  } else if constexpr (E == 2) {
+    *reinterpret_cast<uint32_t*>(p) =
+        (uint32_t(v[0]) & 0xFFFFu) | (uint32_t(v[1]) << 16);
+  } else {
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2((uint32_t(v[0]) & 0xFFFFu) | (uint32_t(v[1]) << 16),
+                   (uint32_t(v[2]) & 0xFFFFu) | (uint32_t(v[3]) << 16));
+  }
+}
+
+// cdf_search over the team's table: the count of entries i = 1..15 with
+// c_i <= value, one ballot an entry a thread, popc of the team's bits.
+template <int T>
+__device__ __forceinline__ int team_search(const int (&c)[16 / T], int value,
+                                           int j, unsigned mask) {
+  constexpr int E = 16 / T;
+  int n = 0;
+#pragma unroll
+  for (int e = 0; e < E; ++e)
+    n += __popc(__ballot_sync(kFull, j * E + e > 0 && c[e] <= value) & mask);
+  return n;
+}
+
+// Entry s of the team's table in every thread of the team: the holder's
+// entry s % E (a select by the team-uniform s), then one shuffle.
+template <int T>
+__device__ __forceinline__ int team_pick(const int (&c)[16 / T], int s) {
+  int mine = c[0];
+  if constexpr (T == 8) mine = s & 1 ? c[1] : c[0];
+  if constexpr (T == 4) {
+    const int a = s & 1 ? c[1] : c[0], b = s & 1 ? c[3] : c[2];
+    mine = s & 2 ? b : a;
+  }
+  return __shfl_sync(kFull, mine, s / (16 / T), T);
+}
+
+// lookup_pick's low and freq (entry sym + 1 is 2^15 past 15).
+template <int T>
+__device__ __forceinline__ void team_lookup(const int (&c)[16 / T], int sym,
+                                            int& low, int& freq) {
+  low = team_pick<T>(c, sym);
+  const int nx = team_pick<T>(c, (sym + 1) & 15);
+  freq = (sym == 15 ? kTotal : nx) - low;
+}
+
+// cdf_update entry-wise, low broadcast (the same predicate c_i > low).
+template <int T>
+__device__ __forceinline__ void team_update(int (&c)[16 / T], int low,
+                                            int rate, int j) {
+  constexpr int E = 16 / T;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int i = j * E + e;
+    c[e] += (i * kIC - c[e] + (c[e] > low ? kMixd : 0)) >> rate;
+  }
+}
+
+// Whether the team's table is strictly increasing (c_i > c_{i-1}), where
+// repair16 is the identity.
+template <int T>
+__device__ __forceinline__ bool team_increasing(const int (&c)[16 / T],
+                                                int j) {
+  constexpr int E = 16 / T;
+  bool inc = true;
+#pragma unroll
+  for (int e = 1; e < E; ++e) inc = inc && c[e] > c[e - 1];
+  const int before = __shfl_up_sync(kFull, c[E - 1], 1, T);
+  return inc && (j == 0 || c[0] > before);
+}
+
+// repair16: c_i = max_{k <= i}(c_k - k) + i, the prefix max by a shuffle
+// scan across the team (log2 T steps) after the thread's own E entries.
+template <int T>
+__device__ __forceinline__ void team_repair(int (&c)[16 / T], int j) {
+  constexpr int E = 16 / T;
+  int p[E];
+  int m = c[0] - j * E;
+  p[0] = m;
+#pragma unroll
+  for (int e = 1; e < E; ++e) {
+    m = max(m, c[e] - (j * E + e));
+    p[e] = m;
+  }
+#pragma unroll
+  for (int k = 1; k < T; k <<= 1) {
+    const int o = __shfl_up_sync(kFull, m, k, T);
+    if (j >= k) m = max(m, o);
+  }
+  if constexpr (E == 1) {
+    c[0] = m + j;
+  } else {
+    // the max over the threads before this one, then its own entries
+    const int before = __shfl_up_sync(kFull, m, 1, T);
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      c[e] = (j > 0 ? max(before, p[e]) : p[e]) + j * E + e;
+  }
+}
+
+// set_sum_n in the team layout: each of NT tables summed over every
+// aligned span of `share` lanes, entry by entry: a butterfly over the
+// lanes of a warp (offsets T, 2T, ...), then, for a span wider than a
+// warp, each warp's sums through buffer `buf` of `red` (one barrier for
+// all NT).  The buffers alternate from one call to the next: a thread
+// writes a buffer again only after the next call's barrier, which every
+// thread reaches after its reads of this one.
+template <int T, int NT>
+__device__ __forceinline__ void team_set_sum(int (&x)[NT][16 / T], int share,
+                                             int* red, int j, int& buf) {
+  constexpr int E = 16 / T;
+  const int span = share * T;  // threads of a span
+  const int lim = span < 32 ? span : 32;
+  for (int k = T; k < lim; k <<= 1) {
+#pragma unroll
+    for (int q = 0; q < NT; ++q) {
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        x[q][e] += __shfl_xor_sync(kFull, x[q][e], k);
+    }
+  }
+  if (span > 32) {
+    const int warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+    const int per = span >> 5;  // warps of a span
+    const int first = warp & ~(per - 1);
+    // this thread's entries of warp w's sums at red[w NT 16 + q 16] of
+    // its buffer
+    red += buf * warps * NT * 16 + j * E;
+    buf ^= 1;
+    if ((threadIdx.x & 31) < T) {
+#pragma unroll
+      for (int q = 0; q < NT; ++q) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) red[(warp * NT + q) * 16 + e] = x[q][e];
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < NT; ++q) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) x[q][e] = 0;
+    }
+#pragma unroll 2
+    for (int w = first; w < first + per; ++w) {
+      const int* r = red + w * NT * 16;
+#pragma unroll
+      for (int q = 0; q < NT; ++q) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) x[q][e] += r[q * 16 + e];
+      }
+    }
+  }
+}
+
+// rejoin_batch in the team layout: lo rows h .. h + kBatch - 1 (those
+// below h1) and, where with_hi, the hi table: start + the set's sum of
+// (table - start), repaired and clamped, to the row and its start copy.
+// Without the hi table its slot sums zeros: one body serves every batch,
+// which keeps the byte loop's code small.
+template <int T>
+__device__ __forceinline__ void team_rejoin_batch(const TeamRows& b, int n,
+                                                  int j, int h, int h1,
+                                                  bool with_hi, int share,
+                                                  int& buf, int (&hi)[16 / T],
+                                                  int (&start_hi)[16 / T]) {
+  constexpr int E = 16 / T, NT = kBatch + 1;
+  int d[NT][E], s[NT][E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    s[0][e] = with_hi ? start_hi[e] : 0;
+    d[0][e] = with_hi ? hi[e] : 0;
+  }
+#pragma unroll
+  for (int q = 0; q < kBatch; ++q) {
+    if (h + q < h1) {
+      ld_part<E>(team_row<T>(b.lo, b.lanes, h + q, n, j), d[1 + q]);
+      ld_part<E>(team_row<T>(b.st, b.lanes, h + q, n, j), s[1 + q]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) d[1 + q][e] = s[1 + q][e] = 0;
+    }
+  }
+  team_set_sum<T>(d, share, b.red, j, buf);
+  // repair16 is the identity on strictly increasing tables: the scans run
+  // only where a table of the warp needs them
+  bool inc = true;
+#pragma unroll
+  for (int q = 0; q < NT; ++q) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) d[q][e] += (1 - share) * s[q][e];
+    inc = team_increasing<T>(d[q], j) && inc;
+  }
+  if (!__all_sync(kFull, inc)) {
+#pragma unroll
+    for (int q = 0; q < NT; ++q) team_repair<T>(d[q], j);
+  }
+#pragma unroll
+  for (int q = 0; q < NT; ++q) {
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      d[q][e] = min(d[q][e], kTotal - 16 + j * E + e);  // clamp16
+  }
+  if (with_hi) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) hi[e] = start_hi[e] = d[0][e];
+  }
+#pragma unroll
+  for (int q = 0; q < kBatch; ++q) {
+    if (h + q < h1) {
+      st_part<E>(team_row<T>(b.lo, b.lanes, h + q, n, j), d[1 + q]);
+      st_part<E>(team_row<T>(b.st, b.lanes, h + q, n, j), d[1 + q]);
+    }
+  }
+}
+
+// rejoin_batches_after's cadences, counted in byte index: hot (hi table
+// and lo rows < hrows) when t % sync == sync - 1, cold (rows srows ..
+// arows - 1) when (t + 1) % lsync == 0.  The hot batches (the first with
+// the hi table, even where hrows is 0) come first, then the cold ones.
+template <int T>
+__device__ __forceinline__ void team_rejoins_after(int t, const Span& m,
+                                                   const TeamRows& b, int n,
+                                                   int j, int& buf,
+                                                   int (&hi)[16 / T],
+                                                   int (&start_hi)[16 / T]) {
+  if (m.share == 1) return;
+  const bool hot = (t & (m.sync - 1)) == m.sync - 1;
+  const bool cold = m.arows > m.srows && ((t + 1) & (m.lsync - 1)) == 0;
+  for (int pass = hot ? 0 : 1; pass < (cold ? 2 : 1); ++pass) {
+    const int h1 = pass ? m.arows : m.hrows;
+    for (int h = pass ? m.srows : 0; h < h1 || (pass == 0 && h == 0);
+         h += kBatch)
+      team_rejoin_batch<T>(b, n, j, h, h1, pass == 0 && h == 0, m.share, buf,
+                           hi, start_hi);
+  }
+}
+
+// Lane l's warm tables (those of its span's segment): this thread's hi
+// entries to registers, its entries of the lo rows (and their start
+// copies) to shared memory.  A dummy lane takes segment 0.
+template <int T>
+__device__ __forceinline__ void team_tables(const int* __restrict__ hi_tbl,
                                             const int* __restrict__ lo_tbl,
-                                            int L, int n_seg, int l,
-                                            const Span& m, const SpanRows& b,
-                                            int (&hi)[16],
-                                            int (&start_hi)[16]) {
+                                            int L, int n_seg, int l, int n,
+                                            int j, const Span& m,
+                                            const TeamRows& b,
+                                            int (&hi)[16 / T],
+                                            int (&start_hi)[16 / T]) {
+  constexpr int E = 16 / T;
   const int spans = L / m.share;
   const int seg = l < L ? int((long long)(l / m.share) * n_seg / spans) : 0;
 #pragma unroll
-  for (int e = 0; e < 16; ++e) hi[e] = start_hi[e] = hi_tbl[seg * 16 + e];
+  for (int e = 0; e < E; ++e)
+    hi[e] = start_hi[e] = hi_tbl[seg * 16 + j * E + e];
   for (int h = 0; h < 16; ++h) {
-    int v[16];
+    int v[E];
 #pragma unroll
-    for (int e = 0; e < 16; ++e) v[e] = lo_tbl[(seg * 16 + h) * 16 + e];
-    st_row(lane_row(b.lo, h), kHalf, v);
-    if (m.share > 1 && h < m.arows) st_row(lane_row(b.st, h), kHalf, v);
+    for (int e = 0; e < E; ++e) v[e] = lo_tbl[(seg * 16 + h) * 16 + j * E + e];
+    st_part<E>(team_row<T>(b.lo, b.lanes, h, n, j), v);
+    if (m.share > 1 && h < m.arows)
+      st_part<E>(team_row<T>(b.st, b.lanes, h, n, j), v);
   }
+}
+
+// The team's bits of its warp.
+template <int T>
+__device__ __forceinline__ unsigned team_mask() {
+  return ((1u << T) - 1u) << (threadIdx.x & 31 & ~(T - 1));
 }
 
 // ---- L1: the o0 nibble-pair model over known bytes.  cols [K, L] u8 ->
 // probs [2K, L] int32.  The JAX package's rans_cdf_s8.encode_device model
-// pass (rans_cdf_o0.encode_device's at share 1 and one segment).
-__global__ void __launch_bounds__(kLanes)
+// pass (rans_cdf_o0.encode_device's at share 1 and one segment).  A CTA
+// has at most the teams of a span of 128 lanes (or kCtaMin threads).
+// kShared: share > 1 (the re-joins).
+template <int T, bool kShared>
+__global__ void __launch_bounds__(T * 128 < kMaxThreads ? T * 128
+                                                     : kMaxThreads, 1)
 lane_model_kernel(const uint8_t* __restrict__ cols,
                   const int* __restrict__ hi_tbl,
                   const int* __restrict__ lo_tbl, int* __restrict__ probs,
                   int K, int L, int n_seg, Span m) {
-  const SpanRows b = span_rows(m);
-  const int l = blockIdx.x * kLanes + threadIdx.x;
+  constexpr int E = 16 / T;
+  const TeamRows b = team_rows<T>(m);
+  const int n = threadIdx.x / T, j = threadIdx.x % T;
+  const int l = blockIdx.x * b.lanes + n;
   const bool real = l < L;
-  int hi[16], start_hi[16];
-  span_tables(hi_tbl, lo_tbl, L, n_seg, l, m, b, hi, start_hi);
+  int hi[E], start_hi[E];
+  team_tables<T>(hi_tbl, lo_tbl, L, n_seg, l, n, j, m, b, hi, start_hi);
 
-  // byte steps t .. t + kPre - 1 in q[0 .. kPre - 1]; byte t + kPre is
-  // requested as byte t is taken
-  const uint8_t* src = cols + (real ? l : 0);
+  // The lane's bytes in chunks of T steps, team thread j holding step
+  // t0 + j of chunk t0 (cur) and of the next one (nxt, loaded a chunk
+  // ahead); byte t + 1 is shuffled out of cur during step t.  Its probs
+  // likewise: thread j keeps the two slots of step t0 + j, and the team
+  // stores a chunk's slots at its last step.
+  const uint8_t* src = cols + (real ? l : 0) + size_t(j) * L;
   int* out = probs + (real ? l : 0);
-  int q[kPre];
-#pragma unroll
-  for (int u = 0; u < kPre; ++u)
-    q[u] = real && u < K ? src[size_t(u) * L] : 0;
+  int buf = 0;  // red's buffer for the next set sum across warps
+  int cur = real && j < K ? src[0] : 0;
+  int nxt = real && T + j < K ? src[size_t(T) * L] : 0;
+  int sym_next = __shfl_sync(kFull, cur, 0, T);
+  int slot_h = 0, slot_l = 0;
   for (int t = 0; t < K; ++t) {
-    const int sym = q[0];
-#pragma unroll
-    for (int u = 0; u + 1 < kPre; ++u) q[u] = q[u + 1];
-    q[kPre - 1] = real && t + kPre < K ? src[size_t(t + kPre) * L] : 0;
+    const int sym = sym_next;
+    if ((t & (T - 1)) == T - 1) {
+      cur = nxt;
+      nxt = real && t + 1 + T + j < K ? src[size_t(t + 1 + T) * L] : 0;
+    }
+    sym_next = __shfl_sync(kFull, cur, (t + 1) & (T - 1), T);
     const int hs = sym >> 4, ls = sym & 15;
+    uint16_t* rp = team_row<T>(b.lo, b.lanes, hs, n, j);
+    int row[E];
+    ld_part<E>(rp, row);
     int low_h, fr_h;
-    lookup_pick(hi, hs, low_h, fr_h);
-    uint16_t* rp = lane_row(b.lo, hs);
-    int row[16];
-    ld_row(rp, kHalf, row);
-    cdf_update(hi, low_h, m.rate);
+    team_lookup<T>(hi, hs, low_h, fr_h);
+    team_update<T>(hi, low_h, m.rate, j);
     int low_l, fr_l;
-    lookup_pick(row, ls, low_l, fr_l);
+    team_lookup<T>(row, ls, low_l, fr_l);
     if (hs < m.arows) {
-      cdf_update(row, low_l, m.rate);
-      st_row(rp, kHalf, row);
+      team_update<T>(row, low_l, m.rate, j);
+      st_part<E>(rp, row);
     }
-    if (real) {
-      out[size_t(2 * t) * L] = (low_h << 16) | fr_h;
-      out[size_t(2 * t + 1) * L] = (low_l << 16) | fr_l;
+    const bool take = j == (t & (T - 1));
+    slot_h = take ? (low_h << 16) | fr_h : slot_h;
+    slot_l = take ? (low_l << 16) | fr_l : slot_l;
+    if ((t & (T - 1)) == T - 1 || t == K - 1) {
+      const int tj = (t & ~(T - 1)) + j;
+      if (real && tj <= t) {
+        out[size_t(2 * tj) * L] = slot_h;
+        out[size_t(2 * tj + 1) * L] = slot_l;
+      }
     }
-    rejoin_batches_after(t, m, b, hi, start_hi);
+    if constexpr (kShared)
+      team_rejoins_after<T>(t, m, b, n, j, buf, hi, start_hi);
   }
 }
 
@@ -239,48 +566,107 @@ __device__ __forceinline__ void words_renorm(Words& w, uint32_t& state) {
   }
 }
 
+// L3's reader, the same words spread over the team: word p of the lane
+// sits in team thread p % T, in `cur` for the chunk of T words that holds
+// pos and in `nxt` for the chunk after it, which the team loads (one
+// 2T-byte span) a chunk ahead; the word at pos is shuffled out of cur
+// after every renorm step, so a renorm takes it from a register.
+struct TeamWords {
+  const uint16_t* src;  // the lane's first word
+  int n, pos;           // words readable; next position
+  uint32_t cur, nxt;    // this thread's word of pos's chunk and the next
+  uint32_t next;        // the word at pos
+};
+
+template <int T>
+__device__ __forceinline__ void team_words_init(
+    TeamWords& w, const uint16_t* words, const long long* off, const int* len,
+    long long W, int M, int l, bool real, int j, uint32_t& state) {
+  const long long o = real ? off[l] : -1;
+  long long n = o >= 0 && o < W ? min((long long)min(len[l], M), W - o) : 0;
+  w.n = int(max(n, 0LL));
+  w.src = words + (w.n ? o : 0);
+  w.cur = j < w.n ? uint32_t(w.src[j]) : 0u;
+  w.nxt = T + j < w.n ? uint32_t(w.src[T + j]) : 0u;
+  const uint32_t hi = __shfl_sync(kFull, w.cur, 0, T);
+  const uint32_t lo = __shfl_sync(kFull, w.cur, 1, T);
+  state = real ? (hi << 16) | lo : kAnsLow;
+  w.pos = 2;
+  w.next = __shfl_sync(kFull, w.cur, 2, T);
+}
+
+template <int T>
+__device__ __forceinline__ void team_words_renorm(TeamWords& w,
+                                                  uint32_t& state, int j) {
+  const bool take = state < kAnsLow;
+  state = take ? (state << 16) | w.next : state;
+  w.pos += take ? 1 : 0;
+  if (take && (w.pos & (T - 1)) == 0) {  // into the next chunk
+    w.cur = w.nxt;
+    const int p = w.pos + T + j;
+    w.nxt = p < w.n ? uint32_t(w.src[p]) : 0u;
+  }
+  w.next = __shfl_sync(kFull, w.cur, w.pos & (T - 1), T);
+}
+
 // ---- L3: the decode of L1's model.  Lane streams (words, off, len; M =
 // 2K + 2) -> bytes [K, L] u8 (rans_cdf_s8.decode_device;
-// rans_cdf_o0.decode_device at share 1 and one segment).
-__global__ void __launch_bounds__(kLanes)
+// rans_cdf_o0.decode_device at share 1 and one segment).  The lo row of
+// the hi symbol is read as soon as the hi search gives it, beside the
+// lookup's shuffles; the stream words come from TeamWords.  Thread j keeps
+// the byte of step t0 + j of each chunk of T steps, and the team stores a
+// chunk's bytes at its last step.  kShared: share > 1 (the re-joins).
+template <int T, bool kShared>
+__global__ void __launch_bounds__(T * 128 < kMaxThreads ? T * 128
+                                                     : kMaxThreads, 1)
 lane_decode_kernel(const uint16_t* __restrict__ words,
                    const long long* __restrict__ off,
                    const int* __restrict__ len,
                    const int* __restrict__ hi_tbl,
                    const int* __restrict__ lo_tbl, uint8_t* __restrict__ out,
                    int K, int L, long long W, int n_seg, Span m) {
-  const SpanRows b = span_rows(m);
-  const int l = blockIdx.x * kLanes + threadIdx.x;
+  constexpr int E = 16 / T;
+  const TeamRows b = team_rows<T>(m);
+  const int n = threadIdx.x / T, j = threadIdx.x % T;
+  const int l = blockIdx.x * b.lanes + n;
   const bool real = l < L;
-  int hi[16], start_hi[16];
-  span_tables(hi_tbl, lo_tbl, L, n_seg, l, m, b, hi, start_hi);
-  Words w;
+  const unsigned mask = team_mask<T>();
+  int hi[E], start_hi[E];
+  team_tables<T>(hi_tbl, lo_tbl, L, n_seg, l, n, j, m, b, hi, start_hi);
+  TeamWords w;
   uint32_t state;
-  words_init(w, words, off, len, W, 2 * K + 2, l, real, state);
+  team_words_init<T>(w, words, off, len, W, 2 * K + 2, l, real, j, state);
   uint8_t* dst = out + (real ? l : 0);
+  uint8_t mine = 0;  // the byte of step t0 + j of the chunk t0
+  int buf = 0;       // red's buffer for the next set sum across warps
   for (int t = 0; t < K; ++t) {
     uint32_t value = state & (kTotal - 1);
-    const int hs = search_tree(hi, int(value));
+    const int hs = team_search<T>(hi, int(value), j, mask);
+    uint16_t* rp = team_row<T>(b.lo, b.lanes, hs, n, j);
+    int row[E];
+    ld_part<E>(rp, row);
     int low_h, fr_h;
-    lookup_pick(hi, hs, low_h, fr_h);
+    team_lookup<T>(hi, hs, low_h, fr_h);
     state = uint32_t(fr_h) * (state >> 15) + value - uint32_t(low_h);
-    words_renorm(w, state);
-    cdf_update(hi, low_h, m.rate);
-    uint16_t* rp = lane_row(b.lo, hs);
-    int row[16];
-    ld_row(rp, kHalf, row);
+    team_words_renorm<T>(w, state, j);
+    team_update<T>(hi, low_h, m.rate, j);
     value = state & (kTotal - 1);
-    const int ls = search_tree(row, int(value));
+    const int ls = team_search<T>(row, int(value), j, mask);
     int low_l, fr_l;
-    lookup_pick(row, ls, low_l, fr_l);
+    team_lookup<T>(row, ls, low_l, fr_l);
     state = uint32_t(fr_l) * (state >> 15) + value - uint32_t(low_l);
-    words_renorm(w, state);
+    team_words_renorm<T>(w, state, j);
     if (hs < m.arows) {
-      cdf_update(row, low_l, m.rate);
-      st_row(rp, kHalf, row);
+      team_update<T>(row, low_l, m.rate, j);
+      st_part<E>(rp, row);
     }
-    if (real) dst[size_t(t) * L] = uint8_t((hs << 4) | ls);
-    rejoin_batches_after(t, m, b, hi, start_hi);
+    if (j == (t & (T - 1))) mine = uint8_t((hs << 4) | ls);
+    if ((t & (T - 1)) == T - 1 || t == K - 1) {
+      const int tj = (t & ~(T - 1)) + j;
+      if (real && tj <= t) dst[size_t(tj) * L] = mine;
+    }
+    if constexpr (kShared)
+      team_rejoins_after<T>(t, m, b, n, j, buf, hi, start_hi);
   }
 }
 
@@ -357,6 +743,36 @@ int allow_smem(F kernel, int smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
 }
 
+// The launch of a team kernel: threads, shared memory and CTAs for L
+// lanes at T threads a lane.
+struct TeamLaunch {
+  int threads, smem, grid;
+};
+
+TeamLaunch team_launch(const Span& m, int L, int T) {
+  TeamLaunch g;
+  g.threads = m.share * T > kCtaMin ? m.share * T : kCtaMin;
+  g.smem = team_smem(m, g.threads, T);
+  const int lanes = g.threads / T;
+  g.grid = (L + lanes - 1) / lanes;
+  return g;
+}
+
+// Calls launch(std::integral_constant<int, T>, std::bool_constant<share >
+// 1>) with the team size T of span m: kTeam, or kTeam / 2 where kTeam *
+// share > kMaxThreads.  At share 1 the kernels hold no re-join code.
+template <class F>
+int team_dispatch(const Span& m, F launch) {
+  if constexpr (kTeam * 128 > kMaxThreads) {
+    if (kTeam * m.share > kMaxThreads)
+      return launch(std::integral_constant<int, kTeam / 2>(),
+                    std::true_type());
+  }
+  if (m.share == 1)
+    return launch(std::integral_constant<int, kTeam>(), std::false_type());
+  return launch(std::integral_constant<int, kTeam>(), std::true_type());
+}
+
 }  // namespace
 
 extern "C" {
@@ -370,11 +786,15 @@ int trc_lane_model(const uint8_t* cols, const int* hi_tbl, const int* lo_tbl,
   Span m;
   if (!make_span(K, L, n_seg, share, sync, lsync, arows, srows, rate, m))
     return int(cudaErrorInvalidValue);
-  const int smem = span_smem(m);
-  if (const int e = allow_smem(lane_model_kernel, smem)) return e;
-  lane_model_kernel<<<grid_of(L), kLanes, smem, stream>>>(
-      cols, hi_tbl, lo_tbl, probs, K, L, n_seg, m);
-  return int(cudaGetLastError());
+  return team_dispatch(m, [&](auto team, auto shared) {
+    constexpr int T = decltype(team)::value;
+    constexpr bool S = decltype(shared)::value;
+    const TeamLaunch g = team_launch(m, L, T);
+    if (const int e = allow_smem(lane_model_kernel<T, S>, g.smem)) return e;
+    lane_model_kernel<T, S><<<g.grid, g.threads, g.smem, stream>>>(
+        cols, hi_tbl, lo_tbl, probs, K, L, n_seg, m);
+    return int(cudaGetLastError());
+  });
 }
 
 // L2.
@@ -397,11 +817,15 @@ int trc_lane_decode(const uint16_t* words, const long long* off,
   if (!make_span(K, L, n_seg, share, sync, lsync, arows, srows, rate, m) ||
       K > (INT_MAX - 2) / 2 || W < 0)
     return int(cudaErrorInvalidValue);
-  const int smem = span_smem(m);
-  if (const int e = allow_smem(lane_decode_kernel, smem)) return e;
-  lane_decode_kernel<<<grid_of(L), kLanes, smem, stream>>>(
-      words, off, len, hi_tbl, lo_tbl, out, K, L, W, n_seg, m);
-  return int(cudaGetLastError());
+  return team_dispatch(m, [&](auto team, auto shared) {
+    constexpr int T = decltype(team)::value;
+    constexpr bool S = decltype(shared)::value;
+    const TeamLaunch g = team_launch(m, L, T);
+    if (const int e = allow_smem(lane_decode_kernel<T, S>, g.smem)) return e;
+    lane_decode_kernel<T, S><<<g.grid, g.threads, g.smem, stream>>>(
+        words, off, len, hi_tbl, lo_tbl, out, K, L, W, n_seg, m);
+    return int(cudaGetLastError());
+  });
 }
 
 // L4.

@@ -5,7 +5,8 @@ The JAX package runs ids 56 (``rans-cdf-o0``), 58 (``rans-cdf-s8``) and
 42 (``rans-static``) as ``lax.scan``s over lanes (``turborc_tpu/codecs/
 rans_cdf_o0.py``, ``rans_cdf_s8.py``, ``rans_static.py``); they reach no
 Pallas kernel.  Each compiled device loop is one hand-written kernel here
-(``csrc/rans_lane_kernel.cu``), one thread a lane:
+(``csrc/rans_lane_kernel.cu``): L2 and L4 one thread a lane, L1 and L3 a
+team of ``lane_team(share)`` threads a lane (``lane_launch``):
 
 Kernel (wrapper)               computes                JAX pass
   L1 lane_model                bytes -> slot probs     encode_device's model
@@ -49,7 +50,13 @@ from turborc_tpu_torch.ops.geom import Geom
 from turborc_tpu_torch.ops.rans_kernel import (INT32_MAX, _check, _rejoin,
                                                launch)
 
-PRE_STEPS = 8  # byte steps (L1) or slots (L2) loaded ahead (kPre)
+PRE_STEPS = 8  # slots L2 loads ahead (kPre)
+# L1 and L3: a team of LANE_TEAM threads a lane (kTeam), halved where a
+# span's teams would pass LANE_MAX_THREADS threads a CTA (kMaxThreads); a
+# CTA has at least LANE_CTA_MIN threads (kCtaMin).
+LANE_TEAM = 16
+LANE_MAX_THREADS = 1024
+LANE_CTA_MIN = 128
 
 launches = dict.fromkeys(("lane_model", "lane_coder", "lane_decode",
                           "lane_static_decode"), 0)
@@ -61,6 +68,20 @@ def reset_launches() -> None:
 
 
 PER_LANE = Geom(share=1)  # id 56: per-lane models, no re-join
+
+
+def lane_team(share: int) -> int:
+    """Threads a lane of L1 and L3 at spans of ``share`` lanes."""
+    if LANE_TEAM * share > LANE_MAX_THREADS:
+        return LANE_TEAM // 2
+    return LANE_TEAM
+
+
+def lane_launch(L: int, share: int) -> tuple[int, int, int]:
+    """(threads a lane, threads a CTA, CTAs) of L1 and L3 on L lanes."""
+    T = lane_team(share)
+    threads = max(LANE_CTA_MIN, share * T)
+    return T, threads, -(-L // (threads // T))
 
 
 # ---------------------------------------------------------------------------

@@ -21,9 +21,11 @@ chunk), the coder K3 on edge cases of probabilities and states
 than a stage or ends inside one, and on tiles its C entry must refuse,
 and the lane kernels L1-L4 at 4 to 8192 lanes, spans of 1 to 128 lanes
 and on corrupt streams and length tables, beside the codecs' payloads
-on the card against the CPU's (``lane-kernels-vs-plain``).  With
-``--before COMMIT``, L1 and L3 are timed in turns against those of a
-``git archive COMMIT`` unpacked in ``_archive/COMMIT/``.  It imports no JAX
+on the card against the CPU's (``lane-kernels-vs-plain``), the coder L2
+on edge cases of probabilities, states and slot counts and L4 on CDFs
+at their extremes (``lane-edge``).  With ``--before COMMIT``, L2 and L4
+are timed in turns against those of a ``git archive COMMIT`` unpacked
+in ``_archive/COMMIT/``.  It imports no JAX
 and nothing of ``turborc_tpu``; the corpora under
 ``turborc_tpu/bench/_data/`` are read as files.
 
@@ -60,9 +62,9 @@ BENCH_GEOM_X2 = BENCH_GEOM + "x2"
 # _archive/COMMIT/ (a git archive of COMMIT unpacked there) that hold the
 # kernels in REDESIGNED and times those against the current ones.  Their
 # C signatures there, as (pointers, ints) before the stream: those of
-# 95225c7, the same as now.  Without it the phase is skipped.
+# cfdb21a, the same as now.  Without it the phase is skipped.
 BEFORE_FLAG = "--before"
-BEFORE_ARGS = {"trc_lane_model": (4, 9), "trc_lane_decode": (6, 10)}
+BEFORE_ARGS = {"trc_lane_coder": (4, 2), "trc_lane_static_decode": (5, 3)}
 ARCHIVE = ROOT / "_archive"
 CSRC_REL = "turborc_tpu_torch/ops/csrc"
 CHILD_FLAG = "--child"
@@ -95,7 +97,7 @@ REPLACES = {
     "lane_static_decode": "turborc_tpu/codecs/rans_static.py:55",
 }
 # Kernels timed against a parent's with --before.
-REDESIGNED = ("lane_model", "lane_decode")
+REDESIGNED = ("lane_coder", "lane_static_decode")
 # Each path's kernels in stage order: model, coder, place, decode.
 KERNELS = {"o0": ("model", "coder", "place", "decode"),
            "o1": ("o1_model", "coder", "place", "o1_decode"),
@@ -768,15 +770,15 @@ def _time_path(label: str, kind: str, corpus: str, geom, dev) -> dict:
 
 
 def phase_before_after(dev, before: str | None, libs: dict) -> dict:
-    """L1 and L3 of commit ``before`` against the current ones, on one
-    4 MB block of textbwt at the default CodecConfig, id 56's geometry
-    (share 1) and id 58's (share 8, 64 segments).  A warm-up, then 3
-    repetitions on distinct rotations, the two builds in turns (before
-    first on odd repetitions), CUDA events around the bare C entry of
-    each: outputs are allocated beforehand, and a new allocator segment
-    inside a span fails the phase.  Their outputs must be equal.  Returns
-    {codec: {name: {"before": ms per repetition, "after": ...}}}, empty
-    without ``before``."""
+    """L2 and L4 of commit ``before`` against the current ones, on one
+    4 MB block of textbwt at the default CodecConfig: L2 on id 56's probs
+    (L1's) and on id 42's (the static CDF's), L4 on id 42's streams.  A
+    warm-up, then 3 repetitions on distinct rotations, the two builds in
+    turns (before first on odd repetitions), CUDA events around the bare
+    C entry of each: outputs are allocated (L2's rows zeroed) beforehand,
+    and a new allocator segment inside a span fails the phase.  Their
+    outputs must be equal.  Returns {codec: {name: {"before": ms per
+    repetition, "after": ...}}}, empty without ``before``."""
     import ctypes
 
     import numpy as np
@@ -801,9 +803,10 @@ def phase_before_after(dev, before: str | None, libs: dict) -> dict:
     text = _corpus("textbwt_16777216.bin")
     cfg = CodecConfig()
     L = cfg.lanes
-    codecs = ("rans-cdf-o0", "rans-cdf-s8")
-    ms = {c: {k: {"before": [], "after": []} for k in REDESIGNED}
-          for c in codecs}
+    runs = {"rans-cdf-o0": ("lane_coder",),
+            "rans-static": ("lane_coder", "lane_static_decode")}
+    ms = {c: {k: {"before": [], "after": []} for k in names}
+          for c, names in runs.items()}
 
     def timed(fn, cargs) -> float:
         cargs = [x.data_ptr() if isinstance(x, torch.Tensor) else x
@@ -822,47 +825,54 @@ def phase_before_after(dev, before: str | None, libs: dict) -> dict:
         return start.elapsed_time(end)
 
     def turns(codec, name, make, r):
-        """make() -> (output, C arguments), allocated before the span."""
+        """make() -> (outputs, C arguments), allocated before the span."""
         got = {}
         for who in (("before", "after") if r % 2 else ("after", "before")):
-            out, cargs = make()
+            outs, cargs = make()
             fn = (build.load()["trc_" + name] if who == "after"
                   else fns[name])
             t = timed(fn, cargs)
             if r:
                 ms[codec][name][who].append(t)
-            got[who] = out
+            got[who] = outs
             del cargs
-        if not torch.equal(got["before"], got["after"]):
+        if not all(map(torch.equal, got["before"], got["after"])):
             raise AssertionError(f"{name} {codec}: the kernels of {before} "
                                  "and now differ")
 
     init = torch.full((L,), rans.ANS_LOW, dtype=torch.int32, device=dev)
-    for codec in codecs:
+    for codec, names in runs.items():
         for r in range(4):  # rep 0 is the warm-up
             cols, hi, lo, geom, K = _lane_block(
                 codec, np.roll(text, 7919 * (r + 1))[:cfg.block_size], dev)
-            probs = LK.lane_model(cols, hi, lo, geom)
-            st, lens = LK.lane_coder(probs, init)
-            words = blockio.device_words(st, lens)
-            offs = LK._offsets(lens)
-            del st
+            if codec == "rans-static":
+                probs, cdf = _static_probs(cols, dev)
+            else:
+                probs = LK.lane_model(cols, hi, lo, geom)
 
-            def model():
-                out = torch.empty_like(probs)
-                return out, LK.lane_model_cargs(cols, hi, lo, out, geom)
+            def coder():
+                outs = (torch.zeros((L, probs.shape[0] + 2),
+                                    dtype=torch.int32, device=dev),
+                        torch.empty((L,), dtype=torch.int32, device=dev))
+                return outs, LK.lane_coder_cargs(probs, init, *outs)
 
-            def decode():
-                out = torch.empty_like(cols)
-                return out, LK.lane_decode_cargs(words, offs, lens, K, hi,
-                                                 lo, out, geom)
+            turns(codec, "lane_coder", coder, r)
+            if "lane_static_decode" in names:
+                st, lens = LK.lane_coder(probs, init)
+                words = blockio.device_words(st, lens)
+                offs = LK._offsets(lens)
+                del st
 
-            turns(codec, "lane_model", model, r)
-            turns(codec, "lane_decode", decode, r)
-            del cols, probs, words, offs, lens
-    log(f"{label} " + json.dumps(dict(before=before, T={
-        c: LK.lane_team(8 if c == "rans-cdf-s8" else 1) for c in codecs},
-        ms=ms)))
+                def decode():
+                    out = torch.empty_like(cols)
+                    return (out,), LK.lane_static_decode_cargs(
+                        words, offs, lens, K, cdf, out)
+
+                turns(codec, "lane_static_decode", decode, r)
+                del words, offs, lens
+            del cols, probs
+    log(f"{label} " + json.dumps(dict(
+        before=before, N=LK.CODER_LANES, T=LK.STATIC_TEAM, ms=ms)))
     return ms
 
 
@@ -1081,6 +1091,110 @@ def phase_lane_kernels(dev) -> None:
             f"({len(card)} B), decodes on the card")
 
 
+# L2 on constructed probs: (S, L, freqs).  "edge" draws half the slots'
+# freq from CODER_FREQS, the rest from [1, 2^15]; "1" is freq 1 on every
+# slot (a word nearly every slot: k > S / 2, so the move overlaps
+# itself), "32768" freq 2^15 on every slot.  S = 0, 1 and not a multiple
+# of a 64-slot stage or an 8-slot block; 1 and 2 lanes (rows under 16
+# B), one CTA with dummy lanes, 2 to 16 CTAs.
+LANE_CODER_EDGES = ((0, 4, "edge"), (1, 1, "edge"), (63, 2, "edge"),
+                    (65, 16, "1"), (1000, 64, "32768"), (4133, 512, "edge"),
+                    (4096, 128, "1"))
+# L4 on CDFs at their extremes: one symbol holding all (the first, the
+# last), and zero-frequency symbols beside a freq-1 one.
+LANE_STATIC_CDFS = ("symbol 0 holds all", "symbol 255 holds all",
+                    "zero-frequency symbols")
+
+
+def _extreme_cdf(what: str, gen):
+    """A 257-entry CDF of LANE_STATIC_CDFS (int32 on the CPU)."""
+    import torch
+    f = torch.zeros(256, dtype=torch.int64)
+    if what.startswith("symbol"):
+        f[int(what.split()[1])] = 1 << 15
+    else:
+        live = torch.randperm(256, generator=gen)[:40]
+        f[live] = torch.randint(1, 500, (40,), generator=gen)
+        f[live[0]] = 1
+        f[live[1]] += (1 << 15) - int(f.sum())
+    return torch.cat([torch.zeros(1, dtype=torch.int64),
+                      f.cumsum(0)]).to(torch.int32)
+
+
+def phase_lane_edge(dev) -> None:
+    """L2 against lane_coder_plain on the LANE_CODER_EDGES tiles, half the
+    lanes starting at a state of CODER_STATES, the rest at one drawn from
+    [2^15, 2^31); then L4 against lane_static_decode_plain on streams of
+    the LANE_STATIC_CDFS (K = 2048, 512 lanes), sound and corrupt.
+    Streams, lengths and bytes equal (tolerance 0)."""
+    import torch
+    from turborc_tpu_torch.codecs import blockio
+    from turborc_tpu_torch.ops import rans
+    from turborc_tpu_torch.ops import rans_lane_kernel as LK
+    phase("lane-edge")
+    gen = torch.Generator(device=dev).manual_seed(20261021)
+    for S, L, kind in LANE_CODER_EDGES:
+        shape = (S, L)
+        if kind == "edge":
+            edge = torch.tensor(CODER_FREQS, device=dev)[torch.randint(
+                0, len(CODER_FREQS), shape, generator=gen, device=dev)]
+            freq = torch.where(
+                torch.rand(shape, generator=gen, device=dev) < 0.5, edge,
+                torch.randint(1, (1 << 15) + 1, shape, generator=gen,
+                              device=dev))
+        else:
+            freq = torch.full(shape, int(kind), device=dev)
+        low = (torch.rand(shape, generator=gen, device=dev)
+               * ((1 << 15) - freq + 1)).to(torch.int64).clamp(
+                   max=(1 << 15) - freq)
+        probs = ((low << 16) | freq).to(torch.int32)
+        init = torch.randint(1 << 15, 1 << 31, (L,), generator=gen,
+                             device=dev, dtype=torch.int64)
+        init[::2] = torch.tensor(CODER_STATES, device=dev)[
+            torch.arange(0, L, 2, device=dev) // 2 % 2]
+        init = init.to(torch.int32)
+        k = LK.lane_coder(probs, init)
+        want = LK.lane_coder_plain(probs, init)
+        err = max(_max_abs(a, b) for a, b in zip(k, want))
+        if err:
+            raise AssertionError(f"lane-edge L2 S={S} L={L} freq {kind}: "
+                                 f"kernel differs from plain by {err}")
+        words = int(k[1].sum()) - 2 * L
+        log(f"lane-edge L2 S={S} L={L} freq {kind} "
+            f"({-(-L // LK.CODER_LANES)} CTAs; {words} words, up to "
+            f"{int(k[1].max()) - 2} a lane): equal to plain, tolerance 0 "
+            "(max abs err 0)")
+    cpu_gen = torch.Generator().manual_seed(20261022)
+    K, L = 2048, 512
+    init = torch.full((L,), rans.ANS_LOW, dtype=torch.int32, device=dev)
+    for what in LANE_STATIC_CDFS:
+        cdf = _extreme_cdf(what, cpu_gen)
+        f = (cdf[1:] - cdf[:-1]).double()
+        sym = torch.multinomial(f, K * L, replacement=True,
+                                generator=cpu_gen).reshape(K, L)
+        c = cdf.to(torch.int64)
+        probs = ((c[sym] << 16) | (c[sym + 1] - c[sym])).to(
+            torch.int32).to(dev)
+        st, lens = LK.lane_coder(probs, init)
+        words = blockio.device_words(st, lens)
+        cdf = cdf.to(dev)
+        out = LK.lane_static_decode(words, lens, K, cdf)
+        if not torch.equal(out.cpu(), sym.to(torch.uint8)):
+            raise AssertionError(f"lane-edge L4 {what}: decode did not "
+                                 "return the bytes")
+        err = {"sound": _max_abs(out, LK.lane_static_decode_plain(
+            words, lens, K, cdf))}
+        for bad, args in _corrupt(words, lens, cpu_gen, dev).items():
+            err[bad] = _max_abs(LK.lane_static_decode(*args, K, cdf),
+                                LK.lane_static_decode_plain(*args, K, cdf))
+        if any(err.values()):
+            raise AssertionError(f"lane-edge L4 {what}: kernel differs "
+                                 f"from plain: {err}")
+        log(f"lane-edge L4 {what} K={K} L={L} ({int(lens.sum())} words): "
+            f"equal to plain, sound and corrupt, tolerance 0 (max abs err "
+            f"{err})")
+
+
 def _lane_bound_ms(name: str, L: int, K: int, geom, n_seg: int,
                    words: int) -> tuple[float, str]:
     """``_bound_ms``'s rule for the lane kernels on L lanes and K bytes a
@@ -1088,8 +1202,9 @@ def _lane_bound_ms(name: str, L: int, K: int, geom, n_seg: int,
     decoders read only the ``words`` u16 words the streams hold, and a
     lane's 8-byte offset and 4-byte length), integer ops as
     ``_lane_ops`` counts them; L4 does a table load, its state step and
-    fetch per byte, and builds its 2^15-entry table by 8 halvings of 3
-    ops in each CTA."""
+    fetch per byte, and builds its 2^15-entry table once (8 halvings of
+    3 ops an entry): the work of the function, whatever number of CTAs
+    build their own copies."""
     S = 2 * K if name != "lane_static_decode" else K
     tables = n_seg * (16 + 256) * 4
     streams = words * 2 + L * (8 + 4)
@@ -1104,7 +1219,7 @@ def _lane_bound_ms(name: str, L: int, K: int, geom, n_seg: int,
         ops = L * _lane_ops("o0", geom, K, True)
     else:
         nbytes = streams + 257 * 4 + K * L
-        ops = L * K * (2 + 6 + 6) + -(-L // 128) * (1 << 15) * 24
+        ops = L * K * (2 + 6 + 6) + (1 << 15) * 24
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_OPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -1155,8 +1270,8 @@ def phase_lane_timing(dev) -> dict:
     share 8, 64 segments): per kernel a warm-up, then 3 timed calls on
     distinct rotations (CUDA events; a cudaMalloc inside a span fails
     the phase), the plain version once on the card (ids 56 and 42), and
-    end-to-end MB/s of ids 56 and 58 on textbwt 16 MB (api round trips, 4
-    blocks, a warm-up and 2 timed on distinct rotations)."""
+    end-to-end MB/s of ids 56, 58 and 42 on textbwt 16 MB (api round
+    trips, 4 blocks, a warm-up and 2 timed on distinct rotations)."""
     import numpy as np
     import torch
     from turborc_tpu_torch import api
@@ -1239,7 +1354,7 @@ def phase_lane_timing(dev) -> dict:
                           words=nwords, bound=bound)
         del probs, st, words, out
         log(f"timing-lane {codec} " + json.dumps(res[codec]))
-    for codec in ("rans-cdf-o0", "rans-cdf-s8"):
+    for codec in ("rans-cdf-o0", "rans-cdf-s8", "rans-static"):
         enc, dec = [], []
         c = CodecConfig(codec=codec)
         for r in range(3):  # rep 0 is the warm-up
@@ -1268,9 +1383,9 @@ def phase_lane_timing(dev) -> dict:
 
 def _lane_rows(timed: dict, launches: dict, before: dict) -> list:
     """The kernels-line rows of L1-L4: L1-L3 at id 56's main path (the
-    default codec), L4 at id 42's; L1 and L3 with T (threads a lane) and,
-    from ``before`` (timing-before-after at id 56), before_ms and
-    after_ms."""
+    default codec), L4 at id 42's; L1, L3 and L4 with T (threads a lane),
+    L2 with N (lanes a CTA) and, from ``before`` (timing-before-after, L2
+    at id 56, L4 at id 42), before_ms and after_ms."""
     from turborc_tpu_torch.ops import rans_lane_kernel as LK
     rows = []
     for name, codec in (("lane_model", "rans-cdf-o0"),
@@ -1285,12 +1400,15 @@ def _lane_rows(timed: dict, launches: dict, before: dict) -> list:
             max_abs_err=t["err"][name], ms=t["ms"][name],
             plain_ms=t["plain_ms"][name],
             bound_ms=bound, bound_by=by, library_ms=None))
+        rows[-1].update({"lane_coder": dict(N=LK.CODER_LANES),
+                         "lane_static_decode": dict(T=LK.STATIC_TEAM)}.get(
+                             name, dict(T=LK.lane_team(1))))
         if name in REDESIGNED:
             pair = before.get(codec, {}).get(name, {})
             mean = {w: sum(v) / len(v) if v else None
                     for w, v in pair.items()}
             # before_ms / after_ms: bare C entries, in turns, one phase
-            rows[-1].update(T=LK.lane_team(1), before_ms=mean.get("before"),
+            rows[-1].update(before_ms=mean.get("before"),
                             after_ms=mean.get("after"))
     return rows
 
@@ -1325,6 +1443,7 @@ def child(before: str | None) -> int:
     phase_place_edge(dev)
     phase_coder_edge(dev)
     phase_lane_kernels(dev)
+    phase_lane_edge(dev)
     golden, golden_r1 = _golden(GOLDEN), _golden(GOLDEN_R1)
     golden_rcp, golden_x2 = _golden(GOLDEN_RCP), _golden(GOLDEN_X2)
     main = _roundtrip("roundtrip-64MB-bench-geom",
@@ -1436,7 +1555,7 @@ def _args(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(CHILD_FLAG, action="store_true", help=argparse.SUPPRESS)
     ap.add_argument(BEFORE_FLAG, metavar="COMMIT",
-                    help="also time L1 and L3 of the git archive of COMMIT "
+                    help="also time L2 and L4 of the git archive of COMMIT "
                     "unpacked in _archive/COMMIT/")
     return ap.parse_args(argv)
 

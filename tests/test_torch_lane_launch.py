@@ -33,7 +33,18 @@ def _const(text: str, name: str) -> str:
 
 
 def test_constants_match_source():
-    assert int(_const(SRC, "kPre")) == LK.PRE_STEPS
+    """The numbers the wrapper and the tests plan with are the source's:
+    L2's CTA, stage ring, chain block and move batch, L4's team."""
+    for name, value in (("kCoderN", LK.CODER_LANES),
+                        ("kCoderD", LK.CODER_SLOTS),
+                        ("kCoderRing", LK.CODER_RING),
+                        ("kCoderU", LK.CODER_BLOCK),
+                        ("kCoderMoveU", LK.CODER_MOVE),
+                        ("kCoderWords", LK.CODER_WORDS),
+                        ("kStaticTeam", LK.STATIC_TEAM),
+                        ("kStaticThreads", LK.STATIC_THREADS)):
+        assert int(_const(SRC, name)) == value, name
+    assert "kPre" not in SRC  # the register queue is gone
 
 
 def _c_params(name: str) -> list[str]:
@@ -167,10 +178,12 @@ def test_coder_compaction_negative_controls():
 # ---------------------------------------------------------------------------
 
 class WordsMirror:
-    """The source's Words over the payload's words: lane l reads words[off
-    + p] while p < n = min(len, M, W - off), else 0; the word at pos is
-    held before it is needed.  ``bounded=False`` drops the lane's length
-    (reads run into the next lane's words); ``stale`` never reloads."""
+    """A lane's reader of the payload's words, a word at a time (the rule
+    L3's and L4's team readers keep, spread over a team): lane l reads
+    words[off + p] while p < n = min(len, M, W - off), else 0; the word
+    at pos is held before it is needed.  ``bounded=False`` drops the
+    lane's length (reads run into the next lane's words); ``stale`` never
+    reloads."""
 
     def __init__(self, words, off, ln, M, bounded=True, stale=False):
         W = words.shape[0]
@@ -212,8 +225,9 @@ def static_decode_mirror(words: np.ndarray, lengths: np.ndarray, K: int,
 
 
 def table_search(cdf: np.ndarray, v, steps: int = 8):
-    """lane_static_decode_kernel's table entries of the values ``v``: the
-    last i with cdf[i] <= v, by ``steps`` halvings of [0, 256)."""
+    """The last i with cdf[i] <= v for the values ``v``, by ``steps``
+    halvings of [0, 256): the search that starts each thread's walk of
+    lane_static_decode_kernel's table build."""
     v = np.asarray(v)
     lo, hi = np.zeros_like(v), np.full_like(v, 256)
     for _ in range(steps):
@@ -265,8 +279,8 @@ def _static_streams(K: int, L: int, seed: int):
 
 
 def test_words_from_payload_mirror():
-    """L4's decode from the payload's words, each lane bounded by its
-    length, the word loaded a step ahead, equals the plain version: on
+    """A static-CDF decode from the payload's words, each lane bounded by
+    its length, the word loaded a step ahead, equals the plain version: on
     sound streams (which it decodes) and on corrupt ones (flipped words
     and states; a length table cut short, lengthened past 2K + 2 and past
     the words), where lanes read past their stored words.  Dropping the
@@ -386,20 +400,41 @@ def test_rejoin_mirror_negative_control(share):
 
 
 def test_prefetch_queue_order():
-    """L2's queue of kPre loads ahead (q[0] taken, the rest shifted down,
-    the step kPre ahead requested into q[kPre - 1]): every step t < K is
-    read once, in order, by the step that takes it, and nothing at or
-    past K is read."""
-    P = LK.PRE_STEPS
-    for K in (0, 1, P - 1, P, P + 1, 3 * P + 5, 64):
-        reads = [u for u in range(P) if u < K]
-        q = [u if u < K else None for u in range(P)]
-        for t in range(K):
-            assert q[0] == t
-            q = q[1:] + [t + P if t + P < K else None]
-            if t + P < K:
-                reads.append(t + P)
-        assert reads == list(range(K))
+    """L2's loads ahead of its chain: while block b of CODER_BLOCK slots is
+    coded, block b + 2's probs are loaded and block b + 1's reciprocals
+    looked up (from probs loaded a block before), and the registers only
+    rotate: every slot i < S is coded once, in order, from probs loaded
+    two blocks and reciprocals one block before its block, and every slot
+    a block reads lies in the stages published at its stage's barrier
+    (stages j and j + 1)."""
+    U, D = LK.CODER_BLOCK, LK.CODER_SLOTS
+    for S in (0, 1, U - 1, U, U + 1, D - 1, D, D + 1, 3 * D + 5, 640):
+        blocks = -(-S // U)
+        loaded, recip, coded = {}, {}, []
+        p = [None, None, None]  # probs of blocks b, b + 1, b + 2
+        m = [None, None]        # reciprocals of blocks b, b + 1
+        for j in range(-(-S // D)):
+            published = range(j * D, (j + 2) * D)
+            b0 = j * (D // U)
+            if j == 0:
+                p[0], p[1] = 0, 1
+                loaded[0] = loaded[1] = -1
+                m[0] = p[0]
+                recip[0] = -1
+            for b in range(b0, min(b0 + D // U, blocks)):
+                p[2] = b + 2
+                loaded[b + 2] = b
+                assert all(i in published
+                           for i in range((b + 2) * U, (b + 3) * U))
+                assert loaded[p[1]] < b  # block b + 1's probs landed
+                m[1] = p[1]
+                recip[b + 1] = b
+                assert m[0] == p[0] == b and recip[b] < b
+                assert loaded[b] <= b - 2 or b < 2
+                coded += [i for i in range(b * U, (b + 1) * U) if i < S]
+                p = [p[1], p[2], None]
+                m = [m[1], None]
+        assert coded == list(range(S))
 
 
 # ---------------------------------------------------------------------------

@@ -14,12 +14,19 @@ layouts it tells apart.  With ``--kernel lane_model`` or ``--kernel
 lane_decode``, the lane kernels L1 or L3 (teams of T threads a lane) on a
 4 MB block at ids 56's and 58's geometries: the T sweep (4, 8, 16), the
 split, ptxas of each instantiation, the team launch and CTAs an SM, and
-ablations (``probe_lane``; the port's source only).
+ablations (``probe_lane``; the port's source only).  With ``--kernel
+lane_coder`` or ``--kernel lane_static_decode``, L2 (at id 56's and id
+42's probs) or L4 (at id 42's streams) on the same block: the split,
+ptxas, SASS, CTAs an SM, the sweep (L2: ``lanes-64``; L4: ``team-4``,
+``team-8`` and ``sym-packed``) and ablations (``probe_io``); ``--src`` may
+also be the ``csrc`` of cfdb21a, whose one-thread-a-lane L2 and L4 it
+tells apart (split only).
 
     python3 tools/decode_probe.py [--src DIR] [--ablate no-rejoin,...]
         [--label NAME] [--out FILE]
         [--kernel decode|model|o1_decode|coder|o1_model|tree_decode|
-                  tree_model|lane_model|lane_decode]
+                  tree_model|lane_model|lane_decode|lane_coder|
+                  lane_static_decode]
 
 ``--src`` is a ``csrc`` directory: the port's own (the default), or that
 of commit ff11eb3 (a ``git archive ff11eb3`` unpacked into a git-ignored
@@ -1340,6 +1347,328 @@ def probe_lane(opt, dev, res: dict, work: Path) -> dict:
     return res
 
 
+# L2 (``--kernel lane_coder``) and L4 (``--kernel lane_static_decode``):
+# the per-lane scan codecs' coder and static-CDF decoder of
+# rans_lane_kernel.cu, on one 4 MB block of textbwt at the default
+# CodecConfig (512 lanes): L2 on id 56's probs (L1's, S = 2K = 16,384) and
+# id 42's (the static CDF's, S = K = 8,192), L4 on id 42's streams.  Two
+# layouts each, told apart by the source: L2 "queue" (cfdb21a: one thread
+# a lane on CTAs of 128, probs from device memory kPre slots ahead in a
+# register queue, the hardware division, the words moved one at a time by
+# their lane's thread) and "staged" (the port's: K3's chain over a lane's
+# row); L4 "thread" (cfdb21a: one thread a lane, sym_of then two CDF loads
+# a byte, the table built by a search a value) and "team" (the port's:
+# L3's team word reader, one entry load a byte on the chain, the table
+# walked a run of values a thread).  A stamp marks the end of a segment
+# anywhere in the kernel (``stamped_at``): thread 0 of CTA 0 (lane 0; in
+# L2 its chain and then its warp's moves).  ``exact`` variants are held
+# byte for byte like the base; ablations are timed only.
+IO_STAMPS = {
+    "queue": dict(
+        begin="  if (l >= L) return;  // no barrier below",
+        stamps=[
+            ("    q[kPre - 1] = s - kPre >= 0 ? uint32_t(src[size_t(s - kPre)"
+             " * L]) : 1u;", "p + q[0]"),
+            ("      state >>= 16;\n    }", "k"),
+            ("    const uint32_t quo = state / freq;", "quo"),
+            ("    state = (quo << 15) + (state - quo * freq) + low;",
+             "state"),
+            ("  for (size_t p = max(size_t(k) + 2, M - k); p < M; ++p) "
+             "row[p] = 0;", "row[2]")],
+        end="  for (size_t p = max(size_t(k) + 2, M - k); p < M; ++p) "
+            "row[p] = 0;",
+        segments=["queue: load issue, the shift waits on the load of a "
+                  "step ago", "emit", "division (hardware /)",
+                  "state step", "move (one thread, a word at a time)"]),
+    "staged": dict(
+        begin="  const size_t M = size_t(S) + 2;",
+        stamps=[("    mtab[f] = m << 1;\n  }", "mtab[threadIdx.x]"),
+                ("    __syncthreads();", "0"),
+                ("      continue;\n    }", "0"),
+                ("      coder_recip(mtab, p1, m1, sh1);",
+                 "m1[kCoderU - 1] + p2[kCoderU - 1]"),
+                ("        state = x + (pr >> 16) + q * (kTotal - freq);\n"
+                 "      }", "state"),
+                ("        sh0[u] = sh1[u];\n      }", "p0[0]"),
+                ("  __syncthreads();  // every word at its row's end",
+                 "kept[0]"),
+                ("      row[p] = 0;\n  }", "0")],
+        end="      row[p] = 0;\n  }",
+        segments=["table fill, first stages requested",
+                  "stage wait (cp.async wait, barrier)",
+                  "stage request",
+                  "reciprocal: block b + 1's table loads and shifts, "
+                  "block b + 2's probs (charged their latency)",
+                  "state step and emit to the word ring (a block of "
+                  "kCoderU slots)",
+                  "block rotation",
+                  "counts, the last flush (helpers), flush state, barriers",
+                  "move and clear (warp 0's lanes)"]),
+    "thread": dict(
+        begin="  __shared__ uint8_t sym_of[kTotal];",
+        stamps=[("    sym_of[v] = uint8_t(lo);\n  }\n  __syncthreads();",
+                 "sym_of[threadIdx.x]"),
+                ("  words_init(w, words, off, len, W, 2 * K + 2, l, true, "
+                 "state);", "state"),
+                ("    const int sym = sym_of[value];", "sym"),
+                ("    const int low = c[sym], freq = c[sym + 1] - low;",
+                 "low + freq"),
+                ("    state = uint32_t(freq) * (state >> 15) + value - "
+                 "uint32_t(low);", "state"),
+                ("    words_renorm(w, state);", "state"),
+                ("    dst[size_t(t) * L] = uint8_t(sym);", "sym")],
+        end="    dst[size_t(t) * L] = uint8_t(sym);\n  }",
+        segments=["table build (a search a value)", "words init",
+                  "table load (sym_of)", "CDF loads (low, freq)",
+                  "state step", "renorm (the word loaded at the last "
+                  "take)", "store"]),
+    "team": dict(
+        begin="  const bool real = l < L;",
+        stamps=[("  static_tables(c, ent, sym_of);", "ent[threadIdx.x]"),
+                ("  __syncthreads();", "state", 2),
+                ("      mine = j == u ? sym : mine;\n    }", "state + mine"),
+                ("    static_words_chunk<T>(w, j);", "w.far"),
+                ("    if (real) dst[size_t(t0) * L] = mine;", "mine"),
+                ("  if (real && full + j < K) dst[size_t(full) * L] = mine;",
+                 "mine")],
+        end="  if (real && full + j < K) dst[size_t(full) * L] = mine;",
+        segments=["table build (a run of values a thread)",
+                  "words init, barrier",
+                  "steps (table load, state step, renorm; T a chunk)",
+                  "chunk end: the words move along (charged the far "
+                  "load's latency)",
+                  "store (a chunk of T)", "the last K % T steps"]),
+}
+IO_KERNELS = {
+    "lane_coder": dict(
+        entry="trc_lane_coder", fn="lane_coder_kernel(",
+        layout=lambda src: "queue" if "kPre" in src else "staged",
+        codecs=("rans-cdf-o0", "rans-static"),
+        occupancy={"queue": ("lane_coder_kernel", "kLanes", "0"),
+                   "staged": ("lane_coder_kernel", "kCoderThreads",
+                              "kCoderSmem")},
+        section=("// ---- L2:", "// L3's reader"),
+        variants={
+            "lanes-64": [("constexpr int kCoderN = 32;",
+                          "constexpr int kCoderN = 64;")],
+            # both steps (emit, no emit) at once, selected at the end
+            "both-paths": [
+                ("        const uint32_t x = e ? state >> 16 : state;\n"
+                 "        const uint32_t q = (__umulhi(x, m0[u]) + x) >> "
+                 "sh0[u];  // x / freq\n"
+                 "        // (q << 15) + (x - q * freq) + low\n"
+                 "        state = x + (pr >> 16) + q * (kTotal - freq);",
+                 "        const uint32_t x1 = state >> 16, c = kTotal - "
+                 "freq, lo = pr >> 16;\n"
+                 "        const uint32_t q0 = (__umulhi(state, m0[u]) + "
+                 "state) >> sh0[u];\n"
+                 "        const uint32_t q1 = (__umulhi(x1, m0[u]) + x1) >> "
+                 "sh0[u];\n"
+                 "        state = e ? x1 + lo + q1 * c : state + lo + q0 * "
+                 "c;")]},
+        ablations={
+            "no-emit": [("        wr[(k & (kCoderWords - 1)) * N] = "
+                         "int(state & 0xFFFFu);\n", "")],
+            "no-flush": [("      coder_flush(words, kpub + ((j + 2) % 3) * N,"
+                          " kpub + (j % 3) * N,\n                  streams, "
+                          "M, lane0, L);\n", "")],
+            "no-div": [("(__umulhi(x, m0[u]) + x) >> sh0[u];",
+                        "x >> 12;")],
+            "no-move": [("    if (kc == 0) continue;  // also a dummy lane",
+                         "    continue;")],
+            "no-table": [("    div_magic(uint32_t(f + 1), m, sh);\n"
+                          "    mtab[f] = m << 1;", "    mtab[f] = 2u;")],
+        }),
+    "lane_static_decode": dict(
+        entry="trc_lane_static_decode", fn="lane_static_decode_kernel(",
+        layout=lambda src: "thread" if "sym_of[value];\n    const int low"
+        in src else "team",
+        codecs=("rans-static",),
+        occupancy={"thread": ("lane_static_decode_kernel", "kLanes", "0"),
+                   "team": ("lane_static_decode_kernel", "kStaticThreads",
+                            "kStaticSmem")},
+        section=("// L3's reader", "bool pow2(int v"),
+        variants={
+            "team-4": [("constexpr int kStaticTeam = 16;",
+                        "constexpr int kStaticTeam = 4;")],
+            "team-8": [("constexpr int kStaticTeam = 16;",
+                        "constexpr int kStaticTeam = 8;")],
+            # sym_of[v], then a 256-entry packed (freq << 16) - low by the
+            # symbol: two dependent loads a byte
+            "sym-packed": [
+                ("    ent[v] = (uint32_t(nx - low) << 16) | uint32_t(v - "
+                 "low);", "    ent[sym] = (uint32_t(nx - low) << 16) - "
+                 "uint32_t(low);"),
+                ("  const uint32_t e = ent[value];\n  const uint8_t sym "
+                 "= sym_of[value];", "  const uint8_t sym = "
+                 "sym_of[value];\n  const uint32_t e = ent[sym] + value;")],
+        },
+        ablations={
+            "no-word": [("  w.next = __shfl_sync(kFull, w.pos < w.edge ? "
+                         "w.cur : w.nxt,\n                       w.pos & "
+                         "(T - 1), T);", "  w.next = uint32_t(w.pos) & "
+                         "0xFFFFu;")],
+            "no-renorm": [("  const bool take = state < kAnsLow;",
+                           "  const bool take = false;")],
+            "no-chunk": [("    static_words_chunk<T>(w, j);\n", "")],
+            "no-store": [("    if (real) dst[size_t(t0) * L] = mine;\n",
+                          "")],
+            "no-build": [("  static_tables(c, ent, sym_of);\n", "")],
+        }),
+}
+
+
+def stamped_at(source: str, fn: str, spec: dict) -> str:
+    """The source with clock64() stamps (``IO_STAMPS``' form) in the
+    kernel that starts at ``fn``: TRC_SPLIT_BEGIN after the line ending
+    ``begin``, a stamp after the line ending each anchor (its nth
+    occurrence from the kernel's start, 1 unless given), TRC_SPLIT_END
+    after the line ending ``end``, all in the kernel's own scope order."""
+    head, sep, rest = source.partition('#include "rans_common.cuh"\n')
+    if not sep:
+        raise ValueError("rans_common.cuh include not found")
+    start = rest.index(fn)
+
+    def after(anchor: str, nth: int = 1) -> int:
+        at = start - 1
+        for _ in range(nth):
+            at = rest.index(anchor, at + 1)
+        return rest.index("\n", at + len(anchor)) + 1
+
+    inserts = [(after(spec["begin"]), "  TRC_SPLIT_BEGIN\n")]
+    for k, (anchor, val, *nth) in enumerate(spec["stamps"]):
+        inserts.append((after(anchor, *nth), f"    TRC_STAMP({k}, {val});\n"))
+    inserts.append((after(spec["end"]), "  TRC_SPLIT_END\n"))
+    # at one place, the later insert goes in first so it ends up after
+    for _, at, text in sorted(((i, at, text) for i, (at, text)
+                               in enumerate(inserts)),
+                              key=lambda x: (-x[1], -x[0])):
+        rest = rest[:at] + text + rest[at:]
+    return head + sep + PRELUDE + rest
+
+
+def _io_inputs(kernel: str, codec: str, dev, rot: int):
+    """(C arguments maker, reference outputs, S or K) of one block:
+    make(outs) -> the C entry's arguments; L2's outputs are the zeroed
+    streams and the lengths."""
+    from turborc_tpu_torch.codecs import blockio
+    from turborc_tpu_torch.codecs import rans_cdf_s8 as S58
+    from turborc_tpu_torch.codecs import rans_static as S42
+    from turborc_tpu_torch.ops import rans
+    from turborc_tpu_torch.ops import rans_lane_kernel as LK
+    from turborc_tpu_torch.utils.config import CodecConfig
+    cfg = CodecConfig()
+    L = cfg.lanes
+    x = np.roll(np.fromfile(LANE_CORPUS, np.uint8), rot)[:cfg.block_size]
+    block, K = blockio.shape_block(x, L, cfg.step_quant)
+    cols = torch.from_numpy(block).to(dev).T.contiguous()
+    if codec == "rans-static":
+        freqs = S42.build_freqs(block.reshape(-1))
+        cdf = torch.from_numpy(S42._cdf(freqs)).to(dev)
+        probs = S42.slot_probs(cols, cdf)
+    else:
+        hi, lo = S58.tables_on(*(t[None] for t in blockio.nibble_tables(x)),
+                               dev)
+        probs = LK.lane_model(cols, hi, lo)
+    init = torch.full((L,), rans.ANS_LOW, dtype=torch.int32, device=dev)
+    st, lens = LK.lane_coder(probs, init)
+    if kernel == "lane_coder":
+        return (lambda outs: LK.lane_coder_cargs(probs, init, *outs)), \
+            (st, lens), probs.shape[0]
+    words = blockio.device_words(st, lens)
+    offs = LK._offsets(lens)
+    out = LK.lane_static_decode(words, lens, K, cdf)
+    return (lambda outs: LK.lane_static_decode_cargs(
+        words, offs, lens, K, cdf, *outs)), (out,), K
+
+
+def probe_io(opt, dev, res: dict, work: Path) -> dict:
+    """L2 or L4 (``IO_KERNELS[opt.kernel]``) of the source in ``--src``:
+    ptxas, SASS, CTAs an SM, the clock64() split, and the bare C entry
+    timed (a warm-up, then 3 repetitions on distinct rotations of the
+    block) for the base, the stamped build, the sweep's variants (held
+    byte for byte) and, on the port's layout, the ablations (timed
+    only)."""
+    spec = IO_KERNELS[opt.kernel]
+    src = Path(opt.src).resolve()
+    base = (src / "rans_lane_kernel.cu").read_text()
+    header = (src / "rans_common.cuh").read_text()
+    layout = spec["layout"](base)
+    res["layout"] = layout
+    variants = {"base": base,
+                "stamped": stamped_at(base, spec["fn"], IO_STAMPS[layout])}
+    ablate = [x for x in opt.ablate.split(",") if x]
+    if layout in ("staged", "team"):
+        for name, changes in spec["variants"].items():
+            variants[name] = _ablate(name, base, header, spec["section"],
+                                     changes)
+        for name in ablate:
+            variants[name] = _ablate(name, base, header, spec["section"],
+                                     spec["ablations"][name])
+    elif ablate:
+        raise ValueError("--ablate applies to the port's own source")
+    exact = ("base", "stamped", *spec["variants"])
+    occ = _occupancy_entry(*spec["occupancy"][layout])
+    variants = {k: ((v[0] + occ, v[1]) if isinstance(v, tuple) else v + occ)
+                for k, v in variants.items()}
+    libs, reports, res["nvcc_s"] = _build_all(variants, src, work,
+                                              "rans_lane_kernel.cu")
+    names = opt.kernel
+    res["ptxas"] = {k: _ptxas(v, names).get(names)
+                    for k, v in reports.items()}
+    res["sass"] = _sass(libs["base"], names)
+    # the port's kernels run first (they make the inputs), and the builds
+    # load after them
+    _io_inputs(opt.kernel, spec["codecs"][0], dev, 0)
+    types = build.SIGNATURES["rans_lane_kernel.cu"][spec["entry"]]
+    fns, loaded = {}, {}
+    for k, lib in libs.items():
+        loaded[k] = ctypes.CDLL(str(lib))
+        fns[k] = getattr(loaded[k], spec["entry"])
+        fns[k].argtypes, fns[k].restype = types, ctypes.c_int
+    res["ctas_per_sm"] = {}
+    for k, lib in loaded.items():
+        c = ctypes.c_int(0)
+        err = lib.trc_probe_occupancy(ctypes.byref(c))
+        res["ctas_per_sm"][k] = f"CUDA error {err}" if err else c.value
+    segs = IO_STAMPS[layout]["segments"]
+    res["codecs"] = {}
+    for codec in spec["codecs"]:
+        times = {k: [] for k in variants}
+        split, n = None, 0
+        for r in range(4):  # rep 0 is the warm-up
+            make, ref, n = _io_inputs(opt.kernel, codec, dev, 7919 * (r + 1))
+            for k, fn in fns.items():
+                print(f"probe {codec} rep {r}: {k}", file=sys.stderr,
+                      flush=True)
+                outs = [torch.zeros_like(v) for v in ref]
+                ms = _bare(fn, make(outs))
+                if k in exact and not all(map(torch.equal, outs, ref)):
+                    raise AssertionError(f"{k} differs from the port's "
+                                         f"{opt.kernel} at {codec}")
+                if r:
+                    times[k].append(ms)
+                if k == "stamped":
+                    acc = (ctypes.c_ulonglong * 32)()
+                    loaded[k].trc_split_read(ctypes.cast(acc,
+                                                         ctypes.c_void_p))
+                    split = [int(x) for x in acc[:len(segs)]]
+                del outs
+            del make, ref
+        total = sum(split)
+        res["codecs"][codec] = {
+            "steps": n,
+            "split": {"thread": "thread 0 of CTA 0", "cycles_total": total,
+                      "cycles_per_step": total / max(n, 1),
+                      "segments": [{"segment": segs[i], "cycles": c,
+                                    "per_step": c / max(n, 1),
+                                    "share": c / total}
+                                   for i, c in enumerate(split)]},
+            "ms": times,
+            "mean_ms": {k: sum(v) / len(v) for k, v in times.items()}}
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=str(build.CSRC))
@@ -1347,7 +1676,8 @@ def main() -> int:
     ap.add_argument("--label", default="")
     ap.add_argument("--out", default="")
     ap.add_argument("--kernel", choices=("decode", "model", "coder",
-                                         *SPLIT_KERNELS, *LANE_SPLIT),
+                                         *SPLIT_KERNELS, *LANE_SPLIT,
+                                         *IO_KERNELS),
                     default="decode")
     opt = ap.parse_args()
     if not torch.cuda.is_available():
@@ -1363,11 +1693,13 @@ def main() -> int:
         res = {"label": label, "kernel": opt.kernel, "src": opt.src,
                "card": _smi(),
                "geom": GEOM if opt.kernel in ("model", "coder")
-               else "CodecConfig()" if opt.kernel in LANE_SPLIT
+               else "CodecConfig()" if opt.kernel in (*LANE_SPLIT,
+                                                      *IO_KERNELS)
                else Geom().spec}
         probe = {"model": probe_model, "coder": probe_coder,
                  **dict.fromkeys(SPLIT_KERNELS, probe_split),
-                 **dict.fromkeys(LANE_SPLIT, probe_lane)}[opt.kernel]
+                 **dict.fromkeys(LANE_SPLIT, probe_lane),
+                 **dict.fromkeys(IO_KERNELS, probe_io)}[opt.kernel]
         res = probe(opt, dev, res, work)
         text = json.dumps(res, indent=1)
         print(text)

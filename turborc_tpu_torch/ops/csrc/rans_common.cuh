@@ -1,10 +1,11 @@
 // Device functions shared by the rANS kernels of rans_kernel.cu (order 0)
 // and rans_o1_kernel.cu (order 1), the bit-tree kernels of
 // bittree_kernel.cu and the lane kernels of rans_lane_kernel.cu: the CDF16
-// table math, the per-lane row layout in shared memory, the o0 share-span
-// re-join, the decoders' group-ordered word fetch from a ring of
-// stream words staged in shared memory (Ring, fetch_post, fetch_take), and
-// the model passes' ring of input bytes (model_stage).
+// table math, the coders' division by a reciprocal (div_magic), the
+// per-lane row layout in shared memory, the o0 share-span re-join, the
+// decoders' group-ordered word fetch from a ring of stream words staged in
+// shared memory (Ring, fetch_post, fetch_take), and the model passes' ring
+// of input bytes (model_stage).
 // Header-only; each source includes it into its own anonymous namespace.
 #pragma once
 
@@ -86,6 +87,25 @@ __device__ __forceinline__ void lookup_pick(const int (&c)[16], int sym,
   const int lo = pick(c, s), nx = pick(c, s1 & 15u);
   low = lo;
   freq = (s1 == 16 ? kTotal : nx) - lo;
+}
+
+// ---- The division of the coders' state step (K3, L2)
+
+// x / freq for every x < 2^31 and freq in [1, 2^15] as umulhi(2x, m) >> l
+// (Granlund and Montgomery, "Division by invariant integers using
+// multiplication", 1994, theorem 4.2 with N = 31): l = ceil(log2 freq),
+// m = floor(2^(31+l) / freq) + 1 < 2^32, so that 2^(31+l) < m freq <=
+// 2^(31+l) + 2^l.  m is worked out from the normalised divisor dn = freq
+// << (16 - l) in (2^15, 2^16] as floor(2^47 / dn) + 1, by two 32-bit
+// divisions.  The state after the emit shift is below 2^31.
+// K3 (rans_kernel.cu) and L2 (rans_lane_kernel.cu) divide by it; ops/
+// rans_kernel.py div_magic mirrors it.
+__device__ __forceinline__ void div_magic(uint32_t freq, uint32_t& m,
+                                          uint32_t& l) {
+  l = 32 - __clz(freq - 1);
+  const uint32_t dn = freq << (16 - l);
+  const uint32_t q1 = 0x80000000u / dn;
+  m = (q1 << 16) + (((0x80000000u - q1 * dn) << 16) / dn) + 1;
 }
 
 // ---- Per-lane rows in shared memory.  Row h of a region holds two

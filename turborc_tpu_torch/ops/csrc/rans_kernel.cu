@@ -360,22 +360,6 @@ static_assert(kLanes % kCoderLanes == 0, "a group is whole CTAs");
 static_assert(kCoderBufs >= 2, "one stage in flight at least");
 static_assert(kCoderSmem <= kSmemMax, "K3's stages and table fit a CTA");
 
-// x / freq for every x < 2^31 and freq in [1, 2^15] as umulhi(2x, m) >> l
-// (Granlund and Montgomery, "Division by invariant integers using
-// multiplication", 1994, theorem 4.2 with N = 31): l = ceil(log2 freq),
-// m = floor(2^(31+l) / freq) + 1 < 2^32, so that 2^(31+l) < m freq <=
-// 2^(31+l) + 2^l.  m is worked out from the normalised divisor dn = freq
-// << (16 - l) in (2^15, 2^16] as floor(2^47 / dn) + 1, by two 32-bit
-// divisions.  The state after the emit shift is below 2^31.
-// ops/rans_kernel.py div_magic mirrors this.
-__device__ __forceinline__ void div_magic(uint32_t freq, uint32_t& m,
-                                          uint32_t& l) {
-  l = 32 - __clz(freq - 1);
-  const uint32_t dn = freq << (16 - l);
-  const uint32_t q1 = 0x80000000u / dn;
-  m = (q1 << 16) + (((0x80000000u - q1 * dn) << 16) / dn) + 1;
-}
-
 // The CTA requests stage j of its lanes (from lane0) into buf.
 __device__ __forceinline__ void coder_stage(int* buf,
                                             const int* __restrict__ probs,

@@ -21,14 +21,14 @@
 // lane reads 0 at or past min(len, M) or past the W words (the JAX
 // package's zero-padded [L, M] matrix, for the lengths it accepts).
 //
-// L2 and L4 run one thread a lane on CTAs of kLanes = 128 threads; L1 and
-// L3 run a team of T threads a lane (below).  A CTA's threads past L run
-// the loop on dummy data and write nothing, so every barrier and shuffle
-// has all its threads.  A lane is a serial state machine; lanes are
-// coupled only by the re-join of `share`-lane model copies (id 58; the
-// team port of rans_common.cuh's rejoin_batches_after, which K1, K2 and
-// K5 run): lane l's model belongs to span l / share, whose warm tables
-// are those of segment (l / share) * n_seg / (L / share).
+// L1, L3 and L4 run a team of T threads a lane, L2 one thread a lane on
+// CTAs of kCoderN lanes (below).  A CTA's threads past L run the loop on
+// dummy data and write nothing, so every barrier and shuffle has all its
+// threads.  A lane is a serial state machine; lanes are coupled only by the
+// re-join of `share`-lane model copies (id 58; the team port of
+// rans_common.cuh's rejoin_batches_after, which K1, K2 and K5 run): lane
+// l's model belongs to span l / share, whose warm tables are those of
+// segment (l / share) * n_seg / (L / share).
 //
 // L1 and L3: a team of T consecutive threads of a warp a lane (kTeam, or
 // half of it where a span's teams would pass kMaxThreads), thread j of the
@@ -47,23 +47,18 @@
 // Every thread of a team carries the lane's rANS state (L3); the lane's
 // stream words (L3), input bytes (L1) and outputs are spread over the
 // team, a word or a step a thread, loaded or stored a chunk of T at a
-// time and shuffled to the team a step ahead of their use.  L2 loads its
-// probs kPre slots ahead; L4 loads the next stream word of its lane right
-// after taking one, so the load has a step to land.  Reading the
+// time and shuffled to the team a step ahead of their use.  Reading the
 // payload's u16 words at per-lane offsets, not [L, M] int32 rows, keeps a
-// lane's next words in a line it has read.  L2 walks the slots
-// backwards, writes the k-th emitted word at the row's end, position
-// M - 1 - k, then moves the E words to positions 2 .. E + 1 and zeroes
-// what is left of them past E + 1 (the wrapper hands it zeroed rows):
-// rans.stitch without a words/emit round trip.  L4 builds the value ->
-// symbol table of the block's static CDF in shared memory (32 KB) by
-// binary search, the JAX package's searchsorted(cdf, value, side="right")
-// - 1.
+// lane's next words in a line it has read.  L2 (K3's coder chain over a
+// lane's row) and L4 (one table load a byte on L3's word reader) are
+// described at their kernels.
 //
 // Rules kept: __syncthreads() only where all threads of the CTA arrive
 // (conditions depend on the byte index and the geometry, never on data);
-// no loop bound taken from data; every stream read is bounds-checked (see
-// Words, TeamWords), so a corrupt stream or length table decodes to wrong
+// no loop bound taken from data beyond counts the kernel bounds itself
+// (L2's k <= S words a lane, L4's at most 255 symbol moves a thread); every
+// stream read is bounds-checked (see
+// TeamWords), so a corrupt stream or length table decodes to wrong
 // bytes, never to an out-of-bounds access or a hang.  Each C entry point
 // checks its arguments, returns cudaErrorInvalidValue without a launch
 // when they do not fit, and otherwise cudaGetLastError() after its launch.
@@ -80,8 +75,6 @@ namespace {
 struct Span {
   int share, sync, lsync, arows, srows, hrows, rate;
 };
-
-constexpr int kPre = 8;  // slots L2 loads ahead
 
 // ---- The team of a lane (L1, L3).  Thread j of lane l's team is thread
 // l T + j of the grid and holds entries j E .. j E + E - 1 of the lane's
@@ -490,79 +483,250 @@ lane_model_kernel(const uint8_t* __restrict__ cols,
 // ---- L2: backward rANS over a lane's slots and the compaction of its
 // stream.  probs [S, L] int32, init [L] (states >= 2^15), streams [L,
 // S + 2] int32 zeroed -> streams, lengths [L]
-// (rans.stitch(*rans.encode_backward(...))).
-__global__ void __launch_bounds__(kLanes)
+// (rans.stitch(*rans.encode_backward(...))).  K3's chain over a lane's
+// row: a CTA holds kCoderN lanes, one chain thread each (its first
+// kCoderN threads, warps of their own); the other warps, the helpers,
+// flush the chains' words, and every thread stages probs, fills the table
+// of reciprocals and moves the streams.  A lane walks its slots
+// backwards; slot i of the walk is slot s = S - 1 - i, and the walk runs
+// in stages of kCoderD slots, i = j D .. j D + D - 1 in stage j, staged
+// by cp.async into a ring of kCoderRing buffers: stage j's barrier
+// publishes stages j and j + 1, after it the CTA requests stage j +
+// kCoderRing - 1.  A slot below 0 (i >= S, in the last stage) and a dummy
+// lane read kIdentity.  The chain takes blocks of kCoderU slots: while
+// block b is coded, block b + 2's probs are loaded and block b + 1's
+// reciprocals and shifts looked up, so no step waits on shared memory.
+// The division by freq is div_magic's reciprocal from a table of all 2^15
+// of them, filled while the first stages land, each held as 2m - 2^32
+// (m << 1; m >= 2^31), so that umulhi(2x, m) = x + umulhi(x, 2m - 2^32)
+// is one multiply-add with no shift before it.  Every slot stores the low
+// half of the state at the lane's word count k in a ring of kCoderWords
+// words in shared memory, and an emit moves k on: no branch, no device
+// store on the chain (a branch around a device store a slot took half of
+// the time).  At stage j's barrier the chains publish k (three buffers,
+// kpub[j % 3]); until the next barrier the helpers write the words of
+// stage j - 1 to the row's end, word k at position M - 1 - k.  After the
+// walk, the CTA's warps move each lane's words to positions 2 .. k + 1, a
+// warp a lane, kCoderMoveU coalesced batches of 32 words in flight, and
+// clear what is left of them past k + 1 (the wrapper hands the rows
+// zeroed).
+constexpr int kCoderN = 32;         // lanes a CTA (chain threads)
+constexpr int kCoderThreads = 256;  // threads a CTA
+constexpr int kCoderD = 64;         // slots a stage
+constexpr int kCoderRing = 4;       // stage buffers
+constexpr int kCoderU = 8;          // slots a block of the chain
+constexpr int kCoderMoveU = 16;     // words a thread moves in a batch
+// a stage emits at most kCoderD words a lane: the helpers read the last
+// stage's while the chain writes the next one's
+constexpr int kCoderWords = 128;
+// low 0, freq 2^15: a step that changes no state and emits nothing (the
+// state stays below 2^31 = 2^15 << 16)
+constexpr uint32_t kIdentity = kAnsLow;
+constexpr int kCoderRingBytes = kCoderRing * kCoderD * kCoderN * 4;
+constexpr int kCoderSmem =
+    kCoderRingBytes + kTotal * 4 + (kCoderWords + 3) * kCoderN * 4;
+static_assert(kCoderN % 32 == 0 && kCoderN < kCoderThreads,
+              "the chains are whole warps, and helpers remain");
+static_assert(kCoderD % kCoderU == 0 && kCoderD >= 2 * kCoderU,
+              "a block's loads two blocks ahead stay within the next stage");
+static_assert(kCoderRing == 4, "two stages published, two in flight");
+static_assert((kCoderWords & (kCoderWords - 1)) == 0 &&
+                  kCoderWords >= 2 * kCoderD,
+              "kCoderWords: 2^n, two stages' words");
+static_assert(kCoderSmem <= kSmemMax, "L2's ring and table fit a CTA");
+
+// The CTA requests stage j of its lanes (from lane0) into its ring buffer:
+// where the CTA's kCoderN lanes are all real (L >= kCoderN), 16-byte
+// copies of a slot's contiguous probs; else (one CTA, rows under
+// kCoderN x 4 bytes) one int a thread.
+__device__ __forceinline__ void lane_coder_stage(int* ring,
+                                                 const int* __restrict__ probs,
+                                                 int j, int S, int L,
+                                                 int lane0) {
+  constexpr int N = kCoderN;
+  int* buf = ring + (j % kCoderRing) * kCoderD * N;
+  const long long top = (long long)S - 1 - (long long)j * kCoderD;
+  if (L >= N) {
+    constexpr int kPer = N / 4;  // copies a slot
+    for (int q = threadIdx.x; q < kCoderD * kPer; q += kCoderThreads) {
+      const int i = q / kPer, part = (q % kPer) * 4;
+      const long long s = top - i;
+      int* dst = buf + i * N + part;
+      if (s >= 0)
+        cp_async16(dst, probs + size_t(s) * L + lane0 + part);
+      else
+        *reinterpret_cast<int4*>(dst) =
+            make_int4(kIdentity, kIdentity, kIdentity, kIdentity);
+    }
+  } else {
+    for (int q = threadIdx.x; q < kCoderD * N; q += kCoderThreads) {
+      const int i = q / N, n = q % N;
+      const long long s = top - i;
+      buf[q] = s >= 0 && n < L ? probs[size_t(s) * L + n] : int(kIdentity);
+    }
+  }
+}
+
+// Block b's probs of this lane (slot i = b U + u at ring slot i mod the
+// ring's kCoderRing D slots).
+__device__ __forceinline__ void coder_block(const int* rp, int b,
+                                            uint32_t (&p)[kCoderU]) {
+#pragma unroll
+  for (int u = 0; u < kCoderU; ++u)
+    p[u] = uint32_t(
+        rp[((b * kCoderU + u) & (kCoderRing * kCoderD - 1)) * kCoderN]);
+}
+
+// Their reciprocals and shifts (div_magic of freq, the table at
+// (freq - 1) mod 2^15: a freq outside [1, 2^15] gives a wrong word, never
+// a read outside the table).
+__device__ __forceinline__ void coder_recip(const uint32_t* mtab,
+                                            const uint32_t (&p)[kCoderU],
+                                            uint32_t (&m)[kCoderU],
+                                            uint32_t (&sh)[kCoderU]) {
+#pragma unroll
+  for (int u = 0; u < kCoderU; ++u) {
+    m[u] = mtab[(p[u] - 1) & (kTotal - 1)];
+    sh[u] = 32 - __clz((p[u] & 0xFFFFu) - 1);
+  }
+}
+
+// The helpers (warps from kCoderN / 32 on) write each real lane's words
+// from .. to - 1 of the word ring to the row's end, a warp a lane.
+__device__ __forceinline__ void coder_flush(const int* words,
+                                            const int* from, const int* to,
+                                            int* __restrict__ streams,
+                                            size_t M, int lane0, int L) {
+  constexpr int kHelpers = (kCoderThreads - kCoderN) / 32;
+  const int h = (threadIdx.x - kCoderN) >> 5, wl = threadIdx.x & 31;
+  for (int c = h; c < kCoderN && lane0 + c < L; c += kHelpers) {
+    int* end = streams + size_t(lane0 + c) * M + M - 1;
+    for (int i = from[c] + wl; i < to[c]; i += 32)
+      end[-i] = words[(i & (kCoderWords - 1)) * kCoderN + c];
+  }
+}
+
+__global__ void __launch_bounds__(kCoderThreads, 1)
 lane_coder_kernel(const int* __restrict__ probs, const int* __restrict__ init,
                   int* __restrict__ streams, int* __restrict__ lengths, int S,
                   int L) {
-  const int l = blockIdx.x * kLanes + threadIdx.x;
-  if (l >= L) return;  // no barrier below
+  constexpr int N = kCoderN, U = kCoderU;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int* ring = reinterpret_cast<int*>(smem_raw);  // [kCoderRing][D][N]
+  // 2m - 2^32 of div_magic's m for freq = 1 .. 2^15, at freq - 1
+  uint32_t* mtab = reinterpret_cast<uint32_t*>(smem_raw + kCoderRingBytes);
+  int* words = reinterpret_cast<int*>(mtab + kTotal);  // [kCoderWords][N]
+  int* kpub = words + kCoderWords * N;  // [3][N]: k at stage j's barrier
+  const int lane0 = blockIdx.x * N, n = threadIdx.x;
+  const bool chain = n < N;
+  const int l = lane0 + n;
+  const bool real = chain && l < L;
+  const int stages = (S + kCoderD - 1) / kCoderD;
+  const int blocks = (S + U - 1) / U;
   const size_t M = size_t(S) + 2;
-  int* row = streams + size_t(l) * M;
-  uint32_t state = uint32_t(init[l]);
-  int k = 0;  // words emitted so far; word k sits at M - 1 - k
-  // slots s .. s - kPre + 1 in q[0 .. kPre - 1]; slot s - kPre is
-  // requested as slot s is taken (a slot below 0 reads freq 1, unused)
-  const int* src = probs + l;
-  uint32_t q[kPre];
 #pragma unroll
-  for (int u = 0; u < kPre; ++u)
-    q[u] = S - 1 - u >= 0 ? uint32_t(src[size_t(S - 1 - u) * L]) : 1u;
-  for (int s = S - 1; s >= 0; --s) {
-    const uint32_t p = q[0];
-#pragma unroll
-    for (int u = 0; u + 1 < kPre; ++u) q[u] = q[u + 1];
-    q[kPre - 1] = s - kPre >= 0 ? uint32_t(src[size_t(s - kPre) * L]) : 1u;
-    const uint32_t low = p >> 16, freq = p & 0xFFFFu;
-    if (state >= (freq << 16)) {
-      row[M - 1 - k] = int(state & 0xFFFFu);
-      ++k;
-      state >>= 16;
-    }
-    const uint32_t quo = state / freq;
-    state = (quo << 15) + (state - quo * freq) + low;
+  for (int k = 0; k < kCoderRing - 1; ++k) {
+    if (k < stages) lane_coder_stage(ring, probs, k, S, L, lane0);
+    cp_async_commit();
   }
-  // words M-k .. M-1 (decode order) to 2 .. k+1; the move reads ahead of
-  // what it writes (M - k >= 2).  The row came zeroed: only the words
-  // left past k + 1 are cleared.
-  for (int i = 0; i < k; ++i) row[2 + i] = row[M - k + i];
-  for (size_t p = max(size_t(k) + 2, M - k); p < M; ++p) row[p] = 0;
-  row[0] = int(state >> 16);
-  row[1] = int(state & 0xFFFFu);
-  lengths[l] = k + 2;
-}
-
-// A lane's stream reader over the payload's u16 words: word p of the lane
-// is words[off + p] for p < n, else 0; the next word is loaded as soon as
-// the last one is taken.
-struct Words {
-  const uint16_t* src;  // the lane's first word
-  int n, pos;           // words readable; next position
-  uint32_t next;        // the word at pos
-};
-
-// Lane l's reader: n = min(len, M, W - off), none for a dummy lane or an
-// offset outside the W words.
-__device__ __forceinline__ void words_init(Words& w, const uint16_t* words,
-                                           const long long* off,
-                                           const int* len, long long W, int M,
-                                           int l, bool real,
-                                           uint32_t& state) {
-  const long long o = real ? off[l] : -1;
-  long long n = o >= 0 && o < W ? min((long long)min(len[l], M), W - o) : 0;
-  w.n = int(max(n, 0LL));
-  w.src = words + (w.n ? o : 0);
-  const uint32_t hi = w.n > 0 ? w.src[0] : 0u, lo = w.n > 1 ? w.src[1] : 0u;
-  state = real ? (hi << 16) | lo : kAnsLow;
-  w.pos = 2;
-  w.next = 2 < w.n ? uint32_t(w.src[2]) : 0u;
-}
-
-__device__ __forceinline__ void words_renorm(Words& w, uint32_t& state) {
-  if (state < kAnsLow) {
-    state = (state << 16) | w.next;
-    ++w.pos;
-    w.next = w.pos < w.n ? uint32_t(w.src[w.pos]) : 0u;
+  for (int f = threadIdx.x; f < kTotal; f += kCoderThreads) {
+    uint32_t m, sh;
+    div_magic(uint32_t(f + 1), m, sh);
+    mtab[f] = m << 1;
+  }
+  uint32_t state = real ? uint32_t(init[l]) : kAnsLow;
+  int k = 0;  // words emitted so far; the next one goes to word k
+  if (chain) kpub[2 * N + n] = 0;  // "stage -1"
+  int* wr = words + (chain ? n : 0);
+  const int* rp = ring + (chain ? n : 0);
+  // blocks b (p0, m0, sh0), b + 1 (p1, m1, sh1) and b + 2 (p2)
+  uint32_t p0[U], p1[U], p2[U], m0[U], m1[U], sh0[U], sh1[U];
+  for (int j = 0; j < stages; ++j) {
+    if (chain) kpub[(j % 3) * N + n] = k;
+    // this thread's copies of stages j and j + 1 are complete, the barrier
+    // publishes everyone's (and the table, at the first) and frees the
+    // buffer of stage j - 1 for stage j + kCoderRing - 1
+    cp_async_wait<kCoderRing - 3>();
+    __syncthreads();
+    if (j + kCoderRing - 1 < stages)
+      lane_coder_stage(ring, probs, j + kCoderRing - 1, S, L, lane0);
+    cp_async_commit();
+    if (!chain) {  // stage j - 1's words
+      coder_flush(words, kpub + ((j + 2) % 3) * N, kpub + (j % 3) * N,
+                  streams, M, lane0, L);
+      continue;
+    }
+    const int b0 = j * (kCoderD / U);
+    if (j == 0) {
+      coder_block(rp, 0, p0);
+      coder_block(rp, 1, p1);
+      coder_recip(mtab, p0, m0, sh0);
+    }
+    const int b1 = min(b0 + kCoderD / U, blocks);
+    for (int b = b0; b < b1; ++b) {
+      coder_block(rp, b + 2, p2);
+      coder_recip(mtab, p1, m1, sh1);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const uint32_t pr = p0[u], freq = pr & 0xFFFFu;
+        const bool e = state >= (pr << 16);  // freq << 16
+        wr[(k & (kCoderWords - 1)) * N] = int(state & 0xFFFFu);
+        k += e ? 1 : 0;
+        const uint32_t x = e ? state >> 16 : state;
+        const uint32_t q = (__umulhi(x, m0[u]) + x) >> sh0[u];  // x / freq
+        // (q << 15) + (x - q * freq) + low
+        state = x + (pr >> 16) + q * (kTotal - freq);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        p0[u] = p1[u];
+        p1[u] = p2[u];
+        m0[u] = m1[u];
+        sh0[u] = sh1[u];
+      }
+    }
+  }
+  const int* kept = kpub + (stages % 3) * N;  // words of each lane
+  if (chain) kpub[(stages % 3) * N + n] = k;
+  cp_async_wait<0>();
+  __syncthreads();
+  if (!chain)  // the last stage's words
+    coder_flush(words, kpub + ((stages + 2) % 3) * N, kept, streams, M,
+                lane0, L);
+  if (real) {
+    int* row = streams + size_t(l) * M;
+    row[0] = int(state >> 16);
+    row[1] = int(state & 0xFFFFu);
+    lengths[l] = k + 2;
+  }
+  __syncthreads();  // every word at its row's end
+  // words M - k .. M - 1 (decode order) to 2 .. k + 1, a batch of
+  // kCoderMoveU x 32 at a time, each batch read whole before it is
+  // written: the move reads ahead of what it writes (M - k >= 2), so a
+  // batch writes no word a later batch reads
+  const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
+  for (int c = warp; c < N; c += kCoderThreads / 32) {
+    const int kc = kept[c];
+    if (kc == 0) continue;  // also a dummy lane
+    int* row = streams + size_t(lane0 + c) * M;
+    const int* src = row + (M - kc);
+    for (int i0 = 0; i0 < kc; i0 += 32 * kCoderMoveU) {
+      int v[kCoderMoveU];
+#pragma unroll
+      for (int u = 0; u < kCoderMoveU; ++u) {
+        const int i = i0 + u * 32 + wl;
+        v[u] = i < kc ? src[i] : 0;
+      }
+      __syncwarp();
+#pragma unroll
+      for (int u = 0; u < kCoderMoveU; ++u) {
+        const int i = i0 + u * 32 + wl;
+        if (i < kc) row[2 + i] = v[u];
+      }
+    }
+    __syncwarp();  // every word read before the clear
+    for (size_t p = max(size_t(kc) + 2, M - kc) + wl; p < M; p += 32)
+      row[p] = 0;
   }
 }
 
@@ -672,43 +836,156 @@ lane_decode_kernel(const uint16_t* __restrict__ words,
 
 // ---- L4: static-CDF byte decode.  Lane streams (words, off, len; M =
 // 2K + 2), cdf [257] int32 (non-decreasing, cdf[0] = 0, cdf[256] = 2^15)
-// -> bytes [K, L] u8 (rans_static.decode_device).
-__global__ void __launch_bounds__(kLanes)
+// -> bytes [K, L] u8 (rans_static.decode_device).  A team of kStaticTeam
+// threads a lane, kStaticThreads a CTA, each thread carrying the lane's
+// state.  A byte's step reads one entry by its value v = state mod 2^15,
+// ent[v] = (freq << 16) | (v - low) of v's symbol, so that state' = freq
+// (state >> 15) + (v - low) is one multiply-add after the load; sym_of[v],
+// the symbol, is read beside it.  The steps run in chunks of T: team
+// thread j keeps the byte of step j of a chunk and the team stores the
+// chunk's T bytes at its end, and the lane's words (StaticWords, L3's
+// layout held three chunks deep) move along once a chunk, so the steps
+// hold no branch.  Both tables are built in shared memory by every CTA
+// (160 KB): warp w walks its run of values 32 at a time, lane j from
+// value w R + j after one search of the CDF, moving its symbol up to the
+// last i with cdf[i] <= v (at most 255 moves a thread), so the entries
+// equal searchsorted(cdf, v, side="right") - 1 for a non-decreasing CDF
+// and, for any other [257] ints, stay a symbol in [0, 255]: every read of
+// cdf, of the tables and of the streams stays inside them.
+constexpr int kStaticTeam = 16;      // threads a lane
+constexpr int kStaticThreads = 128;  // threads a CTA
+constexpr int kStaticLanes = kStaticThreads / kStaticTeam;
+constexpr int kStaticRun = kTotal / (kStaticThreads / 32);  // values a warp
+constexpr int kStaticSmem = kTotal * 4 + kTotal + 257 * 4;
+static_assert(kStaticTeam == 4 || kStaticTeam == 8 || kStaticTeam == 16,
+              "kStaticTeam: 4, 8, 16");
+static_assert(kStaticSmem <= kSmemMax, "L4's tables fit a CTA");
+
+// The value-indexed tables of cdf c (in shared memory).
+__device__ __forceinline__ void static_tables(const int* c, uint32_t* ent,
+                                              uint8_t* sym_of) {
+  const int warp = threadIdx.x >> 5;
+  int v = warp * kStaticRun + (threadIdx.x & 31);
+  // the last i in [0, 256) with c[i] <= v, by 8 halvings
+  int lo = 0, hi = 256;
+#pragma unroll
+  for (int it = 0; it < 8; ++it) {
+    const int mid = (lo + hi) >> 1;
+    if (c[mid] <= v) lo = mid; else hi = mid;
+  }
+  int sym = lo, low = c[lo], nx = c[lo + 1];
+  for (int i = 0; i < kStaticRun / 32; ++i, v += 32) {
+    while (sym < 255 && nx <= v) {
+      ++sym;
+      low = nx;
+      nx = c[sym + 1];
+    }
+    ent[v] = (uint32_t(nx - low) << 16) | uint32_t(v - low);
+    sym_of[v] = uint8_t(sym);
+  }
+}
+
+// L4's reader: TeamWords' layout (word p of the lane in team thread p %
+// T, 0 at or past n), three chunks held: cur (chunk c, which holds pos at
+// a chunk of steps' start), nxt (c + 1) and far (c + 2, requested a chunk
+// of steps before it is needed).  In a chunk of T steps pos moves at most
+// T, so it stays below edge + T (edge = (c + 1) T): the word at pos is
+// shuffled out of cur or nxt after every step, and at the chunk's end the
+// chunks move along where pos passed edge, by selects.
+struct StaticWords {
+  const uint16_t* src;  // the lane's first word
+  int n, pos, edge;     // words readable; next position; (c + 1) T
+  uint32_t cur, nxt, far, next;
+};
+
+template <int T>
+__device__ __forceinline__ void static_words_init(
+    StaticWords& w, const uint16_t* words, const long long* off,
+    const int* len, long long W, int M, int l, bool real, int j,
+    uint32_t& state) {
+  const long long o = real ? off[l] : -1;
+  long long n = o >= 0 && o < W ? min((long long)min(len[l], M), W - o) : 0;
+  w.n = int(max(n, 0LL));
+  w.src = words + (w.n ? o : 0);
+  w.cur = j < w.n ? uint32_t(w.src[j]) : 0u;
+  w.nxt = T + j < w.n ? uint32_t(w.src[T + j]) : 0u;
+  w.far = 2 * T + j < w.n ? uint32_t(w.src[2 * T + j]) : 0u;
+  const uint32_t hi = __shfl_sync(kFull, w.cur, 0, T);
+  const uint32_t lo = __shfl_sync(kFull, w.cur, 1, T);
+  state = real ? (hi << 16) | lo : kAnsLow;
+  w.pos = 2;
+  w.edge = T;
+  w.next = __shfl_sync(kFull, w.cur, 2, T);
+}
+
+// One byte: its symbol, the state step and the renorm.
+template <int T>
+__device__ __forceinline__ uint8_t static_step(uint32_t& state,
+                                               StaticWords& w,
+                                               const uint32_t* ent,
+                                               const uint8_t* sym_of) {
+  const uint32_t value = state & (kTotal - 1);
+  const uint32_t e = ent[value];
+  const uint8_t sym = sym_of[value];
+  state = (e >> 16) * (state >> 15) + (e & 0xFFFFu);
+  const bool take = state < kAnsLow;
+  state = take ? (state << 16) | w.next : state;
+  w.pos += take ? 1 : 0;
+  w.next = __shfl_sync(kFull, w.pos < w.edge ? w.cur : w.nxt,
+                       w.pos & (T - 1), T);
+  return sym;
+}
+
+template <int T>
+__device__ __forceinline__ void static_words_chunk(StaticWords& w, int j) {
+  const bool past = w.pos >= w.edge;
+  w.cur = past ? w.nxt : w.cur;
+  w.nxt = past ? w.far : w.nxt;
+  w.edge += past ? T : 0;
+  const int p = w.edge + T + j;  // this thread's word of chunk c + 2
+  w.far = p < w.n ? uint32_t(w.src[p]) : 0u;
+}
+
+__global__ void __launch_bounds__(kStaticThreads, 1)
 lane_static_decode_kernel(const uint16_t* __restrict__ words,
                           const long long* __restrict__ off,
                           const int* __restrict__ len,
                           const int* __restrict__ cdf,
                           uint8_t* __restrict__ out, int K, int L,
                           long long W) {
-  __shared__ int c[257];
-  __shared__ uint8_t sym_of[kTotal];
-  for (int i = threadIdx.x; i < 257; i += kLanes) c[i] = cdf[i];
+  constexpr int T = kStaticTeam;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint32_t* ent = reinterpret_cast<uint32_t*>(smem_raw);
+  uint8_t* sym_of = smem_raw + kTotal * 4;
+  int* c = reinterpret_cast<int*>(smem_raw + kTotal * 5);
+  const int n = threadIdx.x / T, j = threadIdx.x % T;
+  const int l = blockIdx.x * kStaticLanes + n;
+  const bool real = l < L;
+  for (int i = threadIdx.x; i < 257; i += kStaticThreads) c[i] = cdf[i];
   __syncthreads();
-  // sym_of[v] = the last i with c[i] <= v (c[256] = 2^15 > v)
-  for (int v = threadIdx.x; v < kTotal; v += kLanes) {
-    int lo = 0, hi = 256;
-#pragma unroll
-    for (int it = 0; it < 8; ++it) {
-      const int mid = (lo + hi) >> 1;
-      if (c[mid] <= v) lo = mid; else hi = mid;
-    }
-    sym_of[v] = uint8_t(lo);
-  }
-  __syncthreads();
-  const int l = blockIdx.x * kLanes + threadIdx.x;
-  if (l >= L) return;  // no barrier below
-  Words w;
+  static_tables(c, ent, sym_of);
+  StaticWords w;
   uint32_t state;
-  words_init(w, words, off, len, W, 2 * K + 2, l, true, state);
-  uint8_t* dst = out + l;
-  for (int t = 0; t < K; ++t) {
-    const uint32_t value = state & (kTotal - 1);
-    const int sym = sym_of[value];
-    const int low = c[sym], freq = c[sym + 1] - low;
-    state = uint32_t(freq) * (state >> 15) + value - uint32_t(low);
-    words_renorm(w, state);
-    dst[size_t(t) * L] = uint8_t(sym);
+  static_words_init<T>(w, words, off, len, W, 2 * K + 2, l, real, j, state);
+  __syncthreads();
+  uint8_t* dst = out + (real ? l : 0) + size_t(j) * L;
+  const int full = K - K % T;
+  for (int t0 = 0; t0 < full; t0 += T) {
+    uint8_t mine = 0;  // the byte of step t0 + j
+#pragma unroll
+    for (int u = 0; u < T; ++u) {
+      const uint8_t sym = static_step<T>(state, w, ent, sym_of);
+      mine = j == u ? sym : mine;
+    }
+    static_words_chunk<T>(w, j);
+    if (real) dst[size_t(t0) * L] = mine;
   }
+  uint8_t mine = 0;  // the last K % T steps
+  for (int t = full; t < K; ++t) {
+    const uint8_t sym = static_step<T>(state, w, ent, sym_of);
+    mine = j == t - full ? sym : mine;
+  }
+  if (real && full + j < K) dst[size_t(full) * L] = mine;
 }
 
 bool pow2(int v, int cap) { return v >= 1 && v <= cap && !(v & (v - 1)); }
@@ -733,8 +1010,6 @@ bool make_span(int K, int L, int n_seg, int share, int sync, int lsync,
   m.rate = rate;
   return true;
 }
-
-int grid_of(int L) { return (L + kLanes - 1) / kLanes; }
 
 // Lets `kernel` take `smem` bytes of dynamic shared memory (past 48 KB).
 template <class F>
@@ -800,10 +1075,11 @@ int trc_lane_model(const uint8_t* cols, const int* hi_tbl, const int* lo_tbl,
 // L2.
 int trc_lane_coder(const int* probs, const int* init, int* streams,
                    int* lengths, int S, int L, cudaStream_t stream) {
-  if (S < 0 || S > INT_MAX - 2 || !pow2(L, 1 << 30))
+  if (S < 0 || S > INT_MAX - 2 * kCoderD || !pow2(L, 1 << 30))
     return int(cudaErrorInvalidValue);
-  lane_coder_kernel<<<grid_of(L), kLanes, 0, stream>>>(probs, init, streams,
-                                                       lengths, S, L);
+  if (const int e = allow_smem(lane_coder_kernel, kCoderSmem)) return e;
+  lane_coder_kernel<<<(L + kCoderN - 1) / kCoderN, kCoderThreads, kCoderSmem,
+                      stream>>>(probs, init, streams, lengths, S, L);
   return int(cudaGetLastError());
 }
 
@@ -834,7 +1110,10 @@ int trc_lane_static_decode(const uint16_t* words, const long long* off,
                            int K, int L, int W, cudaStream_t stream) {
   if (K < 0 || K > (INT_MAX - 2) / 2 || W < 0 || !pow2(L, 1 << 30))
     return int(cudaErrorInvalidValue);
-  lane_static_decode_kernel<<<grid_of(L), kLanes, 0, stream>>>(
+  if (const int e = allow_smem(lane_static_decode_kernel, kStaticSmem))
+    return e;
+  lane_static_decode_kernel<<<(L + kStaticLanes - 1) / kStaticLanes,
+                              kStaticThreads, kStaticSmem, stream>>>(
       words, off, len, cdf, out, K, L, W);
   return int(cudaGetLastError());
 }

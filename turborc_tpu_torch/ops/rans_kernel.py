@@ -334,7 +334,7 @@ def div_magic(freq):
     (m, l) such that ``x // freq == ((2 * x * m) >> 32) >> l`` for every
     0 <= x < 2^31.  l = ceil(log2 freq), m = floor(2^47 / dn) + 1 with dn
     = freq << (16 - l), from two 32-bit divisions (a mirror of
-    ``csrc/rans_kernel.cu``'s ``div_magic``)."""
+    ``csrc/rans_common.cuh``'s ``div_magic``, which K3 and L2 share)."""
     l = sum(((freq - 1) >> k) > 0 for k in range(16))  # bit length
     dn = freq << (16 - l)
     q1 = (1 << 31) // dn

@@ -5,8 +5,9 @@ The JAX package runs ids 56 (``rans-cdf-o0``), 58 (``rans-cdf-s8``) and
 42 (``rans-static``) as ``lax.scan``s over lanes (``turborc_tpu/codecs/
 rans_cdf_o0.py``, ``rans_cdf_s8.py``, ``rans_static.py``); they reach no
 Pallas kernel.  Each compiled device loop is one hand-written kernel here
-(``csrc/rans_lane_kernel.cu``): L2 and L4 one thread a lane, L1 and L3 a
-team of ``lane_team(share)`` threads a lane (``lane_launch``):
+(``csrc/rans_lane_kernel.cu``): L1 and L3 a team of ``lane_team(share)``
+threads a lane (``lane_launch``), L4 a team of ``STATIC_TEAM``, L2 one
+thread a lane on CTAs of ``CODER_LANES`` lanes:
 
 Kernel (wrapper)               computes                JAX pass
   L1 lane_model                bytes -> slot probs     encode_device's model
@@ -50,7 +51,21 @@ from turborc_tpu_torch.ops.geom import Geom
 from turborc_tpu_torch.ops.rans_kernel import (INT32_MAX, _check, _rejoin,
                                                launch)
 
-PRE_STEPS = 8  # slots L2 loads ahead (kPre)
+# L2: CTAs of CODER_LANES lanes (kCoderN); probs staged CODER_SLOTS slots
+# a stage (kCoderD) in a ring of CODER_RING stages (kCoderRing), the chain
+# in blocks of CODER_BLOCK slots (kCoderU), the emitted words in a ring of
+# CODER_WORDS a lane (kCoderWords), moved CODER_MOVE a thread a batch
+# (kCoderMoveU).
+CODER_LANES = 32
+CODER_SLOTS = 64
+CODER_RING = 4
+CODER_BLOCK = 8
+CODER_MOVE = 16
+CODER_WORDS = 128
+# L4: a team of STATIC_TEAM threads a lane (kStaticTeam), CTAs of
+# STATIC_THREADS threads (kStaticThreads).
+STATIC_TEAM = 16
+STATIC_THREADS = 128
 # L1 and L3: a team of LANE_TEAM threads a lane (kTeam), halved where a
 # span's teams would pass LANE_MAX_THREADS threads a CTA (kMaxThreads); a
 # CTA has at least LANE_CTA_MIN threads (kCtaMin).

@@ -10,8 +10,9 @@ every ported path through the port's ``compress``/``decompress``
 ``rans-cdf-r1-p`` on K7, K3, K4 and K6; ``rans-auto`` over both
 flagships; the bit-tree ``rc-p`` on K9, K3, K4 and K8; the per-lane scan
 codecs ``rans-cdf-o0`` (the default) and ``rans-cdf-s8`` on L1, L2 and
-L3, ``rans-static`` on L2 and L4), checks every container against the
-golden hashes the JAX package wrote, then times the kernels.  The
+L3, ``rans-static`` on L2 and L4, the order-1 ``rans-cdf-r1`` on L5, L2
+and L6 and ``rans-cdf-o1`` on L7, L2 and L8), checks every container
+against the golden hashes the JAX package wrote, then times the kernels.  The
 decoders on a shared-memory ring of stream words (the o0 K1 and K5, the
 o1 K6, the bit-tree K8) are also held against their plain versions where
 the ring wraps and on corrupt streams, the placement K4 on edge cases of
@@ -23,7 +24,9 @@ and the lane kernels L1-L4 at 4 to 8192 lanes, spans of 1 to 128 lanes
 and on corrupt streams and length tables, beside the codecs' payloads
 on the card against the CPU's (``lane-kernels-vs-plain``), the coder L2
 on edge cases of probabilities, states and slot counts and L4 on CDFs
-at their extremes (``lane-edge``).  With ``--before COMMIT``, L2 and L4
+at their extremes (``lane-edge``), and L5-L8 (with L2 on their probs)
+at their codecs' shapes, at 14 warm-table segments over 512 lanes and on
+corrupt streams (``lane-o1-kernels-vs-plain``).  With ``--before COMMIT``, L2 and L4
 are timed in turns against those of a ``git archive COMMIT`` unpacked
 in ``_archive/COMMIT/``.  It imports no JAX
 and nothing of ``turborc_tpu``; the corpora under
@@ -55,6 +58,7 @@ GOLDEN_R1 = ROOT / "turborc_tpu_torch" / "golden" / "r1p.json"
 GOLDEN_RCP = ROOT / "turborc_tpu_torch" / "golden" / "rcp.json"
 GOLDEN_X2 = ROOT / "turborc_tpu_torch" / "golden" / "o0p_x2.json"
 GOLDEN_LANE = ROOT / "turborc_tpu_torch" / "golden" / "lane.json"
+GOLDEN_LANE_O1 = ROOT / "turborc_tpu_torch" / "golden" / "lane_o1.json"
 BUDGET_S = 600
 BENCH_GEOM = "g64c8s8y8l32a4r4"
 BENCH_GEOM_X2 = BENCH_GEOM + "x2"
@@ -78,7 +82,9 @@ SOURCE.update({k: CSRC + "bittree_kernel.cu"
                for k in ("tree_model", "tree_decode")})
 SOURCE.update({k: CSRC + "rans_lane_kernel.cu"
                for k in ("lane_model", "lane_coder", "lane_decode",
-                         "lane_static_decode")})
+                         "lane_static_decode", "lane_o1r_model",
+                         "lane_o1r_decode", "lane_o1_model",
+                         "lane_o1_decode")})
 REPLACES = {
     "model": "turborc_tpu/ops/pallas/rans_kernel.py:807",
     "coder": "turborc_tpu/ops/pallas/rans_kernel.py:883",
@@ -95,6 +101,11 @@ REPLACES = {
     "lane_coder": "turborc_tpu/ops/rans.py:75",
     "lane_decode": "turborc_tpu/codecs/rans_cdf_s8.py:182",
     "lane_static_decode": "turborc_tpu/codecs/rans_static.py:55",
+    # and those of ids 59 and 64
+    "lane_o1r_model": "turborc_tpu/codecs/rans_cdf_r1.py:117",
+    "lane_o1r_decode": "turborc_tpu/codecs/rans_cdf_r1.py:144",
+    "lane_o1_model": "turborc_tpu/codecs/rans_cdf_o1.py:38",
+    "lane_o1_decode": "turborc_tpu/codecs/rans_cdf_o1.py:63",
 }
 # Kernels timed against a parent's with --before.
 REDESIGNED = ("lane_coder", "lane_static_decode")
@@ -107,6 +118,10 @@ KERNELS = {"o0": ("model", "coder", "place", "decode"),
 LANE = {"rans-cdf-o0": ("lane_model", "lane_coder", "lane_decode"),
         "rans-cdf-s8": ("lane_model", "lane_coder", "lane_decode"),
         "rans-static": ("lane_coder", "lane_static_decode")}
+# The lane kernels each order-1 per-lane scan codec runs: model, coder,
+# decode.
+LANE_O1 = {"rans-cdf-r1": ("lane_o1r_model", "lane_coder", "lane_o1r_decode"),
+           "rans-cdf-o1": ("lane_o1_model", "lane_coder", "lane_o1_decode")}
 # H100 SXM peaks: HBM3 bytes/s, and the float32 rate outside the tensor
 # cores, used for 32-bit integer ops (taking the higher of the two rates
 # keeps this a lower bound).
@@ -179,12 +194,15 @@ def phase_build(before: str | None):
         for line in info["ptxas"].splitlines():
             m = re.search(r"Compiling entry function '\w*?"
                           r"(lane_static_decode|lane_model|lane_coder|"
-                          r"lane_decode|tree_model|tree_decode|decode_x2|"
+                          r"lane_decode|lane_o1_model|lane_o1_decode|"
+                          r"tree_model|tree_decode|decode_x2|"
                           r"o1_model|o1_decode|place_count|model|coder|"
                           r"place|decode)"
                           r"_kernel", line)
             if m:
                 fn = m.group(1)
+                if fn.startswith("lane_o1") and "O1Rank" in line:
+                    fn = fn.replace("lane_o1", "lane_o1r")  # id 59's
             elif ("Used" in line or "stack frame" in line) and fn:
                 log(f"ptxas {fn}: {line.split(':', 1)[-1].strip()}")
     libs = {}
@@ -564,8 +582,9 @@ def _kernel_modules():
     from turborc_tpu_torch.ops import bittree_kernel as B
     from turborc_tpu_torch.ops import rans_kernel as K_
     from turborc_tpu_torch.ops import rans_lane_kernel as LK
+    from turborc_tpu_torch.ops import rans_lane_o1_kernel as LO
     from turborc_tpu_torch.ops import rans_o1_kernel as K1
-    return K_, K1, B, LK
+    return K_, K1, B, LK, LO
 
 
 def _launch_counts() -> dict:
@@ -617,15 +636,24 @@ def _roundtrip(label: str, case: dict, needs: tuple, dev) -> dict:
     return res
 
 
+# A CDF16 lookup (symbol -> low, freq): two picks of an entry, a select
+# (entry 16 is 2^15) and a subtraction, as the kernels' lookups do it.
+LOOKUP = 4
+
+
 def _lane_ops(kind: str, geom, K: int, decode: bool) -> int:
     """Integer ops of one lane over K bytes in a model pass (or, with
     ``decode``, a decode pass: the model plus a search, a state step and
     a word fetch a nibble) of ``kind`` "o0" (the span model at ``geom``),
-    "o1" or "tree", counted as ``_bound_ms`` says."""
+    "o1", "o1byte" (id 64: the previous byte is the hi context, a shift
+    and an add the lo context) or "tree", counted as ``_bound_ms``
+    says."""
     import math
     search = 30
     if kind == "o1":
-        model_ops = K * (2 * (32 + 80) + 12 + 6)
+        model_ops = K * (2 * (LOOKUP + 80) + 12 + 6)
+    elif kind == "o1byte":
+        model_ops = K * (2 * (LOOKUP + 80) + 2)
     elif kind == "tree":
         model_ops = K * 8 * 16
         search = 0  # the descent is the search
@@ -634,7 +662,7 @@ def _lane_ops(kind: str, geom, K: int, decode: bool) -> int:
             if geom.share > 1 else 0
         hot = (K // geom.sync) * (1 + geom.hrows) * rejoin
         cold = (K // geom.lsync) * max(geom.arows - geom.srows, 0) * rejoin
-        model_ops = K * 2 * (32 + 80) + hot + cold
+        model_ops = K * 2 * (LOOKUP + 80) + hot + cold
     return model_ops + K * 2 * (search + 6 + 6) if decode else model_ops
 
 
@@ -649,7 +677,7 @@ def _bound_ms(name: str, geom, K: int, glens_sum: int) -> tuple[float, str]:
     a split-state geometry coder and place run once per stream set, each
     over S = K slots (else S = 2K), and ``glens_sum`` sums both sets.  Ops
     count the algorithm's integer operations per lane and step: a CDF16
-    lookup is 32 selects, a search 30, an update 80 (5 per entry), a state
+    lookup ``LOOKUP`` (4), a search 30, an update 80 (5 per entry), a state
     step 6, a word fetch or placement 6, a re-join 16 entries x
     (2 log2(share) + 6) per table row, an o1 hi context 12 and lo context
     6 per byte, a bit-tree level 16 (load and clamp, split, bit, interval,
@@ -1195,6 +1223,101 @@ def phase_lane_edge(dev) -> None:
             f"{err})")
 
 
+# L5-L8 against their plain versions: (codec, bytes of realsrcbwt, K cut
+# or None, corrupt streams too).  Id 59 on a 1 MB block at the default
+# 512 lanes (4 warm-table segments) and on the tail block of 3.5 MB (14
+# segments, one every 36.57 lanes, so a CTA of 8 lanes may start from
+# two), id 64 on a 256 KB block (128 lanes, K = 2048); the tail and id
+# 64's 4 MB block cut to K = 256 also on corrupt streams.
+LANE_O1_CASES = (("rans-cdf-r1", 1 << 20, None, False),
+                 ("rans-cdf-o1", 1 << 18, None, False),
+                 ("rans-cdf-r1", 7 << 19, 256, True),
+                 ("rans-cdf-o1", 1 << 22, 256, True))
+
+
+def _o1_block(codec: str, x, dev):
+    """Block ``x`` at the default CodecConfig as id 59 or id 64 shapes it:
+    (cols [K, L] on ``dev``, the model's tables, K): id 59's segment
+    tables, none for id 64 (which codes at most 128 lanes)."""
+    import torch
+    from turborc_tpu_torch.codecs import blockio
+    from turborc_tpu_torch.codecs import rans_cdf_o1 as O1
+    from turborc_tpu_torch.codecs import rans_cdf_r1_lane as R59
+    from turborc_tpu_torch.utils.config import CodecConfig
+    cfg = CodecConfig()
+    if codec == "rans-cdf-r1":
+        a = R59.encode_args(x, cfg.lanes, cfg.step_quant, dev)
+        return a.cols, (a.hi_tbl, a.lo_tbl), a.cols.shape[0]
+    block, K = blockio.shape_block(x, min(cfg.lanes, O1.LANE_CAP),
+                                   cfg.step_quant)
+    return torch.from_numpy(block).to(dev).T.contiguous(), (), K
+
+
+def phase_lane_o1_kernels(dev) -> None:
+    """L5-L8 and L2 on their probs against the plain versions on the
+    LANE_O1_CASES blocks of realsrcbwt, exact (tolerance 0): probs,
+    streams and lengths, and bytes, which must be the input; the decoders
+    also on corrupt streams.  Then each codec's payload written on the
+    card equals the CPU's, and the card decodes it."""
+    import numpy as np
+    import torch
+    from turborc_tpu_torch.codecs import blockio
+    from turborc_tpu_torch.codecs import registry
+    from turborc_tpu_torch.ops import rans
+    from turborc_tpu_torch.ops import rans_lane_kernel as LK
+    from turborc_tpu_torch.ops import rans_lane_o1_kernel as LO
+    phase("lane-o1-kernels-vs-plain")
+    real = _corpus("realsrcbwt_16777216.bin", 1 << 22)
+    gen = torch.Generator().manual_seed(20261023)
+    for codec, n, cut, corrupt in LANE_O1_CASES:
+        m, _, d = LANE_O1[codec]
+        cols, tabs, K = _o1_block(codec, real[:n], dev)
+        if cut:
+            cols, K = cols[:cut].contiguous(), cut
+        L = cols.shape[1]
+        init = torch.full((L,), rans.ANS_LOW, dtype=torch.int32, device=dev)
+        err = {}
+        probs = getattr(LO, m)(cols, *tabs)
+        err[m] = _max_abs(probs, getattr(LO, m + "_plain")(cols, *tabs))
+        streams, lengths = LK.lane_coder(probs, init)
+        want = LK.lane_coder_plain(probs, init)
+        err["lane_coder"] = max(_max_abs(streams, want[0]),
+                                _max_abs(lengths, want[1]))
+        words = blockio.device_words(streams, lengths)
+        out = getattr(LO, d)(words, lengths, K, *tabs)
+        err[d] = _max_abs(out, getattr(LO, d + "_plain")(words, lengths, K,
+                                                         *tabs))
+        bad = _corrupt(words, lengths, gen, dev) if corrupt else {}
+        for what, args in bad.items():
+            err[f"{d} {what}"] = _max_abs(
+                getattr(LO, d)(*args, K, *tabs),
+                getattr(LO, d + "_plain")(*args, K, *tabs))
+        segs = tabs[0].shape[0] if tabs else 0
+        if any(err.values()):
+            raise AssertionError(f"{codec} L={L} K={K} n_seg={segs}: kernel "
+                                 f"differs from plain: {err}")
+        if not torch.equal(out, cols):
+            raise AssertionError(f"{codec} L={L} K={K}: decode did not "
+                                 "return the bytes")
+        log(f"lane o1 kernels {codec} L={L} K={K} n_seg={segs}: equal to "
+            f"plain, tolerance 0 (max abs err {err}); the decode returns "
+            f"the bytes; {int(lengths.sum())} words")
+    for codec in LANE_O1:
+        c = registry.get(codec)
+        for n in (0, 5000):
+            data = np.roll(real, 104729 * n)[:n]
+            kw = dict(lanes=16, step_quant=256)
+            card = c.encode_block(data, device=dev, **kw)
+            if card != c.encode_block(data, device="cpu", **kw):
+                raise AssertionError(f"{codec} n={n}: payload on the card "
+                                     "differs from the CPU's")
+            if not np.array_equal(c.decode_block(card, n, device=dev, **kw),
+                                  data):
+                raise AssertionError(f"{codec} n={n}: round trip failed")
+            log(f"lane codec {codec} L=16 n={n}: card payload equals the "
+                f"CPU's ({len(card)} B), decodes on the card")
+
+
 def _lane_bound_ms(name: str, L: int, K: int, geom, n_seg: int,
                    words: int) -> tuple[float, str]:
     """``_bound_ms``'s rule for the lane kernels on L lanes and K bytes a
@@ -1204,11 +1327,21 @@ def _lane_bound_ms(name: str, L: int, K: int, geom, n_seg: int,
     ``_lane_ops`` counts them; L4 does a table load, its state step and
     fetch per byte, and builds its 2^15-entry table once (8 halvings of
     3 ops an entry): the work of the function, whatever number of CTAs
-    build their own copies."""
+    build their own copies.  L5-L8 (ids 59 and 64) also write each lane's
+    start rows, an op an entry (112 rows a lane for id 59, read from
+    its ``n_seg`` segment tables; 4,352 for id 64, from cdf16.init)."""
     S = 2 * K if name != "lane_static_decode" else K
     tables = n_seg * (16 + 256) * 4
     streams = words * 2 + L * (8 + 4)
-    if name == "lane_model":
+    o1 = {"lane_o1r": ("o1", 64 + 48, n_seg), "lane_o1": ("o1byte", 4352, 0)
+          }.get(name.rsplit("_", 1)[0])
+    if o1:
+        kind, rows, segs = o1
+        decode = name.endswith("_decode")
+        nbytes = ((streams if decode else 2 * K * L * 4) + K * L
+                  + segs * rows * 16 * 4)
+        ops = L * (_lane_ops(kind, geom, K, decode) + rows * 16)
+    elif name == "lane_model":
         nbytes = K * L + 2 * K * L * 4 + tables
         ops = L * _lane_ops("o0", geom, K, False)
     elif name == "lane_coder":
@@ -1271,7 +1404,9 @@ def phase_lane_timing(dev) -> dict:
     distinct rotations (CUDA events; a cudaMalloc inside a span fails
     the phase), the plain version once on the card (ids 56 and 42), and
     end-to-end MB/s of ids 56, 58 and 42 on textbwt 16 MB (api round
-    trips, 4 blocks, a warm-up and 2 timed on distinct rotations)."""
+    trips, 4 blocks, a warm-up and 2 timed on distinct rotations); then
+    ids 59 and 64 on realsrcbwt likewise (``_lane_o1_timing``) and their
+    end-to-end MB/s on realsrcbwt 16 MB."""
     import numpy as np
     import torch
     from turborc_tpu_torch import api
@@ -1354,11 +1489,14 @@ def phase_lane_timing(dev) -> dict:
                           words=nwords, bound=bound)
         del probs, st, words, out
         log(f"timing-lane {codec} " + json.dumps(res[codec]))
-    for codec in ("rans-cdf-o0", "rans-cdf-s8", "rans-static"):
+    res.update(_lane_o1_timing(dev))
+    real = _corpus("realsrcbwt_16777216.bin")
+    for codec in ("rans-cdf-o0", "rans-cdf-s8", "rans-static", *LANE_O1):
+        corpus = text if codec not in LANE_O1 else real
         enc, dec = [], []
         c = CodecConfig(codec=codec)
         for r in range(3):  # rep 0 is the warm-up
-            x = np.roll(text, 104729 * (r + 1))
+            x = np.roll(corpus, 104729 * (r + 1))
             t0 = time.perf_counter()
             comp = api.compress(x, c, device=dev)
             _sync()
@@ -1371,13 +1509,109 @@ def phase_lane_timing(dev) -> dict:
             if r:
                 enc.append(t1 - t0)
                 dec.append(t2 - t1)
-        mb = text.size / 1e6
+        mb = corpus.size / 1e6
         res[codec]["e2e"] = dict(encode_MBps=[mb / s for s in enc],
                                  decode_MBps=[mb / s for s in dec],
                                  ratio=len(comp) / x.size)
         log(f"timing-lane {codec} end-to-end " + json.dumps(dict(
-            codec=codec, corpus="textbwt_16777216.bin", lanes=L,
+            codec=codec, corpus=("realsrcbwt_16777216.bin"
+                                 if codec in LANE_O1
+                                 else "textbwt_16777216.bin"), lanes=L,
             block_size=B, **res[codec]["e2e"])))
+    return res
+
+
+def _plain_job(job):
+    """One plain version on the host CPU, in a worker process of
+    ``_lane_o1_timing``: (wrapper name, arguments as numpy arrays or
+    ints) -> (outputs as numpy arrays, seconds it took)."""
+    import numpy as np
+    import torch
+    from turborc_tpu_torch.ops import rans_lane_kernel as LK
+    from turborc_tpu_torch.ops import rans_lane_o1_kernel as LO
+    torch.set_num_threads(1)
+    name, args = job
+    fn = getattr(LK if name == "lane_coder" else LO, name + "_plain")
+    args = [torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+            for a in args]
+    t0 = time.perf_counter()
+    out = fn(*args)
+    seconds = time.perf_counter() - t0
+    return [o.numpy() for o in (out if isinstance(out, tuple) else (out,))
+            ], seconds
+
+
+def _lane_o1_timing(dev) -> dict:
+    """L5-L8 and L2 on one 4 MB block of realsrcbwt at the default
+    CodecConfig (id 59: 512 lanes, K = 8192, 16 segments; id 64: 128
+    lanes, K = 32768): a warm-up, then 3 timed calls on distinct
+    rotations (CUDA events; a cudaMalloc inside a span fails the phase).
+    Then the plain versions of each codec's model, L2 and decode run once
+    on its last block, at the main path's shape, on the host CPU: six
+    worker processes at once, one thread each, each timed by its own
+    clock.  Each is held equal to its kernel's output: probs, streams and
+    lengths, bytes."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    import numpy as np
+    import torch
+    from turborc_tpu_torch.codecs import blockio
+    from turborc_tpu_torch.ops import rans
+    from turborc_tpu_torch.ops import rans_lane_kernel as LK
+    from turborc_tpu_torch.ops import rans_lane_o1_kernel as LO
+    from turborc_tpu_torch.utils.config import CodecConfig
+    real = _corpus("realsrcbwt_16777216.bin")
+    B, res, jobs, kern = CodecConfig().block_size, {}, [], []
+    for codec, (m, c, d) in LANE_O1.items():
+        model, decode = getattr(LO, m), getattr(LO, d)
+        ms, grew = {k: [] for k in (m, c, d)}, 0
+        for r in range(4):  # rep 0 is the warm-up
+            cols, tabs, K = _o1_block(codec, np.roll(real, 7919 * (r + 1))[:B],
+                                      dev)
+            L = cols.shape[1]
+            init = torch.full((L,), rans.ANS_LOW, dtype=torch.int32,
+                              device=dev)
+            probs, t_m, g_m = _events_ms(model, cols, *tabs)
+            (st, lens), t_c, g_c = _events_ms(LK.lane_coder, probs, init)
+            words = blockio.device_words(st, lens)
+            out, t_d, g_d = _events_ms(decode, words, lens, K, *tabs)
+            if not torch.equal(out, cols):
+                raise AssertionError(f"timing-lane {codec}: round trip")
+            if r:
+                grew += g_m + g_c + g_d
+                for k, t in zip((m, c, d), (t_m, t_c, t_d)):
+                    ms[k].append(t)
+            nwords = int(lens.to(torch.int64).sum())
+        if grew:
+            raise AssertionError(f"timing-lane {codec}: {grew} cudaMallocs "
+                                 "inside the timed spans")
+        host = [t.cpu().numpy() for t in tabs]
+        jobs += [(m, [cols.cpu().numpy(), *host]),
+                 (c, [probs.cpu().numpy(), init.cpu().numpy()]),
+                 (d, [words.cpu().numpy(), lens.cpu().numpy(), K, *host])]
+        kern += [(probs,), (st, lens), (out,)]
+        segs = tabs[0].shape[0] if tabs else 0
+        res[codec] = dict(
+            ms={k: sum(v) / len(v) for k, v in ms.items()}, ms_reps=ms,
+            K=K, L=L, n_seg=segs, words=nwords,
+            bound={k: _lane_bound_ms(k, L, K, None, segs, nwords)
+                   for k in (m, c, d)},
+            ctas={m: LO.o1_launch(L, codec)[3], c: -(-L // LK.CODER_LANES)})
+        del cols, probs, st, words, out
+    with ProcessPoolExecutor(len(jobs), multiprocessing.get_context(
+            "spawn")) as pool:
+        plain = list(pool.map(_plain_job, jobs))
+    for n, codec in enumerate(LANE_O1):
+        names = LANE_O1[codec]
+        res[codec]["err"] = err = {
+            k: max(_max_abs(torch.from_numpy(a), b.cpu())
+                   for a, b in zip(plain[3 * n + i][0], kern[3 * n + i]))
+            for i, k in enumerate(names)}
+        res[codec]["plain_ms"] = {k: plain[3 * n + i][1] * 1e3
+                                  for i, k in enumerate(names)}
+        if any(err.values()):
+            raise AssertionError(f"timing-lane {codec}: plain differs {err}")
+        log(f"timing-lane {codec} " + json.dumps(res[codec]))
     return res
 
 
@@ -1413,6 +1647,26 @@ def _lane_rows(timed: dict, launches: dict, before: dict) -> list:
     return rows
 
 
+def _lane_o1_rows(timed: dict, launches: dict) -> list:
+    """The kernels-line rows of L5-L8 at their codecs' main paths, with T
+    (threads a lane), N (lanes a CTA), CTAs and smem (shared-memory bytes
+    a CTA)."""
+    from turborc_tpu_torch.ops import rans_lane_o1_kernel as LO
+    rows = []
+    for codec, (m, _, d) in LANE_O1.items():
+        t = timed[codec]
+        N, _, smem, ctas = LO.o1_launch(t["L"], codec)
+        for name in (m, d):
+            bound, by = t["bound"][name]
+            rows.append(dict(
+                name=name, route="cuda", source=SOURCE[name],
+                replaces=REPLACES[name], launches=launches[codec][name],
+                max_abs_err=t["err"][name], ms=t["ms"][name],
+                plain_ms=t["plain_ms"][name], bound_ms=bound, bound_by=by,
+                library_ms=None, T=LO.O1_TEAM, N=N, CTAs=ctas, smem=smem))
+    return rows
+
+
 def _rows(names, timed: dict, geom, launches: dict) -> list:
     from turborc_tpu_torch.ops import rans_kernel as K_
     rows = []
@@ -1444,6 +1698,7 @@ def child(before: str | None) -> int:
     phase_coder_edge(dev)
     phase_lane_kernels(dev)
     phase_lane_edge(dev)
+    phase_lane_o1_kernels(dev)
     golden, golden_r1 = _golden(GOLDEN), _golden(GOLDEN_R1)
     golden_rcp, golden_x2 = _golden(GOLDEN_RCP), _golden(GOLDEN_X2)
     main = _roundtrip("roundtrip-64MB-bench-geom",
@@ -1468,6 +1723,12 @@ def child(before: str | None) -> int:
                                    golden_lane[f"textbwt_16777216_{codec}"],
                                    LANE[codec], dev)["launches"]
                  for codec in LANE}
+    golden_lane_o1 = _golden(GOLDEN_LANE_O1)
+    main_lane.update({
+        codec: _roundtrip(f"roundtrip-{codec}-16MB-default-config",
+                          golden_lane_o1[f"realsrcbwt_16777216_{codec}"],
+                          LANE_O1[codec], dev)["launches"]
+        for codec in LANE_O1})
     bench, bench_x2 = Geom.parse(BENCH_GEOM), Geom.parse(BENCH_GEOM_X2)
     t0 = _time_path("timing", "o0", "textbwt_67108864.bin", bench, dev)
     t1 = _time_path("timing-o1", "o1", "realsrcbwt_16777216.bin", Geom(),
@@ -1484,7 +1745,8 @@ def child(before: str | None) -> int:
             + _rows(("decode_x2",), tx, bench_x2, main_x2["launches"])
             + _rows(("tree_model", "tree_decode"), tt, Geom(),
                     main_rcp["launches"])
-            + _lane_rows(tl, main_lane, timed))
+            + _lane_rows(tl, main_lane, timed)
+            + _lane_o1_rows(tl, main_lane))
     log("card (nvidia-smi name, power.limit):")
     log(_smi())
     log(json.dumps({"kernels": rows}))

@@ -113,6 +113,33 @@ def test_o1_codecs_no_device_means_cuda_and_raises(codec, monkeypatch):
     assert api.decompress(blob, device="cpu") == b"abc"
 
 
+@pytest.mark.parametrize("codec", ["rans-cdf-r1", "rans-cdf-o1"])
+def test_lane_o1_codecs_no_device_means_cuda_and_raises(codec, monkeypatch):
+    """The order-1 per-lane scan codecs default to the card too."""
+    from turborc_tpu_torch import CodecConfig, api
+    from turborc_tpu_torch.codecs import registry
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = CodecConfig(codec=codec, lanes=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.compress(b"abc", cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        registry.get(codec).encode_block(np.zeros(10, np.uint8), lanes=16)
+    blob = api.compress(b"abc", cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.decompress(blob)
+    assert api.decompress(blob, device="cpu") == b"abc"
+
+
+def test_r1_tables_convert_no_device_means_cuda_and_raises(monkeypatch):
+    from turborc_tpu_torch import convert
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = (np.full((1, 64, 16), 2048), np.full((1, 48, 16), 2048))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.r1_tables_from_jax(*args)
+    hi, lo = convert.r1_tables_from_jax(*args, device="cpu")
+    assert (hi.shape, lo.shape) == ((1, 64, 16), (1, 48, 16))
+
+
 def test_o1_convert_no_device_means_cuda_and_raises(monkeypatch):
     from turborc_tpu_torch import convert
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

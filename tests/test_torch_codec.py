@@ -133,18 +133,19 @@ def test_split_state_not_ported():
 
 def test_registry_has_only_the_flagship():
     """The registry holds the ported codecs, the per-lane scan codecs 42,
-    56 and 58, the flagships 57 and 60, the dispatch between them, 61,
-    and the bit-tree codec 8, and nothing else; the default CodecConfig
-    (id 56) round-trips through the api."""
+    56, 58, 59 and 64, the flagships 57 and 60, the dispatch between
+    them, 61, and the bit-tree codec 8, and nothing else; the default
+    CodecConfig (id 56) round-trips through the api."""
     assert registry.names() == ["rans-static", "rans-cdf-o0",
                                 "rans-cdf-o0-p", "rans-cdf-s8",
-                                "rans-cdf-r1-p", "rans-auto", "rc-p"]
+                                "rans-cdf-r1", "rans-cdf-r1-p", "rans-auto",
+                                "rans-cdf-o1", "rc-p"]
     for cid, name in ((42, "rans-static"), (56, "rans-cdf-o0"),
                       (57, "rans-cdf-o0-p"), (58, "rans-cdf-s8"),
-                      (60, "rans-cdf-r1-p"), (61, "rans-auto"),
-                      (8, "rc-p")):
+                      (59, "rans-cdf-r1"), (60, "rans-cdf-r1-p"),
+                      (61, "rans-auto"), (64, "rans-cdf-o1"), (8, "rc-p")):
         assert registry.get(cid) is registry.get(name)
-    for key in ("rc-o0", 1, "rans-cdf-r1", 59):
+    for key in ("rc-o0", 1, "rans-nibble", 40):
         with pytest.raises(KeyError, match="not ported"):
             registry.get(key)
     data = TEXT[:3000].tobytes()

@@ -1,9 +1,13 @@
-"""Order-1 adaptive-CDF model with rank-quantized contexts, plain torch.
+"""Order-1 adaptive-CDF models, plain torch: the rank-quantized contexts
+of ids 59 and 60 and the previous-byte context of id 64.
 
-Counterpart of ``turborc_tpu/codecs/rans_cdf_r1.py``, reduced to what the
-order-1 flagship codec (id 60) needs: the context wiring, the conditional
-warm tables (numpy) and the per-lane model trajectory (torch), which is
-the body of the o1 model kernel's plain version.
+Counterpart of ``turborc_tpu/codecs/rans_cdf_r1.py`` (and of the model
+half of ``rans_cdf_o1.py``), reduced to the models: the context wiring,
+the conditional warm tables (numpy), and the per-lane model and decode
+passes (torch), which are the bodies of the o1 kernels' plain versions
+(K6, K7 of the flagship id 60, ``codecs/rans_cdf_r1_p.py``; L5-L8 of the
+per-lane scan codecs ids 59 and 64, ``codecs/rans_cdf_r1_lane.py`` and
+``codecs/rans_cdf_o1.py``).  It imports no kernel wrapper.
 
 Bytes are rank-remapped (byte value == frequency rank), so a small
 context keyed on the previous byte ``prev`` carries most of the order-1
@@ -25,6 +29,7 @@ import torch
 
 from turborc_tpu_torch.codecs import blockio
 from turborc_tpu_torch.models import cdf16
+from turborc_tpu_torch.ops import rans
 
 NCTX = 64
 LROWS = 48
@@ -113,8 +118,18 @@ def n_segments(n: int, cap: int) -> int:
     return max(1, min(cap, n >> 18))
 
 
+def lane_tables(hi_cdf: torch.Tensor, lo_cdf: torch.Tensor, lanes: int):
+    """Per-segment cumulative tables [n_seg, R, 16] -> per-lane [lanes, R,
+    16] int64: lane l (contiguous span l) takes segment l * n_seg //
+    lanes (the JAX package's ``_lane_tables`` after
+    ``blockio.cumulative``)."""
+    seg = (torch.arange(lanes, device=hi_cdf.device) * hi_cdf.shape[0]
+           ) // lanes
+    return hi_cdf.to(torch.int64)[seg], lo_cdf.to(torch.int64)[seg]
+
+
 # ---------------------------------------------------------------------------
-# per-lane model trajectory (torch)
+# per-lane model and decode passes (torch)
 # ---------------------------------------------------------------------------
 
 def _row_get(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -128,26 +143,14 @@ def _row_put(table: torch.Tensor, idx: torch.Tensor,
     table[torch.arange(table.shape[0], device=table.device), idx] = row
 
 
-def _step_model(cdf_hi, cdf_lo, prev, b, rate: int = cdf16.CDFRATE):
-    """One o1 nibble-pair step over all lanes, tables updated in place.
-    Returns (low_h, fr_h, low_l, fr_l)."""
-    hi, lo = b >> 4, b & 15
-    ctx = hictx(prev)
-    hrow = _row_get(cdf_hi, ctx)
-    low_h, fr_h = cdf16.lookup(hrow, hi)
-    _row_put(cdf_hi, ctx, cdf16.update_rate(hrow, low_h, rate))
-    locx = locx_of(prev, hi)
-    lrow = _row_get(cdf_lo, locx)
-    low_l, fr_l = cdf16.lookup(lrow, lo)
-    _row_put(cdf_lo, locx, cdf16.update_rate(lrow, low_l, rate))
-    return low_h, fr_h, low_l, fr_l
-
-
 def model_pass(block: torch.Tensor, K: int, hi0: torch.Tensor,
-               lo0: torch.Tensor, rate: int = cdf16.CDFRATE) -> torch.Tensor:
-    """block [L, K] bytes, per-lane tables hi0 [L,NCTX,16], lo0
-    [L,LROWS,16] -> probs [2K, 2 (low/freq), L] int64 (encode model);
-    ``prev`` starts at 0 in every lane."""
+               lo0: torch.Tensor, rate: int = cdf16.CDFRATE,
+               rows=(hictx, locx_of)) -> torch.Tensor:
+    """block [L, K] bytes, per-lane tables hi0 [L, R_hi, 16], lo0 [L,
+    R_lo, 16] -> probs [2K, 2 (low/freq), L] int64 (encode model).  The
+    hi nibble codes from hi row ``rows[0](prev)``, the lo nibble from lo
+    row ``rows[1](prev, hi)``; ``prev`` starts at 0 in every lane."""
+    hi_row, lo_row = rows
     cols = block.to(torch.int64).T
     L = block.shape[0]
     cdf_hi = hi0.to(torch.int64).clone()
@@ -157,9 +160,62 @@ def model_pass(block: torch.Tensor, K: int, hi0: torch.Tensor,
                         device=block.device)
     for t in range(K):
         b = cols[t]
-        low_h, fr_h, low_l, fr_l = _step_model(cdf_hi, cdf_lo, prev, b,
-                                               rate)
+        hi, lo = b >> 4, b & 15
+        ctx = hi_row(prev)
+        hrow = _row_get(cdf_hi, ctx)
+        low_h, fr_h = cdf16.lookup(hrow, hi)
+        _row_put(cdf_hi, ctx, cdf16.update_rate(hrow, low_h, rate))
+        locx = lo_row(prev, hi)
+        lrow = _row_get(cdf_lo, locx)
+        low_l, fr_l = cdf16.lookup(lrow, lo)
+        _row_put(cdf_lo, locx, cdf16.update_rate(lrow, low_l, rate))
         probs[2 * t, 0], probs[2 * t, 1] = low_h, fr_h
         probs[2 * t + 1, 0], probs[2 * t + 1, 1] = low_l, fr_l
         prev = b
     return probs
+
+
+def decode_pass(state: torch.Tensor, fetch, K: int, hi0: torch.Tensor,
+                lo0: torch.Tensor, rate: int = cdf16.CDFRATE,
+                rows=(hictx, locx_of)):
+    """The decode twin of ``model_pass`` (the JAX ``decode_device``):
+    initial states [L] int64 and a stream reader ``fetch`` (``state ->
+    state``, renormalising the lanes below 2^15) -> (bytes [K, L] uint8,
+    final states [L] int64).  Per nibble: row select by context, search,
+    state transition, fetch, update and write-back."""
+    hi_row, lo_row = rows
+    L = state.shape[0]
+    cdf_hi = hi0.to(torch.int64).clone()
+    cdf_lo = lo0.to(torch.int64).clone()
+    prev = torch.zeros(L, dtype=torch.int64, device=state.device)
+    out = torch.empty((K, L), dtype=torch.uint8, device=state.device)
+    for t in range(K):
+        ctx = hi_row(prev)
+        hrow = _row_get(cdf_hi, ctx)
+        hs, low_h, fr_h = cdf16.search(hrow, state & rans.MASK15)
+        state = fetch(rans.dec_update(state, low_h, fr_h))
+        _row_put(cdf_hi, ctx, cdf16.update_rate(hrow, low_h, rate))
+        locx = lo_row(prev, hs)
+        lrow = _row_get(cdf_lo, locx)
+        ls, low_l, fr_l = cdf16.search(lrow, state & rans.MASK15)
+        state = fetch(rans.dec_update(state, low_l, fr_l))
+        _row_put(cdf_lo, locx, cdf16.update_rate(lrow, low_l, rate))
+        prev = (hs << 4) | ls
+        out[t] = prev.to(torch.uint8)
+    return out, state
+
+
+# ---------------------------------------------------------------------------
+# id 64's context: the previous byte itself, every row from cdf16.init
+# ---------------------------------------------------------------------------
+
+BYTE_HROWS, BYTE_LROWS = 256, 256 * 16
+BYTE_ROWS = (lambda prev: prev, lambda prev, hi: prev * 16 + hi)
+
+
+def byte_tables(L: int, device=None):
+    """Every lane's fresh id-64 model: hi [L, 256, 16], lo [L, 4096, 16]
+    (hi row ``prev``, lo row ``prev * 16 + hi``), for ``model_pass`` and
+    ``decode_pass`` with ``rows=BYTE_ROWS``."""
+    return (cdf16.init((L, BYTE_HROWS), device),
+            cdf16.init((L, BYTE_LROWS), device))

@@ -3,7 +3,8 @@
 Counterpart of ``turborc_tpu/codecs/registry.py``, holding only what the
 port has, on every device (the kernels on the card, their plain versions
 on the CPU): the per-lane scan codecs ``rans-static`` (id 42),
-``rans-cdf-o0`` (id 56, the default) and ``rans-cdf-s8`` (id 58), the
+``rans-cdf-o0`` (id 56, the default), ``rans-cdf-s8`` (id 58) and the
+order-1 ``rans-cdf-r1`` (id 59) and ``rans-cdf-o1`` (id 64), the
 flagships ``rans-cdf-o0-p`` (id 57) and ``rans-cdf-r1-p`` (id 60),
 ``rans-auto`` (id 61), which picks between them per block, and the
 bit-tree codec ``rc-p`` (id 8).  The JAX package registers ids 57, 60
@@ -16,6 +17,7 @@ import dataclasses
 from typing import Callable
 
 from turborc_tpu_torch.codecs import (rans_auto, rans_cdf_o0, rans_cdf_o0_p,
+                                      rans_cdf_o1, rans_cdf_r1_lane,
                                       rans_cdf_r1_p, rans_cdf_s8, rans_static,
                                       rc_tree)
 
@@ -42,12 +44,19 @@ _CODECS = (
     # per-lane streams, share-span models, per-segment warm tables
     Codec(58, "rans-cdf-s8", rans_cdf_s8.encode_block,
           rans_cdf_s8.decode_block),
+    # order 1 on rank-quantized previous-byte contexts, per-segment
+    # conditional warm tables, per-lane streams (id 60's model)
+    Codec(59, "rans-cdf-r1", rans_cdf_r1_lane.encode_block,
+          rans_cdf_r1_lane.decode_block),
     # order-1 flagship: rank-quantized previous-byte contexts, contiguous
     # spans, per-group conditional warm tables, same stream format
     Codec(60, "rans-cdf-r1-p", rans_cdf_r1_p.encode_block,
           rans_cdf_r1_p.decode_block),
     # per-block dispatch between ids 57 and 60 (1-byte tag)
     Codec(61, "rans-auto", rans_auto.encode_block, rans_auto.decode_block),
+    # order 1 on the previous byte, fresh tables, at most 128 lanes
+    Codec(64, "rans-cdf-o1", rans_cdf_o1.encode_block,
+          rans_cdf_o1.decode_block),
     # bit-tree model (the reference rc family's), coded a nibble at a time
     Codec(8, "rc-p", rc_tree.encode_block, rc_tree.decode_block),
 )

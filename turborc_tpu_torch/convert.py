@@ -7,13 +7,16 @@ uint32 bits): for the order-0 kernels hi [16, G] and lo [16, 16, G], for
 the order-1 kernels hi [64, 16, G] and lo [48, 16, G].  The port's
 kernels take the same layouts as torch int32 tensors.  The bit-tree
 kernels take one warm tree, [256] int32 (row 0 unused, rows 1..255 in
-[1, 32767]).
+[1, 32767]).  The per-lane order-1 codec rans-cdf-r1 (id 59) takes its
+warm tables per segment, cumulative hi [n_seg, 64, 16] and lo [n_seg,
+48, 16] int32 (L5, L6; lane l from segment l * n_seg // lanes).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from turborc_tpu_torch.codecs import blockio
 from turborc_tpu_torch.codecs import rans_cdf_r1 as R1
 from turborc_tpu_torch.utils.config import resolve_device
 
@@ -61,3 +64,21 @@ def tree_from_jax(tree, device=None) -> torch.Tensor:
     if t[1:].min() < 1 or t[1:].max() > (1 << 15) - 1:
         raise ValueError("tree: rows 1..255 must lie in [1, 32767]")
     return torch.from_numpy(t).to(resolve_device(device))
+
+
+def r1_tables_from_jax(hi, lo, device=None):
+    """Id 59's warm tables from the JAX package: the dequantized freq rows
+    ``codes_to_tables`` gives (hi [n_seg, 64, 16], lo [n_seg, 48, 16],
+    every row summing to 2^15 with no zero freq) -> the cumulative int32
+    tensors L5 and L6 take, on ``device`` (None: the CUDA card)."""
+    hi, lo = np.asarray(hi), np.asarray(lo)
+    for name, a, rows in (("hi", hi, R1.NCTX), ("lo", lo, R1.LROWS)):
+        if a.ndim != 3 or a.shape[1:] != (rows, 16) or \
+                a.shape[0] != hi.shape[0] or a.shape[0] < 1:
+            raise ValueError(f"{name}: shape {a.shape}, expected "
+                             f"(n_seg, {rows}, 16)")
+        if not ((a.sum(-1) == blockio.TOTAL).all() and (a > 0).all()):
+            raise ValueError(f"{name}: rows must be freqs summing to 2^15 "
+                             "with no zero")
+    return tuple(torch.from_numpy(blockio.cumulative(a))
+                 .to(resolve_device(device)) for a in (hi, lo))

@@ -68,6 +68,15 @@ SIGNATURES = {
         "trc_lane_decode": [_P] * 6 + [_I] * 10 + [_P],
         # L4: words, offsets, lengths, cdf, output; K, L, W
         "trc_lane_static_decode": [_P] * 5 + [_I] * 3 + [_P],
+        # L5: cols, id 59's warm tables, probs; K, L, n_seg
+        "trc_lane_o1r_model": [_P] * 4 + [_I] * 3 + [_P],
+        # L6: L3's words, offsets and lengths, L5's tables, the output;
+        # K, L, W, n_seg
+        "trc_lane_o1r_decode": [_P] * 6 + [_I] * 4 + [_P],
+        # L7: cols, probs; K, L
+        "trc_lane_o1_model": [_P] * 2 + [_I] * 2 + [_P],
+        # L8: words, offsets, lengths, output; K, L, W
+        "trc_lane_o1_decode": [_P] * 4 + [_I] * 3 + [_P],
     },
 }
 SOURCES = tuple(SIGNATURES)

@@ -1,14 +1,19 @@
 // Per-lane scan codecs (rans-cdf-o0 id 56, rans-cdf-s8 id 58, rans-static
-// id 42) for Hopper, sm_90a.
+// id 42, rans-cdf-r1 id 59, rans-cdf-o1 id 64) for Hopper, sm_90a.
 //
 // The JAX package runs these passes as lax.scans compiled by XLA
-// (turborc_tpu/codecs/rans_cdf_o0.py, rans_cdf_s8.py, rans_static.py); they
-// have no Pallas kernel.  One compiled device loop becomes one kernel:
+// (turborc_tpu/codecs/rans_cdf_o0.py, rans_cdf_s8.py, rans_static.py,
+// rans_cdf_r1.py, rans_cdf_o1.py); they have no Pallas kernel.  One
+// compiled device loop becomes one kernel:
 //   lane_model_kernel          L1  bytes -> slot probs (ids 56, 58)
 //   lane_coder_kernel          L2  backward rANS + per-lane compaction
-//                                  (ids 56, 58, 42)
+//                                  (ids 56, 58, 42, 59, 64)
 //   lane_decode_kernel         L3  per-lane streams -> bytes (ids 56, 58)
 //   lane_static_decode_kernel  L4  per-lane streams -> bytes (id 42)
+//   lane_o1_model_kernel       L5  bytes -> slot probs (id 59, O1Rank)
+//                              L7  (id 64, O1Byte)
+//   lane_o1_decode_kernel      L6  per-lane streams -> bytes (id 59)
+//                              L8  (id 64)
 //
 // Layout (ops/rans_lane_kernel.py): L lanes, any power of two; byte t of
 // lane l at cols/out[t * L + l]; slot s of lane l at probs[s * L + l],
@@ -21,7 +26,7 @@
 // lane reads 0 at or past min(len, M) or past the W words (the JAX
 // package's zero-padded [L, M] matrix, for the lengths it accepts).
 //
-// L1, L3 and L4 run a team of T threads a lane, L2 one thread a lane on
+// L1, L3-L8 run a team of T threads a lane, L2 one thread a lane on
 // CTAs of kCoderN lanes (below).  A CTA's threads past L run the loop on
 // dummy data and write nothing, so every barrier and shuffle has all its
 // threads.  A lane is a serial state machine; lanes are coupled only by the
@@ -988,6 +993,240 @@ lane_static_decode_kernel(const uint16_t* __restrict__ words,
   if (real && full + j < K) dst[size_t(full) * L] = mine;
 }
 
+// ---- L5-L8: the order-1 per-lane scan codecs, rans-cdf-r1 (id 59) and
+// rans-cdf-o1 (id 64).  A lane codes a contiguous span of K bytes, each
+// byte's hi nibble from the hi row of its context and its lo nibble from
+// the lo row of (context, hi nibble), both CDF16 rows adapted at rate 7;
+// the context is the lane's previous byte, 0 before its first.  The JAX
+// package runs both as lax.scans (turborc_tpu/codecs/rans_cdf_r1.py,
+// rans_cdf_o1.py).  Their model passes L5 / L7 (bytes -> slot probs, which
+// L2 codes) and their decodes L6 / L8 are one kernel template each over
+// the context C:
+//   O1Rank  id 59: 64 hi rows hictx(prev) and 48 lo rows locx(prev, hi) of
+//           the rank-remapped bytes, started from the warm tables of the
+//           lane's segment l n_seg / L (any n_seg in [1, L]: a segment's
+//           lanes need not fill whole CTAs)
+//   O1Byte  id 64: 256 hi rows prev and 4,096 lo rows prev 16 + hi,
+//           started from cdf16.init
+// L1's team of T = kTeam threads a lane, one entry a thread, with every
+// row of the lane in shared memory as u16 (entries stay in [0, 2^15), see
+// cdf_update): id 59's 112 rows are 3,584 B a lane, C::kLanes = 8 lanes a
+// CTA of 128 threads; id 64's 4,352 rows are 139,264 B, so a CTA holds one
+// lane and, to keep its warp whole for the team's shuffles and ballots,
+// a team on dummy data whose every row is a 16-entry scratch row of its
+// own (stride 0).  Row r of lane n lies at (r N + n) 16, N = C::kLanes,
+// the hi rows first.  A step reads the lane's hi row, then its lo row (as
+// soon as the hi nibble is known), and writes each back after its update;
+// a thread touches only its own entries, so a step needs no barrier.  The
+// bytes and probs (L5, L7) and the stream words (L6, L8) move as in L1
+// and L3.
+constexpr int kO1Rate = 7;  // cdf16.CDFRATE: ids 59 and 64 take no rate
+
+struct O1Rank {
+  static constexpr int kHiRows = 64, kLoRows = 48, kLanes = 8;
+  static constexpr bool kWarm = true;  // warm tables per segment
+  static constexpr int kLin = kHiRows - 8;  // exact ranks below it
+  // ranks < kLin exact, log2 buckets above
+  __device__ static int hi_row(int prev) {
+    return prev < kLin ? prev
+                       : kLin + min(32 - __clz(prev - (kLin - 1)), 7);
+  }
+  // the match plane where prev's hi nibble is hs, else prev's rank or hs
+  __device__ static int lo_row(int prev, int hs) {
+    return (prev >> 4) == hs ? 32 + (prev & 15)
+                             : (hs == 0 ? min(prev, 15) : 16 + hs);
+  }
+};
+
+struct O1Byte {
+  static constexpr int kHiRows = 256, kLoRows = 4096, kLanes = 1;
+  static constexpr bool kWarm = false;  // cdf16.init
+  __device__ static int hi_row(int prev) { return prev; }
+  __device__ static int lo_row(int prev, int hs) { return prev * 16 + hs; }
+};
+
+// Threads of a CTA (whole warps), its dummy teams and its shared memory:
+// the lanes' rows, then a scratch row a dummy team.
+template <class C>
+__host__ __device__ constexpr int o1_threads() {
+  return C::kLanes * kTeam > 32 ? C::kLanes * kTeam : 32;
+}
+template <class C>
+__host__ __device__ constexpr int o1_dummies() {
+  return o1_threads<C>() / kTeam - C::kLanes;
+}
+template <class C>
+__host__ __device__ constexpr int o1_smem() {
+  return ((C::kHiRows + C::kLoRows) * C::kLanes + o1_dummies<C>()) * 32;
+}
+static_assert(o1_smem<O1Byte>() <= kSmemMax, "a lane of id 64 fits a CTA");
+static_assert(o1_smem<O1Rank>() <= kSmemMax, "8 lanes of id 59 fit a CTA");
+
+// This team thread's entries of its lane's rows: row r at base + r stride.
+struct O1Rows {
+  uint16_t* base;
+  int stride;
+};
+
+template <int T, class C>
+__device__ __forceinline__ O1Rows o1_rows(int n, int j) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint16_t* rows = reinterpret_cast<uint16_t*>(smem_raw);
+  constexpr int kScratch = (C::kHiRows + C::kLoRows) * C::kLanes * 16;
+  O1Rows r;
+  r.base = (n < C::kLanes ? rows + n * 16
+                          : rows + kScratch + (n - C::kLanes) * 16) +
+           j * (16 / T);
+  r.stride = n < C::kLanes ? C::kLanes * 16 : 0;
+  return r;
+}
+
+// The lanes' start rows.  id 59: its segment's warm tables (a dummy lane
+// takes segment 0), each thread its own entries.  id 64: cdf16.init,
+// entry i = i << 11, filled by the CTA.  Then a barrier.
+template <int T, class C>
+__device__ __forceinline__ void o1_start(const int* __restrict__ hi_tbl,
+                                         const int* __restrict__ lo_tbl,
+                                         int L, int n_seg, int l, bool real,
+                                         const O1Rows& r, int j) {
+  constexpr int E = 16 / T;
+  if constexpr (C::kWarm) {
+    const int seg = real ? int((long long)l * n_seg / L) : 0;
+    for (int h = 0; h < C::kHiRows + C::kLoRows; ++h) {
+      const int* src =
+          h < C::kHiRows ? hi_tbl + (seg * C::kHiRows + h) * 16
+                         : lo_tbl + (seg * C::kLoRows + h - C::kHiRows) * 16;
+      int v[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) v[e] = src[j * E + e];
+      st_part<E>(r.base + h * r.stride, v);
+    }
+  } else {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    uint32_t* w = reinterpret_cast<uint32_t*>(smem_raw);
+    for (int i = threadIdx.x; i < o1_smem<C>() / 4; i += blockDim.x) {
+      const uint32_t e = (2u * i) & 15u;  // entry of the low half
+      w[i] = e * (kTotal / 16) | (e + 1u) * (kTotal / 16) << 16;
+    }
+  }
+  __syncthreads();
+}
+
+// ---- L5 (C = O1Rank) and L7 (O1Byte): the model over known bytes.
+// cols [K, L] u8 -> probs [2K, L] int32 (rans_cdf_r1.model_pass; the model
+// half of rans_cdf_o1.encode_device).  Both rows of a byte are read at
+// once: its hi nibble is known.
+template <int T, class C>
+__global__ void __launch_bounds__(o1_threads<C>(), 1)
+lane_o1_model_kernel(const uint8_t* __restrict__ cols,
+                     const int* __restrict__ hi_tbl,
+                     const int* __restrict__ lo_tbl,
+                     int* __restrict__ probs, int K, int L, int n_seg) {
+  constexpr int E = 16 / T;
+  const int n = threadIdx.x / T, j = threadIdx.x % T;
+  const int l = blockIdx.x * C::kLanes + n;
+  const bool real = n < C::kLanes && l < L;
+  const O1Rows r = o1_rows<T, C>(n, j);
+  o1_start<T, C>(hi_tbl, lo_tbl, L, n_seg, l, real, r, j);
+  // L1's chunks of T bytes and of their probs
+  const uint8_t* src = cols + (real ? l : 0) + size_t(j) * L;
+  int* out = probs + (real ? l : 0);
+  int cur = real && j < K ? src[0] : 0;
+  int nxt = real && T + j < K ? src[size_t(T) * L] : 0;
+  int sym_next = __shfl_sync(kFull, cur, 0, T);
+  int prev = 0, slot_h = 0, slot_l = 0;
+  for (int t = 0; t < K; ++t) {
+    const int sym = sym_next;
+    if ((t & (T - 1)) == T - 1) {
+      cur = nxt;
+      nxt = real && t + 1 + T + j < K ? src[size_t(t + 1 + T) * L] : 0;
+    }
+    sym_next = __shfl_sync(kFull, cur, (t + 1) & (T - 1), T);
+    const int hs = sym >> 4, ls = sym & 15;
+    uint16_t* hp = r.base + C::hi_row(prev) * r.stride;
+    uint16_t* lp = r.base + (C::kHiRows + C::lo_row(prev, hs)) * r.stride;
+    int hrow[E], lrow[E];
+    ld_part<E>(hp, hrow);
+    ld_part<E>(lp, lrow);
+    int low_h, fr_h, low_l, fr_l;
+    team_lookup<T>(hrow, hs, low_h, fr_h);
+    team_lookup<T>(lrow, ls, low_l, fr_l);
+    team_update<T>(hrow, low_h, kO1Rate, j);
+    team_update<T>(lrow, low_l, kO1Rate, j);
+    st_part<E>(hp, hrow);
+    st_part<E>(lp, lrow);
+    prev = sym;
+    const bool take = j == (t & (T - 1));
+    slot_h = take ? (low_h << 16) | fr_h : slot_h;
+    slot_l = take ? (low_l << 16) | fr_l : slot_l;
+    if ((t & (T - 1)) == T - 1 || t == K - 1) {
+      const int tj = (t & ~(T - 1)) + j;
+      if (real && tj <= t) {
+        out[(size_t(2) * tj) * L] = slot_h;
+        out[(size_t(2) * tj + 1) * L] = slot_l;
+      }
+    }
+  }
+}
+
+// ---- L6 (C = O1Rank) and L8 (O1Byte): the decode.  Lane streams (words,
+// off, len; M = 2K + 2) -> bytes [K, L] u8 (rans_cdf_r1.decode_device,
+// rans_cdf_o1.decode_device).  The lo row is read as soon as the hi
+// search gives it, beside the hi lookup; the stream words come from
+// TeamWords, and the bytes are stored as L3 stores them.
+template <int T, class C>
+__global__ void __launch_bounds__(o1_threads<C>(), 1)
+lane_o1_decode_kernel(const uint16_t* __restrict__ words,
+                      const long long* __restrict__ off,
+                      const int* __restrict__ len,
+                      const int* __restrict__ hi_tbl,
+                      const int* __restrict__ lo_tbl,
+                      uint8_t* __restrict__ out, int K, int L, long long W,
+                      int n_seg) {
+  constexpr int E = 16 / T;
+  const int n = threadIdx.x / T, j = threadIdx.x % T;
+  const int l = blockIdx.x * C::kLanes + n;
+  const bool real = n < C::kLanes && l < L;
+  const unsigned mask = team_mask<T>();
+  const O1Rows r = o1_rows<T, C>(n, j);
+  o1_start<T, C>(hi_tbl, lo_tbl, L, n_seg, l, real, r, j);
+  TeamWords w;
+  uint32_t state;
+  team_words_init<T>(w, words, off, len, W, 2 * K + 2, l, real, j, state);
+  uint8_t* dst = out + (real ? l : 0);
+  uint8_t mine = 0;  // the byte of step t0 + j of the chunk t0
+  int prev = 0;
+  for (int t = 0; t < K; ++t) {
+    uint16_t* hp = r.base + C::hi_row(prev) * r.stride;
+    int hrow[E], lrow[E];
+    ld_part<E>(hp, hrow);
+    uint32_t value = state & (kTotal - 1);
+    const int hs = team_search<T>(hrow, int(value), j, mask);
+    uint16_t* lp = r.base + (C::kHiRows + C::lo_row(prev, hs)) * r.stride;
+    ld_part<E>(lp, lrow);
+    int low_h, fr_h;
+    team_lookup<T>(hrow, hs, low_h, fr_h);
+    state = uint32_t(fr_h) * (state >> 15) + value - uint32_t(low_h);
+    team_words_renorm<T>(w, state, j);
+    team_update<T>(hrow, low_h, kO1Rate, j);
+    st_part<E>(hp, hrow);
+    value = state & (kTotal - 1);
+    const int ls = team_search<T>(lrow, int(value), j, mask);
+    int low_l, fr_l;
+    team_lookup<T>(lrow, ls, low_l, fr_l);
+    state = uint32_t(fr_l) * (state >> 15) + value - uint32_t(low_l);
+    team_words_renorm<T>(w, state, j);
+    team_update<T>(lrow, low_l, kO1Rate, j);
+    st_part<E>(lp, lrow);
+    prev = (hs << 4) | ls;
+    if (j == (t & (T - 1))) mine = uint8_t(prev);
+    if ((t & (T - 1)) == T - 1 || t == K - 1) {
+      const int tj = (t & ~(T - 1)) + j;
+      if (real && tj <= t) dst[size_t(tj) * L] = mine;
+    }
+  }
+}
+
 bool pow2(int v, int cap) { return v >= 1 && v <= cap && !(v & (v - 1)); }
 
 // The span geometry of L1 / L3, or false where it does not fit L lanes,
@@ -1046,6 +1285,44 @@ int team_dispatch(const Span& m, F launch) {
   if (m.share == 1)
     return launch(std::integral_constant<int, kTeam>(), std::false_type());
   return launch(std::integral_constant<int, kTeam>(), std::true_type());
+}
+
+// The launches of L5-L8: C::kLanes lanes a CTA of o1_threads<C>() threads,
+// the rows in o1_smem<C>() bytes of shared memory.  id 59 takes n_seg
+// warm-table segments, 1 to L; id 64 none.
+template <class C>
+bool o1_fits(int K, int L, int n_seg) {
+  return K >= 0 && pow2(L, 1 << 30) &&
+         (!C::kWarm || (n_seg >= 1 && n_seg <= L)) &&
+         size_t(2) * size_t(K) * size_t(L) <= size_t(1) << 40;
+}
+
+template <class C>
+int o1_model_launch(const uint8_t* cols, const int* hi_tbl, const int* lo_tbl,
+                    int* probs, int K, int L, int n_seg,
+                    cudaStream_t stream) {
+  if (!o1_fits<C>(K, L, n_seg)) return int(cudaErrorInvalidValue);
+  if (const int e = allow_smem(lane_o1_model_kernel<kTeam, C>, o1_smem<C>()))
+    return e;
+  lane_o1_model_kernel<kTeam, C>
+      <<<(L + C::kLanes - 1) / C::kLanes, o1_threads<C>(), o1_smem<C>(),
+         stream>>>(cols, hi_tbl, lo_tbl, probs, K, L, n_seg);
+  return int(cudaGetLastError());
+}
+
+template <class C>
+int o1_decode_launch(const uint16_t* words, const long long* off,
+                     const int* len, const int* hi_tbl, const int* lo_tbl,
+                     uint8_t* out, int K, int L, int W, int n_seg,
+                     cudaStream_t stream) {
+  if (!o1_fits<C>(K, L, n_seg) || K > (INT_MAX - 2) / 2 || W < 0)
+    return int(cudaErrorInvalidValue);
+  if (const int e = allow_smem(lane_o1_decode_kernel<kTeam, C>, o1_smem<C>()))
+    return e;
+  lane_o1_decode_kernel<kTeam, C>
+      <<<(L + C::kLanes - 1) / C::kLanes, o1_threads<C>(), o1_smem<C>(),
+         stream>>>(words, off, len, hi_tbl, lo_tbl, out, K, L, W, n_seg);
+  return int(cudaGetLastError());
 }
 
 }  // namespace
@@ -1116,6 +1393,38 @@ int trc_lane_static_decode(const uint16_t* words, const long long* off,
                               kStaticThreads, kStaticSmem, stream>>>(
       words, off, len, cdf, out, K, L, W);
   return int(cudaGetLastError());
+}
+
+// L5: id 59's model; hi_tbl [n_seg, 64, 16], lo_tbl [n_seg, 48, 16].
+int trc_lane_o1r_model(const uint8_t* cols, const int* hi_tbl,
+                       const int* lo_tbl, int* probs, int K, int L, int n_seg,
+                       cudaStream_t stream) {
+  return o1_model_launch<O1Rank>(cols, hi_tbl, lo_tbl, probs, K, L, n_seg,
+                                 stream);
+}
+
+// L6: id 59's decode, L3's stream arguments and L5's tables.
+int trc_lane_o1r_decode(const uint16_t* words, const long long* off,
+                        const int* len, const int* hi_tbl, const int* lo_tbl,
+                        uint8_t* out, int K, int L, int W, int n_seg,
+                        cudaStream_t stream) {
+  return o1_decode_launch<O1Rank>(words, off, len, hi_tbl, lo_tbl, out, K, L,
+                                  W, n_seg, stream);
+}
+
+// L7: id 64's model.
+int trc_lane_o1_model(const uint8_t* cols, int* probs, int K, int L,
+                      cudaStream_t stream) {
+  return o1_model_launch<O1Byte>(cols, nullptr, nullptr, probs, K, L, 1,
+                                 stream);
+}
+
+// L8: id 64's decode.
+int trc_lane_o1_decode(const uint16_t* words, const long long* off,
+                       const int* len, uint8_t* out, int K, int L, int W,
+                       cudaStream_t stream) {
+  return o1_decode_launch<O1Byte>(words, off, len, nullptr, nullptr, out, K,
+                                  L, W, 1, stream);
 }
 
 }  // extern "C"

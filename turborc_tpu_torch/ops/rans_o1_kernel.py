@@ -29,8 +29,6 @@ from __future__ import annotations
 import torch
 
 from turborc_tpu_torch.codecs import rans_cdf_r1 as R1
-from turborc_tpu_torch.models import cdf16
-from turborc_tpu_torch.ops import rans
 from turborc_tpu_torch.ops import rans_kernel as K_
 from turborc_tpu_torch.ops.geom import DEFAULT, Geom
 
@@ -78,27 +76,11 @@ def model_plain(cols: torch.Tensor, hi_tbl: torch.Tensor,
 def decode_plain(gstreams: torch.Tensor, K: int, hi_tbl: torch.Tensor,
                  lo_tbl: torch.Tensor, geom: Geom = DEFAULT):
     """gstreams [G, R, 128] -> (bytes [K, G, 128] uint8, final states
-    [G, 128] int32).  Per nibble: row select by context, search, state
-    transition, the group-ordered word fetch, update and write-back."""
+    [G, 128] int32): ``R1.decode_pass`` on the group-ordered word fetch of
+    ``rans_kernel.stream_reader``."""
     G = gstreams.shape[0]
-    L = G * GLANES
-    state, fetch = K_.stream_reader(gstreams)
-    cdf_hi, cdf_lo = _lane_tables(hi_tbl, lo_tbl)
-    prev = torch.zeros(L, dtype=torch.int64, device=gstreams.device)
-    out = torch.empty((K, L), dtype=torch.uint8, device=gstreams.device)
-    for t in range(K):
-        ctx = R1.hictx(prev)
-        hrow = R1._row_get(cdf_hi, ctx)
-        hs, low_h, fr_h = cdf16.search(hrow, state & rans.MASK15)
-        state = fetch(rans.dec_update(state, low_h, fr_h))
-        R1._row_put(cdf_hi, ctx, cdf16.update_rate(hrow, low_h, geom.rate))
-        locx = R1.locx_of(prev, hs)
-        lrow = R1._row_get(cdf_lo, locx)
-        ls, low_l, fr_l = cdf16.search(lrow, state & rans.MASK15)
-        state = fetch(rans.dec_update(state, low_l, fr_l))
-        R1._row_put(cdf_lo, locx, cdf16.update_rate(lrow, low_l, geom.rate))
-        prev = (hs << 4) | ls
-        out[t] = prev.to(torch.uint8)
+    out, state = R1.decode_pass(*K_.stream_reader(gstreams), K,
+                                *_lane_tables(hi_tbl, lo_tbl), geom.rate)
     return (out.reshape(K, G, GLANES),
             state.reshape(G, GLANES).to(torch.int32))
 

@@ -17,7 +17,8 @@ class CodecConfig:
     Attributes:
       codec:      registered codec name (ported: "rans-static",
                   "rans-cdf-o0", "rans-cdf-o0-p", "rans-cdf-s8",
-                  "rans-cdf-r1-p", "rans-auto", "rc-p").
+                  "rans-cdf-r1", "rans-cdf-r1-p", "rans-auto",
+                  "rans-cdf-o1", "rc-p").
       lanes:      lane count recorded in the header (power of two).
       block_size: bytes per independently decodable block.
       step_quant: per-lane symbol-count alignment recorded in the header.

@@ -26,9 +26,9 @@ on the card against the CPU's (``lane-kernels-vs-plain``), the coder L2
 on edge cases of probabilities, states and slot counts and L4 on CDFs
 at their extremes (``lane-edge``), and L5-L8 (with L2 on their probs)
 at their codecs' shapes, at 14 warm-table segments over 512 lanes and on
-corrupt streams (``lane-o1-kernels-vs-plain``).  With ``--before COMMIT``, L2 and L4
-are timed in turns against those of a ``git archive COMMIT`` unpacked
-in ``_archive/COMMIT/``.  It imports no JAX
+corrupt streams (``lane-o1-kernels-vs-plain``).  With ``--before COMMIT``,
+L6 and L8 are timed in turns against those of a ``git archive COMMIT``
+unpacked in ``_archive/COMMIT/``.  It imports no JAX
 and nothing of ``turborc_tpu``; the corpora under
 ``turborc_tpu/bench/_data/`` are read as files.
 
@@ -66,9 +66,9 @@ BENCH_GEOM_X2 = BENCH_GEOM + "x2"
 # _archive/COMMIT/ (a git archive of COMMIT unpacked there) that hold the
 # kernels in REDESIGNED and times those against the current ones.  Their
 # C signatures there, as (pointers, ints) before the stream: those of
-# cfdb21a, the same as now.  Without it the phase is skipped.
+# 977bf11, the same as now.  Without it the phase is skipped.
 BEFORE_FLAG = "--before"
-BEFORE_ARGS = {"trc_lane_coder": (4, 2), "trc_lane_static_decode": (5, 3)}
+BEFORE_ARGS = {"trc_lane_o1r_decode": (6, 4), "trc_lane_o1_decode": (4, 3)}
 ARCHIVE = ROOT / "_archive"
 CSRC_REL = "turborc_tpu_torch/ops/csrc"
 CHILD_FLAG = "--child"
@@ -108,7 +108,7 @@ REPLACES = {
     "lane_o1_decode": "turborc_tpu/codecs/rans_cdf_o1.py:63",
 }
 # Kernels timed against a parent's with --before.
-REDESIGNED = ("lane_coder", "lane_static_decode")
+REDESIGNED = ("lane_o1r_decode", "lane_o1_decode")
 # Each path's kernels in stage order: model, coder, place, decode.
 KERNELS = {"o0": ("model", "coder", "place", "decode"),
            "o1": ("o1_model", "coder", "place", "o1_decode"),
@@ -798,15 +798,16 @@ def _time_path(label: str, kind: str, corpus: str, geom, dev) -> dict:
 
 
 def phase_before_after(dev, before: str | None, libs: dict) -> dict:
-    """L2 and L4 of commit ``before`` against the current ones, on one
-    4 MB block of textbwt at the default CodecConfig: L2 on id 56's probs
-    (L1's) and on id 42's (the static CDF's), L4 on id 42's streams.  A
-    warm-up, then 3 repetitions on distinct rotations, the two builds in
-    turns (before first on odd repetitions), CUDA events around the bare
-    C entry of each: outputs are allocated (L2's rows zeroed) beforehand,
-    and a new allocator segment inside a span fails the phase.  Their
-    outputs must be equal.  Returns {codec: {name: {"before": ms per
-    repetition, "after": ...}}}, empty without ``before``."""
+    """L6 and L8 of commit ``before`` against the current ones, on one
+    4 MB block of realsrcbwt at the default CodecConfig as ids 59 and 64
+    shape it (id 59: 512 lanes, K = 8192, 16 segments; id 64: 128 lanes,
+    K = 32,768), the streams L5 / L7 and L2 write.  A warm-up, then 3
+    repetitions on distinct rotations, the two builds in turns (before
+    first on odd repetitions), CUDA events around the bare C entry of
+    each: outputs are allocated beforehand, and a new allocator segment
+    inside a span fails the phase.  Both must return the block's bytes.
+    Returns {codec: {name: {"before": ms per repetition, "after": ...}}},
+    empty without ``before``."""
     import ctypes
 
     import numpy as np
@@ -814,6 +815,7 @@ def phase_before_after(dev, before: str | None, libs: dict) -> dict:
     from turborc_tpu_torch.codecs import blockio
     from turborc_tpu_torch.ops import build, rans
     from turborc_tpu_torch.ops import rans_lane_kernel as LK
+    from turborc_tpu_torch.ops import rans_lane_o1_kernel as LO
     from turborc_tpu_torch.utils.config import CodecConfig
     label = "timing-before-after"
     phase(label)
@@ -828,13 +830,10 @@ def phase_before_after(dev, before: str | None, libs: dict) -> dict:
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fns[name] = fn
-    text = _corpus("textbwt_16777216.bin")
-    cfg = CodecConfig()
-    L = cfg.lanes
-    runs = {"rans-cdf-o0": ("lane_coder",),
-            "rans-static": ("lane_coder", "lane_static_decode")}
-    ms = {c: {k: {"before": [], "after": []} for k in names}
-          for c, names in runs.items()}
+    real = _corpus("realsrcbwt_16777216.bin")
+    B = CodecConfig().block_size
+    ms = {c: {d: {"before": [], "after": []}}
+          for c, (_, _, d) in LANE_O1.items()}
 
     def timed(fn, cargs) -> float:
         cargs = [x.data_ptr() if isinstance(x, torch.Tensor) else x
@@ -852,55 +851,31 @@ def phase_before_after(dev, before: str | None, libs: dict) -> dict:
             raise AssertionError(f"{label}: cudaMalloc inside the span")
         return start.elapsed_time(end)
 
-    def turns(codec, name, make, r):
-        """make() -> (outputs, C arguments), allocated before the span."""
-        got = {}
-        for who in (("before", "after") if r % 2 else ("after", "before")):
-            outs, cargs = make()
-            fn = (build.load()["trc_" + name] if who == "after"
-                  else fns[name])
-            t = timed(fn, cargs)
-            if r:
-                ms[codec][name][who].append(t)
-            got[who] = outs
-            del cargs
-        if not all(map(torch.equal, got["before"], got["after"])):
-            raise AssertionError(f"{name} {codec}: the kernels of {before} "
-                                 "and now differ")
-
-    init = torch.full((L,), rans.ANS_LOW, dtype=torch.int32, device=dev)
-    for codec, names in runs.items():
+    for codec, (m, _, d) in LANE_O1.items():
         for r in range(4):  # rep 0 is the warm-up
-            cols, hi, lo, geom, K = _lane_block(
-                codec, np.roll(text, 7919 * (r + 1))[:cfg.block_size], dev)
-            if codec == "rans-static":
-                probs, cdf = _static_probs(cols, dev)
-            else:
-                probs = LK.lane_model(cols, hi, lo, geom)
-
-            def coder():
-                outs = (torch.zeros((L, probs.shape[0] + 2),
-                                    dtype=torch.int32, device=dev),
-                        torch.empty((L,), dtype=torch.int32, device=dev))
-                return outs, LK.lane_coder_cargs(probs, init, *outs)
-
-            turns(codec, "lane_coder", coder, r)
-            if "lane_static_decode" in names:
-                st, lens = LK.lane_coder(probs, init)
-                words = blockio.device_words(st, lens)
-                offs = LK._offsets(lens)
-                del st
-
-                def decode():
-                    out = torch.empty_like(cols)
-                    return (out,), LK.lane_static_decode_cargs(
-                        words, offs, lens, K, cdf, out)
-
-                turns(codec, "lane_static_decode", decode, r)
-                del words, offs, lens
-            del cols, probs
-    log(f"{label} " + json.dumps(dict(
-        before=before, N=LK.CODER_LANES, T=LK.STATIC_TEAM, ms=ms)))
+            cols, tabs, K = _o1_block(
+                codec, np.roll(real, 7919 * (r + 1))[:B], dev)
+            init = torch.full((cols.shape[1],), rans.ANS_LOW,
+                              dtype=torch.int32, device=dev)
+            st, lens = LK.lane_coder(getattr(LO, m)(cols, *tabs), init)
+            words = blockio.device_words(st, lens)
+            offs = LK._offsets(lens)
+            del st
+            for who in (("before", "after") if r % 2 else ("after", "before")):
+                out = torch.empty_like(cols)
+                cargs = getattr(LO, d + "_cargs")(words, offs, lens, K, *tabs,
+                                                  out)
+                fn = (build.load()["trc_" + d] if who == "after"
+                      else fns[d])
+                t = timed(fn, cargs)
+                if r:
+                    ms[codec][d][who].append(t)
+                if not torch.equal(out, cols):
+                    raise AssertionError(f"{d} of {who} ({before}): not the "
+                                         "block's bytes")
+                del cargs, out
+            del cols, words, offs, lens
+    log(f"{label} " + json.dumps(dict(before=before, ms=ms)))
     return ms
 
 
@@ -1615,11 +1590,10 @@ def _lane_o1_timing(dev) -> dict:
     return res
 
 
-def _lane_rows(timed: dict, launches: dict, before: dict) -> list:
+def _lane_rows(timed: dict, launches: dict) -> list:
     """The kernels-line rows of L1-L4: L1-L3 at id 56's main path (the
     default codec), L4 at id 42's; L1, L3 and L4 with T (threads a lane),
-    L2 with N (lanes a CTA) and, from ``before`` (timing-before-after, L2
-    at id 56, L4 at id 42), before_ms and after_ms."""
+    L2 with N (lanes a CTA)."""
     from turborc_tpu_torch.ops import rans_lane_kernel as LK
     rows = []
     for name, codec in (("lane_model", "rans-cdf-o0"),
@@ -1637,26 +1611,20 @@ def _lane_rows(timed: dict, launches: dict, before: dict) -> list:
         rows[-1].update({"lane_coder": dict(N=LK.CODER_LANES),
                          "lane_static_decode": dict(T=LK.STATIC_TEAM)}.get(
                              name, dict(T=LK.lane_team(1))))
-        if name in REDESIGNED:
-            pair = before.get(codec, {}).get(name, {})
-            mean = {w: sum(v) / len(v) if v else None
-                    for w, v in pair.items()}
-            # before_ms / after_ms: bare C entries, in turns, one phase
-            rows[-1].update(before_ms=mean.get("before"),
-                            after_ms=mean.get("after"))
     return rows
 
 
-def _lane_o1_rows(timed: dict, launches: dict) -> list:
+def _lane_o1_rows(timed: dict, launches: dict, before: dict) -> list:
     """The kernels-line rows of L5-L8 at their codecs' main paths, with T
     (threads a lane), N (lanes a CTA), CTAs and smem (shared-memory bytes
-    a CTA)."""
+    a CTA) and, for L6 and L8, from ``before`` (timing-before-after),
+    before_ms and after_ms."""
     from turborc_tpu_torch.ops import rans_lane_o1_kernel as LO
     rows = []
     for codec, (m, _, d) in LANE_O1.items():
         t = timed[codec]
-        N, _, smem, ctas = LO.o1_launch(t["L"], codec)
         for name in (m, d):
+            N, _, smem, ctas = LO.o1_launch(t["L"], codec, decode=name == d)
             bound, by = t["bound"][name]
             rows.append(dict(
                 name=name, route="cuda", source=SOURCE[name],
@@ -1664,6 +1632,13 @@ def _lane_o1_rows(timed: dict, launches: dict) -> list:
                 max_abs_err=t["err"][name], ms=t["ms"][name],
                 plain_ms=t["plain_ms"][name], bound_ms=bound, bound_by=by,
                 library_ms=None, T=LO.O1_TEAM, N=N, CTAs=ctas, smem=smem))
+            if name in REDESIGNED:
+                pair = before.get(codec, {}).get(name, {})
+                mean = {w: sum(v) / len(v) if v else None
+                        for w, v in pair.items()}
+                # before_ms / after_ms: bare C entries, in turns, one phase
+                rows[-1].update(before_ms=mean.get("before"),
+                                after_ms=mean.get("after"))
     return rows
 
 
@@ -1745,8 +1720,8 @@ def child(before: str | None) -> int:
             + _rows(("decode_x2",), tx, bench_x2, main_x2["launches"])
             + _rows(("tree_model", "tree_decode"), tt, Geom(),
                     main_rcp["launches"])
-            + _lane_rows(tl, main_lane, timed)
-            + _lane_o1_rows(tl, main_lane))
+            + _lane_rows(tl, main_lane)
+            + _lane_o1_rows(tl, main_lane, timed))
     log("card (nvidia-smi name, power.limit):")
     log(_smi())
     log(json.dumps({"kernels": rows}))
@@ -1817,7 +1792,7 @@ def _args(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(CHILD_FLAG, action="store_true", help=argparse.SUPPRESS)
     ap.add_argument(BEFORE_FLAG, metavar="COMMIT",
-                    help="also time L2 and L4 of the git archive of COMMIT "
+                    help="also time L6 and L8 of the git archive of COMMIT "
                     "unpacked in _archive/COMMIT/")
     return ap.parse_args(argv)
 

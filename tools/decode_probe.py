@@ -20,13 +20,19 @@ lane_coder`` or ``--kernel lane_static_decode``, L2 (at id 56's and id
 ptxas, SASS, CTAs an SM, the sweep (L2: ``lanes-64``; L4: ``team-4``,
 ``team-8`` and ``sym-packed``) and ablations (``probe_io``); ``--src`` may
 also be the ``csrc`` of cfdb21a, whose one-thread-a-lane L2 and L4 it
-tells apart (split only).
+tells apart (split only).  With ``--kernel lane_o1r_decode`` or
+``--kernel lane_o1_decode``, L6 or L8 (one template over two contexts) on
+a 4 MB realsrcbwt block at id 59's or id 64's shape: the split, ptxas,
+SASS, the variants and ablations of ``LANE_O1_STAMPS``
+(``probe_lane_o1``); ``--src`` may also be the ``csrc`` of 977bf11, whose
+first design it tells apart (run a copy of the probe from that tree: the
+probe makes its inputs with the tree it runs from).
 
     python3 tools/decode_probe.py [--src DIR] [--ablate no-rejoin,...]
         [--label NAME] [--out FILE]
         [--kernel decode|model|o1_decode|coder|o1_model|tree_decode|
                   tree_model|lane_model|lane_decode|lane_coder|
-                  lane_static_decode]
+                  lane_static_decode|lane_o1r_decode|lane_o1_decode]
 
 ``--src`` is a ``csrc`` directory: the port's own (the default), or that
 of commit ff11eb3 (a ``git archive ff11eb3`` unpacked into a git-ignored
@@ -144,7 +150,7 @@ extern "C" int trc_split_read(void* out) {
 #define TRC_SECOND 0
 #endif
 #define TRC_SPLIT_BEGIN                                                    \
-  unsigned long long trc_acc[10] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};       \
+  unsigned long long trc_acc[14] = {0};                                    \
   unsigned trc_sink = 0;                                                   \
   const bool trc_on = blockIdx.x == 0 &&                                   \
                       (threadIdx.x == 0 || threadIdx.x == TRC_SECOND);     \
@@ -159,23 +165,24 @@ extern "C" int trc_split_read(void* out) {
 #define TRC_SPLIT_END                                                      \
   if (trc_on) {                                                            \
     const int trc_at = threadIdx.x == 0 ? 0 : 16;                          \
-    for (int k = 0; k < 10; ++k) trc_split_acc[trc_at + k] = trc_acc[k];   \
+    for (int k = 0; k < 14; ++k) trc_split_acc[trc_at + k] = trc_acc[k];   \
     trc_split_acc[trc_at + 15] = trc_sink;                                 \
   }
 """
 
 
 def stamped(source: str, loop_in: str, stamps: list,
-            second: str | None = None) -> str:
+            second: str | None = None,
+            loop_head: str = "for (int t = 0; t < K; ++t) {") -> str:
     """The source with clock64() stamps (``STAMPS``' form) in the byte
-    loop of the function that starts at ``loop_in``, for thread 0 of CTA 0
-    and, with ``second`` (a C expression), that thread too (its sums at
-    ``trc_split_acc[16:]``)."""
+    loop (``loop_head``, at two spaces' indent) of the function that
+    starts at ``loop_in``, for thread 0 of CTA 0 and, with ``second`` (a C
+    expression), that thread too (its sums at ``trc_split_acc[16:]``)."""
     head, sep, rest = source.partition('#include "rans_common.cuh"\n')
     if not sep:
         raise ValueError("rans_common.cuh include not found")
     start = rest.index(loop_in)
-    loop = rest.index("for (int t = 0; t < K; ++t) {", start)
+    loop = rest.index(loop_head, start)
     end = rest.index("\n  }\n", loop) + len("\n  }\n")
     line = rest.rfind("\n", 0, loop) + 1
     pragma = rest.rfind("\n", 0, line - 1) + 1
@@ -1163,6 +1170,11 @@ LANE_SPLIT = {
                          "T);", "  w.next = uint32_t(w.pos) & 0xFFFFu;")],
             **LANE_REJOIN_ABLATIONS,
         }),
+    # L6 and L8, one template over two contexts: ``probe_lane_o1``
+    "lane_o1r_decode": dict(entry="trc_lane_o1r_decode",
+                            codec="rans-cdf-r1", probe="o1"),
+    "lane_o1_decode": dict(entry="trc_lane_o1_decode", codec="rans-cdf-o1",
+                           probe="o1"),
 }
 
 
@@ -1344,6 +1356,276 @@ def probe_lane(opt, dev, res: dict, work: Path) -> dict:
                                    for i, c in enumerate(split)]},
             "ms": times,
             "mean_ms": {k: sum(v) / len(v) for k, v in times.items()}}
+    return res
+
+
+# L6 (``--kernel lane_o1r_decode``, id 59) and L8 (``--kernel
+# lane_o1_decode``, id 64): the template lane_o1_decode_kernel of
+# rans_lane_kernel.cu over its contexts O1Rank and O1Byte, on one 4 MB
+# block of realsrcbwt at the default CodecConfig as the codecs shape it
+# (id 59: 512 lanes, K = 8192, 16 segments; id 64: 128 lanes, K =
+# 32,768).  Two layouts, told apart by the source: "first" (977bf11's
+# design: the hi row read by the previous byte, the lo row as soon as the
+# hi search gives it, a ballot + popc search and two shuffles a lookup,
+# two lanes a warp) and "chain" (the port's: one reduction a search, a
+# warp a lane).  Stamps and segments as for L3 (thread 0 of CTA 0: team
+# thread 0 of lane 0); ``exact`` variants are held byte for byte like the
+# base, ablations are timed only.
+LANE_O1_LAYOUT = {
+    "first": "const int hs = team_search<T>(hrow, int(value), j, mask);",
+    "chain": "const int hs = o1_search(hrow, value, low_h, fr_h);"}
+LANE_O1_SECTION = ("// ---- L5-L8: the order-1 per-lane scan codecs",
+                   "bool pow2(int v")
+# one warp round a search on the first design: low and sym by the max of
+# (c << 4 | i) over the entries c <= value, the next entry by the min over
+# c > value, each team of a warp on its own mask (which the compiler runs
+# once a mask)
+LANE_O1_REDUX = r"""
+__device__ __forceinline__ int o1_redux_search(int c, int value, int j,
+                                               unsigned mask, int& low,
+                                               int& freq) {
+  const unsigned key =
+      __reduce_max_sync(mask, c <= value ? unsigned(c) << 4 | j : 0u);
+  freq = int(__reduce_min_sync(mask, c > value ? unsigned(c)
+                                               : unsigned(kTotal))) -
+         int(key >> 4);
+  low = int(key >> 4);
+  return int(key & 15u);
+}
+
+"""
+LANE_O1_STAMPS = {
+    "first": dict(
+        stamps=[("    ld_part<E>(hp, hrow);", 1, 0, "hrow[0]"),
+                ("    const int hs = team_search<T>(hrow, int(value), j, "
+                 "mask);", 1, 1, "hs"),
+                ("    ld_part<E>(lp, lrow);", 1, 2, "lrow[0]"),
+                ("    team_lookup<T>(hrow, hs, low_h, fr_h);", 1, 3,
+                 "low_h + fr_h"),
+                ("    team_words_renorm<T>(w, state, j);", 1, 4, "state"),
+                ("    st_part<E>(hp, hrow);", 1, 5, "hrow[0]"),
+                ("    const int ls = team_search<T>(lrow, int(value), j, "
+                 "mask);", 1, 6, "ls"),
+                ("    team_lookup<T>(lrow, ls, low_l, fr_l);", 1, 7,
+                 "low_l + fr_l"),
+                ("    team_words_renorm<T>(w, state, j);", 2, 8, "state"),
+                ("    if (j == (t & (T - 1))) mine = uint8_t(prev);", 1, 9,
+                 "lrow[0] + mine")],
+        segments=["byte store (every T steps), hi address and row read",
+                  "hi search (ballot, popc)", "lo address and row read",
+                  "hi lookup (two shuffles)", "hi state step, renorm",
+                  "hi update, row store", "lo search (ballot, popc)",
+                  "lo lookup (two shuffles)", "lo state step, renorm",
+                  "lo update, row store, byte keep"],
+        variants={
+            # the one-round search and lookup on the first design
+            "redux": [
+                (LANE_O1_SECTION[0], LANE_O1_REDUX + LANE_O1_SECTION[0]),
+                ("    const int hs = team_search<T>(hrow, int(value), j, "
+                 "mask);", "    int low_h, fr_h;\n    const int hs = "
+                 "o1_redux_search(hrow[0], int(value), j, mask, low_h, "
+                 "fr_h);"),
+                ("    int low_h, fr_h;\n    team_lookup<T>(hrow, hs, low_h, "
+                 "fr_h);\n", ""),
+                ("    const int ls = team_search<T>(lrow, int(value), j, "
+                 "mask);\n    int low_l, fr_l;\n    team_lookup<T>(lrow, ls, "
+                 "low_l, fr_l);\n", "    int low_l, fr_l;\n    const int ls "
+                 "= o1_redux_search(lrow[0], int(value), j, mask, low_l, "
+                 "fr_l);\n")]},
+        ablations={
+            "no-word": [("    team_words_renorm<T>(w, state, j);",
+                         "    state = state < kAnsLow ? state << 16 : "
+                         "state;")],
+            "no-hi-row": [("    ld_part<E>(hp, hrow);",
+                           "    hrow[0] = (j << 11) + (prev & 7);")],
+            "no-lo-row": [("    ld_part<E>(lp, lrow);",
+                           "    lrow[0] = (j << 11) + hs;")],
+            "no-update": [("    team_update<T>(hrow, low_h, kO1Rate, j);\n",
+                           ""),
+                          ("    team_update<T>(lrow, low_l, kO1Rate, j);\n",
+                           "")],
+            "no-store": [("    st_part<E>(hp, hrow);\n", ""),
+                         ("    st_part<E>(lp, lrow);\n", "")]}),
+    "chain": dict(
+        loop_head="for (int t0 = 0; t0 < K; t0 += 8) {",
+        stamps=[("const int hs = o1_search(hrow, value, low_h, fr_h);", 1, 0,
+                 "hs + low_h + fr_h"),
+                ("const O1Entry lrow = o1_entry(lp, j, dummy);", 1, 1,
+                 "lrow.c + lrow.key"),
+                ("value = o1_renorm(w, state);", 1, 2, "state"),
+                ("*hp = uint16_t(o1_update(hrow.c, low_h, j));", 1, 3, "0"),
+                ("const int ls = o1_search(lrow, value, low_l, fr_l);", 1, 4,
+                 "ls + low_l + fr_l"),
+                ("hrow = o1_entry(hp, j, dummy);", 1, 5, "hrow.c + hrow.key"),
+                ("value = o1_renorm(w, state);", 2, 6, "state"),
+                ("mine = j == (t & (kTeam - 1)) ? uint8_t(prev) : mine;", 1,
+                 7, "mine"),
+                ("o1_words_move(w, j);", 1, 8, "w.base")],
+        segments=["hi search + lookup (a byte store every 16 steps, the "
+                  "loop)",
+                  "lo row: context, read (charged its latency)",
+                  "hi state step, renorm", "hi update, row store",
+                  "lo search + lookup",
+                  "next hi row: context, read (charged its latency)",
+                  "lo state step, renorm",
+                  "lo update, row store, byte keep",
+                  "words move (every 8 steps)"],
+        # held byte for byte: the runs not unrolled; id 59 at 2 or 8 lanes
+        # a CTA ("rank-" variants at id 59 only)
+        variants={
+            "no-unroll": [("#pragma unroll\n      for (int u = 0; u < 8; ++u) "
+                           "step(t0 + u);", "#pragma unroll 1\n      for (int "
+                           "u = 0; u < 8; ++u) step(t0 + u);")],
+            "rank-cta-2": [("  static constexpr int kDLanes = 4;  ",
+                            "  static constexpr int kDLanes = 2;  ")],
+            "rank-cta-8": [("  static constexpr int kDLanes = 4;  ",
+                            "  static constexpr int kDLanes = 8;  ")]},
+        ablations={
+            "no-word": [("  w.t.next = __shfl_sync(kFull, w.t.pos - w.base < "
+                         "kTeam ? w.t.cur : w.t.nxt,\n"
+                         "                         w.t.pos & (kTeam - 1), "
+                         "kTeam);", "  w.t.next = uint32_t(w.t.pos) & "
+                         "0xFFFFu;"),
+                        ("    o1_words_move(w, j);\n", "")],
+            "no-update": [("*hp = uint16_t(o1_update(hrow.c, low_h, j));",
+                           "*hp = uint16_t(hrow.c);"),
+                          ("*lp = uint16_t(o1_update(lrow.c, low_l, j));",
+                           "*lp = uint16_t(lrow.c);")],
+            "no-store": [("      *hp = uint16_t(o1_update(hrow.c, low_h, "
+                          "j));\n", ""),
+                         ("      *lp = uint16_t(o1_update(lrow.c, low_l, "
+                          "j));\n", "")]}),
+}
+
+
+def _lane_o1_inputs(codec: str, dev, rot: int):
+    """(C arguments maker, the bytes the decode must give, K) of one
+    realsrcbwt block as ``codec`` shapes it: make(out) -> the C entry's
+    arguments."""
+    from turborc_tpu_torch.codecs import blockio
+    from turborc_tpu_torch.codecs import rans_cdf_o1 as O1
+    from turborc_tpu_torch.codecs import rans_cdf_r1_lane as R59
+    from turborc_tpu_torch.ops import rans
+    from turborc_tpu_torch.ops import rans_lane_kernel as LK
+    from turborc_tpu_torch.ops import rans_lane_o1_kernel as LO
+    from turborc_tpu_torch.utils.config import CodecConfig
+    cfg = CodecConfig()
+    x = np.roll(np.fromfile(O1_CORPUS, np.uint8), rot)[:cfg.block_size]
+    if codec == "rans-cdf-r1":
+        a = R59.encode_args(x, cfg.lanes, cfg.step_quant, dev)
+        cols, tabs = a.cols, (a.hi_tbl, a.lo_tbl)
+        probs = LO.lane_o1r_model(cols, *tabs)
+    else:
+        block, _ = blockio.shape_block(x, min(cfg.lanes, O1.LANE_CAP),
+                                       cfg.step_quant)
+        cols, tabs = torch.from_numpy(block).to(dev).T.contiguous(), ()
+        probs = LO.lane_o1_model(cols)
+    K, L = cols.shape
+    st, lens = LK.lane_coder(probs, torch.full(
+        (L,), rans.ANS_LOW, dtype=torch.int32, device=dev))
+    words = blockio.device_words(st, lens)
+    offs = LK._offsets(lens)
+    if codec == "rans-cdf-r1":
+        return (lambda out: LO.lane_o1r_decode_cargs(
+            words, offs, lens, K, *tabs, out)), cols, K
+    return (lambda out: LO.lane_o1_decode_cargs(words, offs, lens, K, out)
+            ), cols, K
+
+
+def _lane_o1_ptxas(report: str) -> dict:
+    """Registers, stack, spills and smem of lane_o1_decode_kernel's
+    instantiations, by context."""
+    res, key = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line \
+                or "Function properties for" in line:
+            m = re.search(r"lane_o1_decode_kernel\w*?(O1Rank|O1Byte)", line)
+            key = m.group(1) if m else None
+            if key:
+                res.setdefault(key, {})
+            continue
+        if key:
+            for k, pat in (("stack_bytes", r"(\d+) bytes stack frame"),
+                           ("spill_stores", r"(\d+) bytes spill stores"),
+                           ("registers", r"Used (\d+) registers"),
+                           ("smem", r"(\d+) bytes smem")):
+                m3 = re.search(pat, line)
+                if m3:
+                    res[key][k] = int(m3.group(1))
+    return res
+
+
+def probe_lane_o1(opt, dev, res: dict, work: Path) -> dict:
+    """L6 or L8 (``LANE_SPLIT[opt.kernel]``) of the source in ``--src``:
+    ptxas of both contexts, SASS, the clock64() split of the byte step,
+    and the bare C entry timed (a warm-up, then 3 repetitions on distinct
+    rotations of the block) for the base, the stamped build, the layout's
+    variants (held byte for byte) and, on the port's source, the named
+    ablations (timed only)."""
+    spec = LANE_SPLIT[opt.kernel]
+    src = Path(opt.src).resolve()
+    base = (src / "rans_lane_kernel.cu").read_text()
+    header = (src / "rans_common.cuh").read_text()
+    layout = next(k for k, v in LANE_O1_LAYOUT.items() if v in base)
+    res["layout"] = layout
+    plan = LANE_O1_STAMPS[layout]
+    variants = {"base": base,
+                "stamped": stamped(base, "lane_o1_decode_kernel(",
+                                   plan["stamps"], loop_head=plan.get(
+                                       "loop_head",
+                                       "for (int t = 0; t < K; ++t) {"))}
+    for name, changes in plan["variants"].items():
+        if name.startswith("rank-") and spec["codec"] != "rans-cdf-r1":
+            continue
+        variants[name] = _ablate(name, base, header, LANE_O1_SECTION,
+                                 changes)
+    for name in [x for x in opt.ablate.split(",") if x]:
+        variants[name] = _ablate(name, base, header, LANE_O1_SECTION,
+                                 plan["ablations"][name])
+    exact = ("base", "stamped", *plan["variants"])  # held byte for byte
+    libs, reports, res["nvcc_s"] = _build_all(variants, src, work,
+                                              "rans_lane_kernel.cu")
+    res["ptxas"] = {k: _lane_o1_ptxas(v) for k, v in reports.items()}
+    res["sass"] = _sass(libs["base"], "lane_o1_decode")
+    # the port's kernels run first (they make the inputs), and the builds
+    # load after them
+    _lane_o1_inputs(spec["codec"], dev, 0)
+    types = build.SIGNATURES["rans_lane_kernel.cu"][spec["entry"]]
+    fns, loaded = {}, {}
+    for k, lib in libs.items():
+        loaded[k] = ctypes.CDLL(str(lib))
+        fns[k] = getattr(loaded[k], spec["entry"])
+        fns[k].argtypes, fns[k].restype = types, ctypes.c_int
+    segs = plan["segments"]
+    times = {k: [] for k in variants}
+    split, K = None, 0
+    for r in range(4):  # rep 0 is the warm-up
+        make, ref, K = _lane_o1_inputs(spec["codec"], dev, 7919 * (r + 1))
+        for k, fn in fns.items():
+            print(f"probe {spec['codec']} rep {r}: {k}", file=sys.stderr,
+                  flush=True)
+            out = torch.empty_like(ref)
+            ms = _bare(fn, make(out))
+            if k in exact and not torch.equal(out, ref):
+                raise AssertionError(f"{k} differs from the bytes at "
+                                     f"{spec['codec']}")
+            if r:
+                times[k].append(ms)
+            if k == "stamped":
+                acc = (ctypes.c_ulonglong * 32)()
+                loaded[k].trc_split_read(ctypes.cast(acc, ctypes.c_void_p))
+                split = [int(x) for x in acc[:len(segs)]]
+            del out
+        del make, ref
+    total = sum(split)
+    res.update(
+        codec=spec["codec"], K=K,
+        split={"thread": "team thread 0 of lane 0, CTA 0",
+               "cycles_total": total, "cycles_per_byte": total / K,
+               "segments": [{"segment": segs[i], "cycles": c,
+                             "per_byte": c / K, "share": c / total}
+                            for i, c in enumerate(split)]},
+        ms=times, mean_ms={k: sum(v) / len(v) for k, v in times.items()})
     return res
 
 
@@ -1698,7 +1980,8 @@ def main() -> int:
                else Geom().spec}
         probe = {"model": probe_model, "coder": probe_coder,
                  **dict.fromkeys(SPLIT_KERNELS, probe_split),
-                 **dict.fromkeys(LANE_SPLIT, probe_lane),
+                 **{k: probe_lane_o1 if v.get("probe") == "o1"
+                    else probe_lane for k, v in LANE_SPLIT.items()},
                  **dict.fromkeys(IO_KERNELS, probe_io)}[opt.kernel]
         res = probe(opt, dev, res, work)
         text = json.dumps(res, indent=1)

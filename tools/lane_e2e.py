@@ -2,12 +2,15 @@
 port or another tree's.
 
     python3 tools/lane_e2e.py [--root DIR] [--codec NAME] [--reps N]
+        [--corpus FILE]
 
 Imports ``turborc_tpu_torch`` from DIR (a tree holding the port, for
 example a ``git archive`` of a parent commit unpacked under
-``_archive/``; this tree by default), then round-trips
-``textbwt_16777216.bin`` (this tree's corpus) through ``api.compress`` and
-``api.decompress`` at the default ``CodecConfig`` with the codec: a
+``_archive/``; this tree by default), then round-trips the corpus
+(``textbwt_16777216.bin`` by default, or the FILE of this tree's
+``turborc_tpu/bench/_data/``, such as ``realsrcbwt_16777216.bin`` for the
+order-1 codecs) through ``api.compress`` and ``api.decompress`` at the
+default ``CodecConfig`` with the codec: a
 warm-up, then N timed round trips on distinct rotations, each ending in
 ``torch.cuda.synchronize()``, checked byte for byte.  Prints one JSON line
 with the card's name and power limit.  Needs a CUDA card.
@@ -22,7 +25,7 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
-CORPUS = HERE / "turborc_tpu" / "bench" / "_data" / "textbwt_16777216.bin"
+DATA = HERE / "turborc_tpu" / "bench" / "_data"
 
 
 def main() -> int:
@@ -30,6 +33,7 @@ def main() -> int:
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--codec", default="rans-static")
     ap.add_argument("--reps", type=int, default=2)
+    ap.add_argument("--corpus", default="textbwt_16777216.bin")
     opt = ap.parse_args()
     import numpy as np
     import torch
@@ -40,7 +44,8 @@ def main() -> int:
     sys.path.insert(0, str(root))
     from turborc_tpu_torch import api
     from turborc_tpu_torch.utils.config import CodecConfig
-    text = np.fromfile(CORPUS, np.uint8)
+    corpus = DATA / opt.corpus
+    text = np.fromfile(corpus, np.uint8)
     cfg = CodecConfig(codec=opt.codec)
     enc, dec = [], []
     for r in range(opt.reps + 1):  # rep 0 is the warm-up
@@ -62,7 +67,7 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     print(json.dumps(dict(
-        root=str(root), codec=opt.codec, corpus=CORPUS.name,
+        root=str(root), codec=opt.codec, corpus=corpus.name,
         lanes=cfg.lanes, block_size=cfg.block_size, card=card,
         encode_MBps=[mb / s for s in enc],
         decode_MBps=[mb / s for s in dec],

@@ -1014,16 +1014,18 @@ lane_static_decode_kernel(const uint16_t* __restrict__ words,
 // CTA of 128 threads; id 64's 4,352 rows are 139,264 B, so a CTA holds one
 // lane and, to keep its warp whole for the team's shuffles and ballots,
 // a team on dummy data whose every row is a 16-entry scratch row of its
-// own (stride 0).  Row r of lane n lies at (r N + n) 16, N = C::kLanes,
-// the hi rows first.  A step reads the lane's hi row, then its lo row (as
-// soon as the hi nibble is known), and writes each back after its update;
-// a thread touches only its own entries, so a step needs no barrier.  The
-// bytes and probs (L5, L7) and the stream words (L6, L8) move as in L1
-// and L3.
+// own (stride 0).  Row r of lane n lies at (r N + n) 16, N lanes a CTA
+// (C::kLanes in the models, C::kDLanes in the decodes, which run a warp a
+// lane beside a dummy team), the hi rows first.  A step reads the lane's
+// hi and lo rows and writes each back after its update; a thread touches
+// only its own entries, so a step needs no barrier.  The bytes and probs
+// (L5, L7) move as in L1; the decodes' stream words as in L3, held a
+// chunk deeper (O1Words).
 constexpr int kO1Rate = 7;  // cdf16.CDFRATE: ids 59 and 64 take no rate
 
 struct O1Rank {
   static constexpr int kHiRows = 64, kLoRows = 48, kLanes = 8;
+  static constexpr int kDLanes = 4;  // the decode's lanes a CTA, a warp each
   static constexpr bool kWarm = true;  // warm tables per segment
   static constexpr int kLin = kHiRows - 8;  // exact ranks below it
   // ranks < kLin exact, log2 buckets above
@@ -1040,6 +1042,7 @@ struct O1Rank {
 
 struct O1Byte {
   static constexpr int kHiRows = 256, kLoRows = 4096, kLanes = 1;
+  static constexpr int kDLanes = 1;
   static constexpr bool kWarm = false;  // cdf16.init
   __device__ static int hi_row(int prev) { return prev; }
   __device__ static int lo_row(int prev, int hs) { return prev * 16 + hs; }
@@ -1068,27 +1071,27 @@ struct O1Rows {
   int stride;
 };
 
-template <int T, class C>
-__device__ __forceinline__ O1Rows o1_rows(int n, int j) {
+// In a CTA of N lanes: lane ln's rows, or dummy team d's scratch row.
+template <int T, class C, int N>
+__device__ __forceinline__ O1Rows o1_rows(int ln, bool dummy, int d, int j) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint16_t* rows = reinterpret_cast<uint16_t*>(smem_raw);
-  constexpr int kScratch = (C::kHiRows + C::kLoRows) * C::kLanes * 16;
+  constexpr int kScratch = (C::kHiRows + C::kLoRows) * N * 16;
   O1Rows r;
-  r.base = (n < C::kLanes ? rows + n * 16
-                          : rows + kScratch + (n - C::kLanes) * 16) +
-           j * (16 / T);
-  r.stride = n < C::kLanes ? C::kLanes * 16 : 0;
+  r.base = (dummy ? rows + kScratch + d * 16 : rows + ln * 16) + j * (16 / T);
+  r.stride = dummy ? 0 : N * 16;
   return r;
 }
 
 // The lanes' start rows.  id 59: its segment's warm tables (a dummy lane
 // takes segment 0), each thread its own entries.  id 64: cdf16.init,
-// entry i = i << 11, filled by the CTA.  Then a barrier.
+// entry i = i << 11, filled by the CTA in its `bytes` of rows.  Then a
+// barrier.
 template <int T, class C>
 __device__ __forceinline__ void o1_start(const int* __restrict__ hi_tbl,
                                          const int* __restrict__ lo_tbl,
                                          int L, int n_seg, int l, bool real,
-                                         const O1Rows& r, int j) {
+                                         const O1Rows& r, int j, int bytes) {
   constexpr int E = 16 / T;
   if constexpr (C::kWarm) {
     const int seg = real ? int((long long)l * n_seg / L) : 0;
@@ -1104,7 +1107,7 @@ __device__ __forceinline__ void o1_start(const int* __restrict__ hi_tbl,
   } else {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     uint32_t* w = reinterpret_cast<uint32_t*>(smem_raw);
-    for (int i = threadIdx.x; i < o1_smem<C>() / 4; i += blockDim.x) {
+    for (int i = threadIdx.x; i < bytes / 4; i += blockDim.x) {
       const uint32_t e = (2u * i) & 15u;  // entry of the low half
       w[i] = e * (kTotal / 16) | (e + 1u) * (kTotal / 16) << 16;
     }
@@ -1126,8 +1129,9 @@ lane_o1_model_kernel(const uint8_t* __restrict__ cols,
   const int n = threadIdx.x / T, j = threadIdx.x % T;
   const int l = blockIdx.x * C::kLanes + n;
   const bool real = n < C::kLanes && l < L;
-  const O1Rows r = o1_rows<T, C>(n, j);
-  o1_start<T, C>(hi_tbl, lo_tbl, L, n_seg, l, real, r, j);
+  const O1Rows r =
+      o1_rows<T, C, C::kLanes>(n, n >= C::kLanes, n - C::kLanes, j);
+  o1_start<T, C>(hi_tbl, lo_tbl, L, n_seg, l, real, r, j, o1_smem<C>());
   // L1's chunks of T bytes and of their probs
   const uint8_t* src = cols + (real ? l : 0) + size_t(j) * L;
   int* out = probs + (real ? l : 0);
@@ -1171,11 +1175,140 @@ lane_o1_model_kernel(const uint8_t* __restrict__ cols,
 
 // ---- L6 (C = O1Rank) and L8 (O1Byte): the decode.  Lane streams (words,
 // off, len; M = 2K + 2) -> bytes [K, L] u8 (rans_cdf_r1.decode_device,
-// rans_cdf_o1.decode_device).  The lo row is read as soon as the hi
-// search gives it, beside the hi lookup; the stream words come from
-// TeamWords, and the bytes are stored as L3 stores them.
-template <int T, class C>
-__global__ void __launch_bounds__(o1_threads<C>(), 1)
+// rans_cdf_o1.decode_device).
+//
+// What bounds it: a lane is one serial chain, and there are few lanes (id
+// 64 codes a 4 MB block as 128 lanes of 32,768 bytes, one lane a CTA, one
+// warp an SM; id 59 as 512 lanes), so nothing hides a byte step's
+// latency: the kernel's time is K times the dependent chain of one step,
+// and only a shorter chain helps.  The step keeps on that chain little
+// more than the two state steps (value, search, state update, renorm):
+//   - A search and lookup is one reduction (o1_search): the team's min of
+//     (c_j << 16 | c_{j-1}) over the entries c_j > value holds next and
+//     low, and a ballot beside it gives the symbol, so the state update
+//     waits on neither a popc nor a shuffle indexed by it.  It holds for
+//     any non-decreasing row, and every row that reaches the kernel is
+//     one: id 64's come from cdf16.init and cdf16.update, id 59's start
+//     from segment_cdfs (rows of freq >= 1 summing to 2^15 from
+//     rans_cdf_r1.codes_to_tables, whatever the payload) and update alike.
+//     A redux.sync gives one result a warp and takes one mask a warp (the
+//     masks of two teams make the compiler run it once a mask, about 500
+//     cycles), so every lane has a warp of its own (id 59: 4 lanes a CTA,
+//     128 CTAs), beside a dummy team that adds nothing to the reduction.
+//   - No branch on data (O1Words): the stream words move along on a
+//     schedule of t alone, so the two teams of a warp never diverge and no
+//     select waits on a load; the steps run in runs of 8, unrolled.
+//   - The rows are read as soon as their index is known (the next hi row
+//     after this step's hi store, beside the lo state step).
+// Tried and dropped (tools/decode_probe.py, PERF.md): the 16 candidate
+// rows of the lo row and of the next hi row read a step ahead and picked
+// by a select tree (two 16-byte loads a row, in groups of 16 rows,
+// forwarded by row index); two reductions a search (max and min); the
+// shuffles' search on two lanes a warp; the words a step ahead in every
+// thread (one shuffle a step); a dummy team on its lane's rows, or on
+// scratch rows away from its lane's banks; id 59's next hi row by a map
+// of the hi nibble read a nibble ahead (no gain once the runs unroll).
+static_assert(kTeam == 16, "the o1 decode holds one entry a thread");
+
+// The decode's CTA: C::kDLanes lanes, each a warp of its team and a dummy
+// team; the lanes' rows, then a scratch row a dummy team.
+template <class C>
+__host__ __device__ constexpr int o1_dthreads() {
+  return C::kDLanes * 32;
+}
+template <class C>
+__host__ __device__ constexpr int o1_drows() {
+  return ((C::kHiRows + C::kLoRows) + 1) * C::kDLanes * 32;
+}
+static_assert(o1_drows<O1Byte>() <= kSmemMax, "a lane of id 64 fits a CTA");
+
+// cdf_update of entry j (the same predicate c > low as team_update).
+__device__ __forceinline__ int o1_update(int c, int low, int j) {
+  return c + ((j * kIC - c + (c > low ? kMixd : 0)) >> kO1Rate);
+}
+
+// A row entry as o1_search takes it: c (entry j) and the search's key,
+// (c_j << 16 | c_{j-1}), c_15 in thread 0, which stands for the entry 16
+// = 2^15; a dummy team's key changes no min (~0).
+struct O1Entry {
+  int c;
+  uint32_t hi;  // c_j, 2^15 in thread 0
+  uint32_t key;
+};
+
+__device__ __forceinline__ O1Entry o1_entry(const uint16_t* p, int j,
+                                            bool dummy) {
+  const int c = *p;
+  const uint32_t before = p[((j - 1) & 15) - j];
+  const uint32_t hi = j ? uint32_t(c) : uint32_t(kTotal);
+  return {c, hi, dummy ? ~0u : hi << 16 | before};
+}
+
+// The team's search and lookup of its row: the symbol, low and freq, in
+// both teams of the warp (the dummy takes its lane's).  The min over the
+// entries c_j > value is next, c_{sym + 1}, with low = c_sym beside it
+// (of equal c_j the first, whose c_{j-1} is the lower); the symbol counts
+// the lane team's entries j >= 1 with c_j <= value.
+__device__ __forceinline__ int o1_search(const O1Entry& e, uint32_t value,
+                                         int& low, int& freq) {
+  const uint32_t kmin = __reduce_min_sync(kFull, e.hi > value ? e.key : ~0u);
+  // the lane's team is the warp's first 16 threads
+  const int sym =
+      __popc(__ballot_sync(kFull, uint32_t(e.c) <= value) & 0xFFFEu);
+  low = int(kmin & 0xFFFFu);
+  freq = int(kmin >> 16) - low;
+  return sym;
+}
+
+// L6 / L8's reader: TeamWords' layout (word p of the lane in team thread
+// p % 16) held three chunks of 16 deep, cur the chunk at base, nxt the
+// next, far the one after.  A step takes at most two words, so every 8
+// steps (a condition on t alone, the same for both teams of a warp) the
+// chunks move along by one where pos has left cur, and far is loaded
+// anew from an address that is always in bounds (a word past the lane's
+// n reads as 0 when it moves into nxt): the load is first used 8 steps
+// later, and no step branches on data.
+struct O1Words {
+  TeamWords t;
+  int base;
+  uint32_t far;
+  bool far_ok;
+};
+
+__device__ __forceinline__ void o1_words_init(
+    O1Words& w, const uint16_t* words, const long long* off, const int* len,
+    long long W, int M, int l, bool real, int j, uint32_t& state) {
+  team_words_init<kTeam>(w.t, words, off, len, W, M, l, real, j, state);
+  if (w.t.n == 0) w.t.src = reinterpret_cast<const uint16_t*>(len);
+  w.base = 0;
+  w.far_ok = 2 * kTeam + j < w.t.n;
+  w.far = w.t.src[w.far_ok ? 2 * kTeam + j : 0];
+}
+
+// The renorm, and the next value (state mod 2^15): where it takes a word,
+// the word's low 15 bits, a select beside the state's.
+__device__ __forceinline__ uint32_t o1_renorm(O1Words& w, uint32_t& state) {
+  const bool take = state < kAnsLow;
+  const uint32_t value = take ? w.t.next & (kTotal - 1) : state & (kTotal - 1);
+  state = take ? (state << 16) | w.t.next : state;
+  w.t.pos += take ? 1 : 0;
+  w.t.next = __shfl_sync(kFull, w.t.pos - w.base < kTeam ? w.t.cur : w.t.nxt,
+                         w.t.pos & (kTeam - 1), kTeam);
+  return value;
+}
+
+__device__ __forceinline__ void o1_words_move(O1Words& w, int j) {
+  const bool left = w.t.pos - w.base >= kTeam;
+  w.t.cur = left ? w.t.nxt : w.t.cur;
+  w.t.nxt = left ? (w.far_ok ? w.far : 0u) : w.t.nxt;
+  w.base += left ? kTeam : 0;
+  const int p = w.base + 2 * kTeam + j;
+  w.far_ok = p < w.t.n;
+  w.far = w.t.src[w.far_ok ? p : 0];
+}
+
+template <class C>
+__global__ void __launch_bounds__(o1_dthreads<C>(), 1)
 lane_o1_decode_kernel(const uint16_t* __restrict__ words,
                       const long long* __restrict__ off,
                       const int* __restrict__ len,
@@ -1183,46 +1316,58 @@ lane_o1_decode_kernel(const uint16_t* __restrict__ words,
                       const int* __restrict__ lo_tbl,
                       uint8_t* __restrict__ out, int K, int L, long long W,
                       int n_seg) {
-  constexpr int E = 16 / T;
-  const int n = threadIdx.x / T, j = threadIdx.x % T;
-  const int l = blockIdx.x * C::kLanes + n;
-  const bool real = n < C::kLanes && l < L;
-  const unsigned mask = team_mask<T>();
-  const O1Rows r = o1_rows<T, C>(n, j);
-  o1_start<T, C>(hi_tbl, lo_tbl, L, n_seg, l, real, r, j);
-  TeamWords w;
+  const int n = threadIdx.x / kTeam, j = threadIdx.x % kTeam;
+  // warp ln: lane ln's team, then a dummy team on a scratch row of its own
+  // whose searches take the lane's symbols
+  const bool dummy = n & 1;
+  const int ln = n >> 1;
+  const int l = blockIdx.x * C::kDLanes + ln;
+  const bool real = !dummy && l < L;
+  const O1Rows r = o1_rows<kTeam, C, C::kDLanes>(ln, dummy, ln, j);
+  o1_start<kTeam, C>(hi_tbl, lo_tbl, L, n_seg, l, real, r, j,
+                     o1_drows<C>());
+  O1Words w;
   uint32_t state;
-  team_words_init<T>(w, words, off, len, W, 2 * K + 2, l, real, j, state);
+  o1_words_init(w, words, off, len, W, 2 * K + 2, l, real, j, state);
   uint8_t* dst = out + (real ? l : 0);
   uint8_t mine = 0;  // the byte of step t0 + j of the chunk t0
-  int prev = 0;
-  for (int t = 0; t < K; ++t) {
-    uint16_t* hp = r.base + C::hi_row(prev) * r.stride;
-    int hrow[E], lrow[E];
-    ld_part<E>(hp, hrow);
-    uint32_t value = state & (kTotal - 1);
-    const int hs = team_search<T>(hrow, int(value), j, mask);
-    uint16_t* lp = r.base + (C::kHiRows + C::lo_row(prev, hs)) * r.stride;
-    ld_part<E>(lp, lrow);
-    int low_h, fr_h;
-    team_lookup<T>(hrow, hs, low_h, fr_h);
-    state = uint32_t(fr_h) * (state >> 15) + value - uint32_t(low_h);
-    team_words_renorm<T>(w, state, j);
-    team_update<T>(hrow, low_h, kO1Rate, j);
-    st_part<E>(hp, hrow);
-    value = state & (kTotal - 1);
-    const int ls = team_search<T>(lrow, int(value), j, mask);
-    int low_l, fr_l;
-    team_lookup<T>(lrow, ls, low_l, fr_l);
-    state = uint32_t(fr_l) * (state >> 15) + value - uint32_t(low_l);
-    team_words_renorm<T>(w, state, j);
-    team_update<T>(lrow, low_l, kO1Rate, j);
-    st_part<E>(lp, lrow);
-    prev = (hs << 4) | ls;
-    if (j == (t & (T - 1))) mine = uint8_t(prev);
-    if ((t & (T - 1)) == T - 1 || t == K - 1) {
-      const int tj = (t & ~(T - 1)) + j;
-      if (real && tj <= t) dst[size_t(tj) * L] = mine;
+  int prev = 0;      // byte t - 1
+  uint16_t* hp = r.base + C::hi_row(0) * r.stride;  // its hi row
+  O1Entry hrow = o1_entry(hp, j, dummy);
+  uint32_t value = state & (kTotal - 1);
+  // steps in runs of 8, unrolled, the words moved between (a branch: as a
+  // predicated select in every step it would wait on far's load), the
+  // bytes stored every 16 steps
+  for (int t0 = 0; t0 < K; t0 += 8) {
+    auto step = [&](int t) {
+      int low_h, fr_h;
+      const int hs = o1_search(hrow, value, low_h, fr_h);
+      uint16_t* lp = r.base + (C::kHiRows + C::lo_row(prev, hs)) * r.stride;
+      const O1Entry lrow = o1_entry(lp, j, dummy);
+      state = uint32_t(fr_h) * (state >> 15) + value - uint32_t(low_h);
+      value = o1_renorm(w, state);
+      *hp = uint16_t(o1_update(hrow.c, low_h, j));
+      int low_l, fr_l;
+      const int ls = o1_search(lrow, value, low_l, fr_l);
+      prev = hs << 4 | ls;
+      hp = r.base + C::hi_row(prev) * r.stride;
+      hrow = o1_entry(hp, j, dummy);  // after this step's hi store
+      state = uint32_t(fr_l) * (state >> 15) + value - uint32_t(low_l);
+      value = o1_renorm(w, state);
+      *lp = uint16_t(o1_update(lrow.c, low_l, j));
+      mine = j == (t & (kTeam - 1)) ? uint8_t(prev) : mine;
+    };
+    const int t1 = min(t0 + 8, K);
+    if (t1 == t0 + 8) {
+#pragma unroll
+      for (int u = 0; u < 8; ++u) step(t0 + u);
+    } else {
+      for (int t = t0; t < t1; ++t) step(t);
+    }
+    o1_words_move(w, j);
+    if ((t1 & (kTeam - 1)) == 0 || t1 == K) {  // a chunk of 16 bytes
+      const int tj = ((t1 - 1) & ~(kTeam - 1)) + j;
+      if (real && tj < t1) dst[size_t(tj) * L] = mine;
     }
   }
 }
@@ -1317,10 +1462,10 @@ int o1_decode_launch(const uint16_t* words, const long long* off,
                      cudaStream_t stream) {
   if (!o1_fits<C>(K, L, n_seg) || K > (INT_MAX - 2) / 2 || W < 0)
     return int(cudaErrorInvalidValue);
-  if (const int e = allow_smem(lane_o1_decode_kernel<kTeam, C>, o1_smem<C>()))
+  if (const int e = allow_smem(lane_o1_decode_kernel<C>, o1_drows<C>()))
     return e;
-  lane_o1_decode_kernel<kTeam, C>
-      <<<(L + C::kLanes - 1) / C::kLanes, o1_threads<C>(), o1_smem<C>(),
+  lane_o1_decode_kernel<C>
+      <<<(L + C::kDLanes - 1) / C::kDLanes, o1_dthreads<C>(), o1_drows<C>(),
          stream>>>(words, off, len, hi_tbl, lo_tbl, out, K, L, W, n_seg);
   return int(cudaGetLastError());
 }

@@ -26,12 +26,14 @@ segment, cumulative int32 hi [n_seg, 64, 16] and lo [n_seg, 48, 16],
 strictly increasing from 0 (``rans_cdf_r1_lane.segment_cdfs``); lane l starts from
 segment ``l * n_seg // L``.  Id 64 starts every lane at ``cdf16.init``.
 
-The kernels run a team of ``O1_TEAM`` threads a lane, ``O1R_LANES`` lanes
-a CTA (id 59) or one lane a CTA beside a dummy team (id 64, whose 4,352
-rows a lane take 139,264 B of shared memory).  A wrapper validates its
-inputs, then runs the plain version when they lie on the CPU and
-launches the kernel when they lie on a CUDA device; there is no fallback
-from one to the other.  ``launches[name]`` counts kernel launches only.
+The kernels run a team of ``O1_TEAM`` threads a lane: the models
+``O1R_LANES`` lanes a CTA (id 59) or one lane a CTA beside a dummy team
+(id 64, whose 4,352 rows a lane take 139,264 B of shared memory), the
+decodes a warp a lane, its second team a dummy (``O1_DECODE_LANES`` lanes
+a CTA).  A wrapper validates its inputs, then runs the plain version when
+they lie on the CPU and launches the kernel when they lie on a CUDA
+device; there is no fallback from one to the other.  ``launches[name]``
+counts kernel launches only.
 """
 from __future__ import annotations
 
@@ -41,10 +43,12 @@ from turborc_tpu_torch.codecs import rans_cdf_r1 as R1
 from turborc_tpu_torch.ops import rans_lane_kernel as LK
 from turborc_tpu_torch.ops.rans_kernel import _check, launch
 
-# kTeam threads a lane; O1Rank::kLanes and O1Byte::kLanes lanes a CTA
+# kTeam threads a lane; O1Rank::kLanes and O1Byte::kLanes lanes a CTA;
+# the decodes' kDLanes lanes a CTA (a warp each)
 O1_TEAM = 16
 O1R_LANES = 8
 O1_LANES = 1
+O1_DECODE_LANES = {"rans-cdf-r1": 4, "rans-cdf-o1": 1}
 
 launches = dict.fromkeys(("lane_o1r_model", "lane_o1r_decode",
                           "lane_o1_model", "lane_o1_decode"), 0)
@@ -55,16 +59,22 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def o1_launch(L: int, codec: str) -> tuple[int, int, int, int]:
+def o1_launch(L: int, codec: str,
+              decode: bool = False) -> tuple[int, int, int, int]:
     """(lanes a CTA, threads a CTA, shared-memory bytes, CTAs) of L5 / L6
     (``codec`` "rans-cdf-r1") or L7 / L8 ("rans-cdf-o1") on L lanes: the
-    source's o1_threads, o1_smem and grid."""
+    source's o1_threads and o1_smem (the models: 16 threads a lane, whole
+    warps) or, with ``decode``, o1_dthreads and o1_drows (a warp a lane,
+    its second team a dummy), and grid.  A dummy team has a scratch
+    row."""
     hi, lo, lanes = {"rans-cdf-r1": (R1.NCTX, R1.LROWS, O1R_LANES),
                      "rans-cdf-o1": (R1.BYTE_HROWS, R1.BYTE_LROWS, O1_LANES)}[codec]
+    if decode:
+        lanes = O1_DECODE_LANES[codec]
+        return lanes, lanes * 32, (hi + lo + 1) * lanes * 32, -(-L // lanes)
     threads = max(32, lanes * O1_TEAM)
     dummies = threads // O1_TEAM - lanes
-    return (lanes, threads, ((hi + lo) * lanes + dummies) * 32,
-            -(-L // lanes))
+    return lanes, threads, ((hi + lo) * lanes + dummies) * 32, -(-L // lanes)
 
 
 # ---------------------------------------------------------------------------

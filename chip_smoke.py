@@ -26,9 +26,11 @@ on the card against the CPU's (``lane-kernels-vs-plain``), the coder L2
 on edge cases of probabilities, states and slot counts and L4 on CDFs
 at their extremes (``lane-edge``), and L5-L8 (with L2 on their probs)
 at their codecs' shapes, at 14 warm-table segments over 512 lanes and on
-corrupt streams (``lane-o1-kernels-vs-plain``).  With ``--before COMMIT``,
-L6 and L8 are timed in turns against those of a ``git archive COMMIT``
-unpacked in ``_archive/COMMIT/``.  It imports no JAX
+corrupt streams, and the models L5 and L7 on runs of one byte,
+alternations, all 256 bytes in turn, K of 1, 7 and 9 and segments that do
+not divide the lanes (``lane-o1-kernels-vs-plain``).  With ``--before
+COMMIT``, L5-L8 are timed in turns against those of a ``git archive
+COMMIT`` unpacked in ``_archive/COMMIT/``.  It imports no JAX
 and nothing of ``turborc_tpu``; the corpora under
 ``turborc_tpu/bench/_data/`` are read as files.
 
@@ -66,9 +68,10 @@ BENCH_GEOM_X2 = BENCH_GEOM + "x2"
 # _archive/COMMIT/ (a git archive of COMMIT unpacked there) that hold the
 # kernels in REDESIGNED and times those against the current ones.  Their
 # C signatures there, as (pointers, ints) before the stream: those of
-# 977bf11, the same as now.  Without it the phase is skipped.
+# af5a925, the same as now.  Without it the phase is skipped.
 BEFORE_FLAG = "--before"
-BEFORE_ARGS = {"trc_lane_o1r_decode": (6, 4), "trc_lane_o1_decode": (4, 3)}
+BEFORE_ARGS = {"trc_lane_o1r_model": (4, 3), "trc_lane_o1r_decode": (6, 4),
+               "trc_lane_o1_model": (2, 2), "trc_lane_o1_decode": (4, 3)}
 ARCHIVE = ROOT / "_archive"
 CSRC_REL = "turborc_tpu_torch/ops/csrc"
 CHILD_FLAG = "--child"
@@ -108,7 +111,8 @@ REPLACES = {
     "lane_o1_decode": "turborc_tpu/codecs/rans_cdf_o1.py:63",
 }
 # Kernels timed against a parent's with --before.
-REDESIGNED = ("lane_o1r_decode", "lane_o1_decode")
+REDESIGNED = ("lane_o1r_model", "lane_o1r_decode", "lane_o1_model",
+              "lane_o1_decode")
 # Each path's kernels in stage order: model, coder, place, decode.
 KERNELS = {"o0": ("model", "coder", "place", "decode"),
            "o1": ("o1_model", "coder", "place", "o1_decode"),
@@ -798,16 +802,17 @@ def _time_path(label: str, kind: str, corpus: str, geom, dev) -> dict:
 
 
 def phase_before_after(dev, before: str | None, libs: dict) -> dict:
-    """L6 and L8 of commit ``before`` against the current ones, on one
-    4 MB block of realsrcbwt at the default CodecConfig as ids 59 and 64
-    shape it (id 59: 512 lanes, K = 8192, 16 segments; id 64: 128 lanes,
-    K = 32,768), the streams L5 / L7 and L2 write.  A warm-up, then 3
-    repetitions on distinct rotations, the two builds in turns (before
-    first on odd repetitions), CUDA events around the bare C entry of
-    each: outputs are allocated beforehand, and a new allocator segment
-    inside a span fails the phase.  Both must return the block's bytes.
-    Returns {codec: {name: {"before": ms per repetition, "after": ...}}},
-    empty without ``before``."""
+    """L5-L8 of commit ``before`` against the current ones, on one 4 MB
+    block of realsrcbwt at the default CodecConfig as ids 59 and 64 shape
+    it (id 59: 512 lanes, K = 8192, 16 segments; id 64: 128 lanes, K =
+    32,768): the models on its bytes, the decodes on the streams the
+    current L5 / L7 and L2 write.  A warm-up, then 3 repetitions on
+    distinct rotations, the two builds in turns (before first on odd
+    repetitions), CUDA events around the bare C entry of each: outputs are
+    allocated beforehand, and a new allocator segment inside a span fails
+    the phase.  Both models must write the current wrapper's probs, both
+    decodes return the block's bytes.  Returns {codec: {name: {"before":
+    ms per repetition, "after": ...}}}, empty without ``before``."""
     import ctypes
 
     import numpy as np
@@ -832,8 +837,8 @@ def phase_before_after(dev, before: str | None, libs: dict) -> dict:
         fns[name] = fn
     real = _corpus("realsrcbwt_16777216.bin")
     B = CodecConfig().block_size
-    ms = {c: {d: {"before": [], "after": []}}
-          for c, (_, _, d) in LANE_O1.items()}
+    ms = {c: {k: {"before": [], "after": []} for k in (m, d)}
+          for c, (m, _, d) in LANE_O1.items()}
 
     def timed(fn, cargs) -> float:
         cargs = [x.data_ptr() if isinstance(x, torch.Tensor) else x
@@ -857,11 +862,25 @@ def phase_before_after(dev, before: str | None, libs: dict) -> dict:
                 codec, np.roll(real, 7919 * (r + 1))[:B], dev)
             init = torch.full((cols.shape[1],), rans.ANS_LOW,
                               dtype=torch.int32, device=dev)
-            st, lens = LK.lane_coder(getattr(LO, m)(cols, *tabs), init)
+            probs = getattr(LO, m)(cols, *tabs)
+            st, lens = LK.lane_coder(probs, init)
             words = blockio.device_words(st, lens)
             offs = LK._offsets(lens)
             del st
-            for who in (("before", "after") if r % 2 else ("after", "before")):
+            order = ("before", "after") if r % 2 else ("after", "before")
+            for who in order:  # the models
+                out = torch.empty_like(probs)
+                cargs = getattr(LO, m + "_cargs")(cols, *tabs, out)
+                fn = (build.load()["trc_" + m] if who == "after"
+                      else fns[m])
+                t = timed(fn, cargs)
+                if r:
+                    ms[codec][m][who].append(t)
+                if not torch.equal(out, probs):
+                    raise AssertionError(f"{m} of {who} ({before}): not the "
+                                         "current wrapper's probs")
+                del cargs, out
+            for who in order:  # the decodes
                 out = torch.empty_like(cols)
                 cargs = getattr(LO, d + "_cargs")(words, offs, lens, K, *tabs,
                                                   out)
@@ -874,7 +893,7 @@ def phase_before_after(dev, before: str | None, libs: dict) -> dict:
                     raise AssertionError(f"{d} of {who} ({before}): not the "
                                          "block's bytes")
                 del cargs, out
-            del cols, words, offs, lens
+            del cols, probs, words, offs, lens
     log(f"{label} " + json.dumps(dict(before=before, ms=ms)))
     return ms
 
@@ -1210,6 +1229,48 @@ LANE_O1_CASES = (("rans-cdf-r1", 1 << 20, None, False),
                  ("rans-cdf-o1", 1 << 22, 256, True))
 
 
+# L5 / L7 on constructed bytes against their plain versions: (codec,
+# bytes, K, L, n_seg).  "run": each lane one byte all the way (one row);
+# "alternate": two bytes in turn (a row again two steps later); "cycle":
+# all 256 bytes in turn (no row again within 256 steps); "random" at K =
+# 1, 7 and 9 (less than a chunk of 16 steps, and across one); id 59 at 3
+# and 5 segments, which divide neither 512 nor 64 lanes, so segments
+# start inside its CTAs of 4 lanes.
+LANE_O1_MODEL_CASES = (
+    *((c, what, 512, L, n_seg)
+      for c, L, n_seg in (("rans-cdf-o1", 128, 1), ("rans-cdf-r1", 512, 3))
+      for what in ("run", "alternate", "cycle")),
+    *((c, "random", K, L, n_seg)
+      for c, L, n_seg in (("rans-cdf-o1", 128, 1), ("rans-cdf-r1", 512, 5))
+      for K in (1, 7, 9)),
+    ("rans-cdf-r1", "random", 300, 64, 5))
+
+
+def _model_case(what: str, K: int, L: int, n_seg: int, rng, dev):
+    """(cols [K, L] u8 on ``dev``, id 59's tables at n_seg segments):
+    LANE_O1_MODEL_CASES' bytes; the tables as segment_cdfs makes them,
+    cumulative rows from 0 with every freq >= 1."""
+    import numpy as np
+    import torch
+    if what == "run":
+        x = np.broadcast_to((np.arange(L) * 7 % 256).astype(np.uint8), (K, L))
+    elif what == "alternate":
+        x = rng.integers(0, 256, (2, L), dtype=np.uint8)[np.arange(K) % 2]
+    elif what == "cycle":
+        x = (np.arange(K)[:, None] + 37 * np.arange(L)) % 256
+    else:
+        x = rng.integers(0, 256, (K, L))
+
+    def rows(n):
+        cuts = np.sort(np.stack([rng.choice(np.arange(1, 1 << 15), 15, False)
+                                 for _ in range(n_seg * n)]), 1)
+        return torch.from_numpy(np.concatenate(
+            [np.zeros((n_seg * n, 1), np.int64), cuts], 1).reshape(
+                n_seg, n, 16).astype(np.int32)).to(dev)
+    cols = torch.from_numpy(np.ascontiguousarray(x, np.uint8)).to(dev)
+    return cols, (rows(64), rows(48))
+
+
 def _o1_block(codec: str, x, dev):
     """Block ``x`` at the default CodecConfig as id 59 or id 64 shapes it:
     (cols [K, L] on ``dev``, the model's tables, K): id 59's segment
@@ -1232,8 +1293,9 @@ def phase_lane_o1_kernels(dev) -> None:
     """L5-L8 and L2 on their probs against the plain versions on the
     LANE_O1_CASES blocks of realsrcbwt, exact (tolerance 0): probs,
     streams and lengths, and bytes, which must be the input; the decoders
-    also on corrupt streams.  Then each codec's payload written on the
-    card equals the CPU's, and the card decodes it."""
+    also on corrupt streams.  Then L5 / L7 on LANE_O1_MODEL_CASES, exact.
+    Then each codec's payload written on the card equals the CPU's, and
+    the card decodes it."""
     import numpy as np
     import torch
     from turborc_tpu_torch.codecs import blockio
@@ -1277,6 +1339,18 @@ def phase_lane_o1_kernels(dev) -> None:
         log(f"lane o1 kernels {codec} L={L} K={K} n_seg={segs}: equal to "
             f"plain, tolerance 0 (max abs err {err}); the decode returns "
             f"the bytes; {int(lengths.sum())} words")
+    rng = np.random.default_rng(20261018)
+    for codec, what, K, L, n_seg in LANE_O1_MODEL_CASES:
+        m = LANE_O1[codec][0]
+        cols, tabs = _model_case(what, K, L, n_seg, rng, dev)
+        tabs = tabs if codec == "rans-cdf-r1" else ()
+        err = _max_abs(getattr(LO, m)(cols, *tabs),
+                       getattr(LO, m + "_plain")(cols, *tabs))
+        if err:
+            raise AssertionError(f"{m} {what} K={K} L={L} n_seg={n_seg}: "
+                                 f"kernel differs from plain by {err}")
+        log(f"lane o1 model {m} {what} K={K} L={L} n_seg={n_seg if tabs else 0}"
+            ": equal to plain, tolerance 0 (max abs err 0)")
     for codec in LANE_O1:
         c = registry.get(codec)
         for n in (0, 5000):

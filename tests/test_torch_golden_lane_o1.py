@@ -97,7 +97,7 @@ def test_small_golden_port_writes_and_reads(case, golden):
 def test_segments_not_aligned_to_ctas(golden):
     """Exact: at three warm-table segments over 2,048 lanes (lane l from
     segment 3 l // 2048: boundaries at lanes 682.7 and 1365.3, inside
-    L5's and L6's CTAs of 8 lanes) the port's plain path writes the JAX
+    L5's and L6's CTAs of 4 lanes) the port's plain path writes the JAX
     package's payload and reads it back."""
     from turborc_tpu_torch.codecs import rans_cdf_r1 as R1
     from turborc_tpu_torch.codecs import rans_cdf_r1_lane as T59
@@ -108,7 +108,7 @@ def test_segments_not_aligned_to_ctas(golden):
     kw = dict(lanes=SEGMENTS["lanes"], step_quant=SEGMENTS["step_quant"],
               device="cpu")
     assert R1.n_segments(data.size, SEGMENTS["lanes"]) == 3
-    assert LO.O1R_LANES * 85 < 682 < LO.O1R_LANES * 86  # inside CTA 85
+    assert LO.O1R_LANES * 170 < 682.7 < LO.O1R_LANES * 171  # CTA 170
     payload = T59.encode_block(data, **kw)
     assert len(payload) == case["length"]
     assert hashlib.sha256(payload).hexdigest() == case["sha256"]

@@ -160,10 +160,10 @@ def test_o1_launch_matches_source():
     src = (Path(LO.__file__).parent / "csrc"
            / "rans_lane_kernel.cu").read_text()
     assert "constexpr int kTeam = 16;" in src and LO.O1_TEAM == 16
-    assert "kHiRows = 64, kLoRows = 48, kLanes = 8;" in src
+    assert "kHiRows = 64, kLoRows = 48, kLanes = 4;" in src
     assert "kHiRows = 256, kLoRows = 4096, kLanes = 1;" in src
-    assert LO.o1_launch(512, "rans-cdf-r1") == (8, 128, 28_672, 64)
-    assert LO.o1_launch(128, "rans-cdf-o1") == (1, 32, 139_296, 128)
+    assert LO.o1_launch(512, "rans-cdf-r1") == (4, 128, 16_384, 128)
+    assert LO.o1_launch(128, "rans-cdf-o1") == (1, 32, 174_848, 128)
     assert LO.o1_launch(4, "rans-cdf-r1")[3] == 1
 
 

@@ -26,13 +26,18 @@ a 4 MB realsrcbwt block at id 59's or id 64's shape: the split, ptxas,
 SASS, the variants and ablations of ``LANE_O1_STAMPS``
 (``probe_lane_o1``); ``--src`` may also be the ``csrc`` of 977bf11, whose
 first design it tells apart (run a copy of the probe from that tree: the
-probe makes its inputs with the tree it runs from).
+probe makes its inputs with the tree it runs from).  With ``--kernel
+lane_o1r_model`` or ``--kernel lane_o1_model``, L5 or L7 on the same
+blocks: the split, ptxas, SASS, the variants (held byte for byte) and
+ablations of ``LANE_O1M_STAMPS`` (``probe_lane_o1_model``); ``--src`` may
+also be the ``csrc`` of af5a925, whose first design it tells apart.
 
     python3 tools/decode_probe.py [--src DIR] [--ablate no-rejoin,...]
         [--label NAME] [--out FILE]
         [--kernel decode|model|o1_decode|coder|o1_model|tree_decode|
                   tree_model|lane_model|lane_decode|lane_coder|
-                  lane_static_decode|lane_o1r_decode|lane_o1_decode]
+                  lane_static_decode|lane_o1r_decode|lane_o1_decode|
+                  lane_o1r_model|lane_o1_model]
 
 ``--src`` is a ``csrc`` directory: the port's own (the default), or that
 of commit ff11eb3 (a ``git archive ff11eb3`` unpacked into a git-ignored
@@ -1175,6 +1180,12 @@ LANE_SPLIT = {
                             codec="rans-cdf-r1", probe="o1"),
     "lane_o1_decode": dict(entry="trc_lane_o1_decode", codec="rans-cdf-o1",
                            probe="o1"),
+    # L5 and L7, the model template over the same contexts:
+    # ``probe_lane_o1_model``
+    "lane_o1r_model": dict(entry="trc_lane_o1r_model", codec="rans-cdf-r1",
+                           probe="o1m"),
+    "lane_o1_model": dict(entry="trc_lane_o1_model", codec="rans-cdf-o1",
+                          probe="o1m"),
 }
 
 
@@ -1532,14 +1543,14 @@ def _lane_o1_inputs(codec: str, dev, rot: int):
             ), cols, K
 
 
-def _lane_o1_ptxas(report: str) -> dict:
-    """Registers, stack, spills and smem of lane_o1_decode_kernel's
-    instantiations, by context."""
+def _lane_o1_ptxas(report: str, kernel: str = "lane_o1_decode") -> dict:
+    """Registers, stack, spills and smem of ``kernel``_kernel's
+    instantiations (lane_o1_decode or lane_o1_model), by context."""
     res, key = {}, None
     for line in report.splitlines():
         if "Compiling entry function" in line \
                 or "Function properties for" in line:
-            m = re.search(r"lane_o1_decode_kernel\w*?(O1Rank|O1Byte)", line)
+            m = re.search(kernel + r"_kernel\w*?(O1Rank|O1Byte)", line)
             key = m.group(1) if m else None
             if key:
                 res.setdefault(key, {})
@@ -1620,6 +1631,227 @@ def probe_lane_o1(opt, dev, res: dict, work: Path) -> dict:
     total = sum(split)
     res.update(
         codec=spec["codec"], K=K,
+        split={"thread": "team thread 0 of lane 0, CTA 0",
+               "cycles_total": total, "cycles_per_byte": total / K,
+               "segments": [{"segment": segs[i], "cycles": c,
+                             "per_byte": c / K, "share": c / total}
+                            for i, c in enumerate(split)]},
+        ms=times, mean_ms={k: sum(v) / len(v) for k, v in times.items()})
+    return res
+
+
+# L5 (``--kernel lane_o1r_model``, id 59) and L7 (``--kernel
+# lane_o1_model``, id 64): the template lane_o1_model_kernel of
+# rans_lane_kernel.cu over O1Rank and O1Byte, on one 4 MB block of
+# realsrcbwt at the default CodecConfig as the codecs shape it (id 59: 512
+# lanes, K = 8192, 16 segments; id 64: 128 lanes, K = 32,768).  Two
+# layouts, told apart by the source: "first" (af5a925's design: L1's team,
+# both rows of a byte read after the last byte's stores, the lookup by
+# shuffles and the update masked by its low; id 59 8 lanes a CTA, id 64
+# one lane beside a dummy team) and "chain" (the port's: a warp a lane,
+# its hi and lo chains on two teams, the mask by index, rows read
+# kO1Ahead steps ahead and forwarded where they repeat).  Stamps and
+# segments as for L6 / L8 (thread 0 of CTA 0: hi team thread 0 of lane
+# 0); ``variants`` are held byte for byte against the base build, and the
+# base against the port's model; ablations are timed only.
+LANE_O1M_LAYOUT = {
+    "first": "team_lookup<T>(hrow, hs, low_h, fr_h);",
+    "chain": "const int cn = c + (((j > int(p & 15) ? hi_t : lo_t) - c) >> "
+             "kO1Rate);"}
+LANE_O1M_STAMPS = {
+    "first": dict(
+        stamps=[("    sym_next = __shfl_sync(kFull, cur, (t + 1) & (T - 1), "
+                 "T);", 1, 0, "sym_next"),
+                ("    uint16_t* lp = r.base + (C::kHiRows + "
+                 "C::lo_row(prev, hs)) * r.stride;", 1, 1, "int(lp - hp)"),
+                ("    ld_part<E>(lp, lrow);", 1, 2, "hrow[0] + lrow[0]"),
+                ("    team_lookup<T>(lrow, ls, low_l, fr_l);", 1, 3,
+                 "low_h + fr_h + low_l + fr_l"),
+                ("    team_update<T>(lrow, low_l, kO1Rate, j);", 1, 4,
+                 "hrow[0] + lrow[0]"),
+                ("    st_part<E>(lp, lrow);", 1, 5, "0"),
+                ("    slot_l = take ? (low_l << 16) | fr_l : slot_l;", 1, 6,
+                 "slot_h + slot_l")],
+        segments=["probs stores (every T steps), byte staging",
+                  "row addresses", "row loads (charged their latency)",
+                  "lookups (four shuffles)", "updates (masked by low)",
+                  "row stores", "prev, slots kept"],
+        variants={},
+        ablations={
+            "no-lookup": [("    team_lookup<T>(hrow, hs, low_h, fr_h);\n"
+                           "    team_lookup<T>(lrow, ls, low_l, fr_l);\n",
+                           "    low_h = hrow[0];\n    fr_h = hs + 1;\n"
+                           "    low_l = lrow[0];\n    fr_l = ls + 1;\n")],
+            "no-update": [("    team_update<T>(hrow, low_h, kO1Rate, j);\n"
+                           "    team_update<T>(lrow, low_l, kO1Rate, j);\n",
+                           "")],
+            "no-store": [("    st_part<E>(hp, hrow);\n"
+                          "    st_part<E>(lp, lrow);\n", "")]}),
+    "chain": dict(
+        loop_head="for (int t0 = 0; t0 < K; t0 += kTeam) {",
+        stamps=[("        c = (p >> (kPlanFwd + k - 1)) & 1 ? fw[k - 1] : c;",
+                 1, 0, "c"),
+                ("      const int cn = c + (((j > int(p & 15) ? hi_t : lo_t) "
+                 "- c) >> kO1Rate);", 1, 1, "cn"),
+                ("      row(p) = uint16_t(cn);", 1, 2, "0"),
+                ("      const int nx = __shfl_sync(kFull, j ? c : kTotal, p >> "
+                 "kPlanNext, kTeam);", 1, 3, "low + nx"),
+                ("      fw[0] = cn;", 1, 4, "slot"),
+                ("      ld[D - 1] = row(pl[D - 1]);", 1, 5, "pl[D - 1]"),
+                ("    if (real && t0 + j < K) out[size_t(2) * (t0 + j) * L] = "
+                 "slot;", 1, 6, "0"),
+                ("    b_far = b_new;", 1, 7, "p_nxt")],
+        segments=["plan bits, forward select (waits on the row read "
+                  "kO1Ahead steps before)",
+                  "update (mask by index)", "row store",
+                  "lookup (two shuffles)", "slot kept, forward shift",
+                  "plan of step t + kO1Ahead (a shuffle), its row read",
+                  "probs stores (every 16 steps)",
+                  "plan of the chunk after next, bytes (every 16 steps)"],
+        # held byte for byte: the levers off or moved
+        variants={
+            "ahead-1": [("constexpr int kO1Ahead = 3;",
+                         "constexpr int kO1Ahead = 1;")],
+            "ahead-2": [("constexpr int kO1Ahead = 3;",
+                         "constexpr int kO1Ahead = 2;")],
+            "ahead-4": [("constexpr int kO1Ahead = 3;",
+                         "constexpr int kO1Ahead = 4;")],
+            # the mask by value: the lookup's low back on the chain
+            "by-value": [("const int cn = c + (((j > int(p & 15) ? hi_t : "
+                          "lo_t) - c) >> kO1Rate);", "const int cn = c + "
+                          "(((c > __shfl_sync(kFull, c, p, kTeam) ? hi_t : "
+                          "lo_t) - c) >> kO1Rate);")],
+            # the rows one after another, hi rows first (no bank groups)
+            "one-group": [("  return 4 * (r / C::kHiGroups) + r % "
+                           "C::kHiGroups;", "  return r;"),
+                          ("  return 4 * (q / (4 - C::kHiGroups)) + "
+                           "C::kHiGroups + q % (4 - C::kHiGroups);",
+                           "  return C::kHiRows + q;")],
+            # K9's lever: the two chains on two warps, each team beside a
+            # dummy that stores nothing
+            "two-warps": [("  const int n = threadIdx.x >> 5, g = "
+                           "(threadIdx.x >> 4) & 1;",
+                           "  const int n = threadIdx.x >> 6, g = "
+                           "(threadIdx.x >> 5) & 1;\n  const bool dummy = "
+                           "(threadIdx.x >> 4) & 1;"),
+                          ("      row(p) = uint16_t(cn);",
+                           "      if (!dummy) row(p) = uint16_t(cn);"),
+                          ("    if (real && t0 + j < K) out[",
+                           "    if (real && !dummy && t0 + j < K) out["),
+                          ("  return C::kLanes * 32;",
+                           "  return C::kLanes * 64;")],
+            "rank-lanes-2": [("kHiRows = 64, kLoRows = 48, kLanes = 4;",
+                              "kHiRows = 64, kLoRows = 48, kLanes = 2;")],
+            "rank-lanes-8": [("kHiRows = 64, kLoRows = 48, kLanes = 4;",
+                              "kHiRows = 64, kLoRows = 48, kLanes = 8;")]},
+        ablations={
+            "no-lookup": [("      const int low = __shfl_sync(kFull, c, p, "
+                           "kTeam);\n      const int nx = __shfl_sync(kFull, "
+                           "j ? c : kTotal, p >> kPlanNext, kTeam);",
+                           "      const int low = c;\n      const int nx = "
+                           "c + int(p & 15);")],
+            "no-update": [("const int cn = c + (((j > int(p & 15) ? hi_t : "
+                           "lo_t) - c) >> kO1Rate);", "const int cn = c;")],
+            "no-store": [("      row(p) = uint16_t(cn);\n", "")]}),
+}
+
+
+def _lane_o1_model_inputs(codec: str, dev, rot: int):
+    """(C arguments maker, the port's probs, K) of one realsrcbwt block as
+    ``codec`` shapes it: make(out) -> the model's C arguments."""
+    from turborc_tpu_torch.codecs import blockio
+    from turborc_tpu_torch.codecs import rans_cdf_o1 as O1
+    from turborc_tpu_torch.codecs import rans_cdf_r1_lane as R59
+    from turborc_tpu_torch.ops import rans_lane_o1_kernel as LO
+    from turborc_tpu_torch.utils.config import CodecConfig
+    cfg = CodecConfig()
+    x = np.roll(np.fromfile(O1_CORPUS, np.uint8), rot)[:cfg.block_size]
+    if codec == "rans-cdf-r1":
+        a = R59.encode_args(x, cfg.lanes, cfg.step_quant, dev)
+        cols, tabs = a.cols, (a.hi_tbl, a.lo_tbl)
+        return (lambda out: LO.lane_o1r_model_cargs(cols, *tabs, out)), \
+            LO.lane_o1r_model(cols, *tabs), cols.shape[0]
+    block, _ = blockio.shape_block(x, min(cfg.lanes, O1.LANE_CAP),
+                                   cfg.step_quant)
+    cols = torch.from_numpy(block).to(dev).T.contiguous()
+    return (lambda out: LO.lane_o1_model_cargs(cols, out)), \
+        LO.lane_o1_model(cols), cols.shape[0]
+
+
+def probe_lane_o1_model(opt, dev, res: dict, work: Path) -> dict:
+    """L5 or L7 (``LANE_SPLIT[opt.kernel]``) of the source in ``--src``:
+    ptxas of both contexts, SASS, the clock64() split of the byte step,
+    and the bare C entry timed (a warm-up, then 3 repetitions on distinct
+    rotations of the block) for the base, the stamped build, the layout's
+    variants and the named ablations.  The stamped build and the variants
+    are held byte for byte against the base; ``equal_to_port`` says
+    whether the base gave the port's probs (another source's model
+    against this tree's)."""
+    spec = LANE_SPLIT[opt.kernel]
+    src = Path(opt.src).resolve()
+    base = (src / "rans_lane_kernel.cu").read_text()
+    header = (src / "rans_common.cuh").read_text()
+    layout = next(k for k, v in LANE_O1M_LAYOUT.items() if v in base)
+    res["layout"] = layout
+    plan = LANE_O1M_STAMPS[layout]
+    variants = {"base": base,
+                "stamped": stamped(base, "lane_o1_model_kernel(",
+                                   plan["stamps"], loop_head=plan.get(
+                                       "loop_head",
+                                       "for (int t = 0; t < K; ++t) {"))}
+    for name, changes in plan["variants"].items():
+        if name.startswith("rank-") and spec["codec"] != "rans-cdf-r1":
+            continue
+        variants[name] = _ablate(name, base, header, LANE_O1_SECTION,
+                                 changes)
+    for name in [x for x in opt.ablate.split(",") if x]:
+        variants[name] = _ablate(name, base, header, LANE_O1_SECTION,
+                                 plan["ablations"][name])
+    exact = ("stamped", *plan["variants"])  # held against the base
+    libs, reports, res["nvcc_s"] = _build_all(variants, src, work,
+                                              "rans_lane_kernel.cu")
+    res["ptxas"] = {k: _lane_o1_ptxas(v, "lane_o1_model")
+                    for k, v in reports.items()}
+    res["sass"] = _sass(libs["base"], "lane_o1_model")
+    # the port's kernels run first (they make the inputs), and the builds
+    # load after them
+    _lane_o1_model_inputs(spec["codec"], dev, 0)
+    types = build.SIGNATURES["rans_lane_kernel.cu"][spec["entry"]]
+    fns, loaded = {}, {}
+    for k, lib in libs.items():
+        loaded[k] = ctypes.CDLL(str(lib))
+        fns[k] = getattr(loaded[k], spec["entry"])
+        fns[k].argtypes, fns[k].restype = types, ctypes.c_int
+    segs = plan["segments"]
+    times = {k: [] for k in variants}
+    split, K, same = None, 0, True
+    for r in range(4):  # rep 0 is the warm-up
+        make, port, K = _lane_o1_model_inputs(spec["codec"], dev,
+                                              7919 * (r + 1))
+        ref = None
+        for k, fn in fns.items():
+            print(f"probe {spec['codec']} model rep {r}: {k}",
+                  file=sys.stderr, flush=True)
+            out = torch.empty_like(port)
+            ms = _bare(fn, make(out))
+            if k == "base":
+                ref = out
+                same = same and torch.equal(out, port)
+            elif k in exact and not torch.equal(out, ref):
+                raise AssertionError(f"{k} differs from the base's probs "
+                                     f"at {spec['codec']}")
+            if r:
+                times[k].append(ms)
+            if k == "stamped":
+                acc = (ctypes.c_ulonglong * 32)()
+                loaded[k].trc_split_read(ctypes.cast(acc, ctypes.c_void_p))
+                split = [int(x) for x in acc[:len(segs)]]
+            if k != "base":
+                del out
+        del make, port, ref
+    total = sum(split)
+    res.update(
+        codec=spec["codec"], K=K, equal_to_port=same,
         split={"thread": "team thread 0 of lane 0, CTA 0",
                "cycles_total": total, "cycles_per_byte": total / K,
                "segments": [{"segment": segs[i], "cycles": c,
@@ -1980,8 +2212,9 @@ def main() -> int:
                else Geom().spec}
         probe = {"model": probe_model, "coder": probe_coder,
                  **dict.fromkeys(SPLIT_KERNELS, probe_split),
-                 **{k: probe_lane_o1 if v.get("probe") == "o1"
-                    else probe_lane for k, v in LANE_SPLIT.items()},
+                 **{k: {"o1": probe_lane_o1, "o1m": probe_lane_o1_model}.get(
+                     v.get("probe"), probe_lane)
+                    for k, v in LANE_SPLIT.items()},
                  **dict.fromkeys(IO_KERNELS, probe_io)}[opt.kernel]
         res = probe(opt, dev, res, work)
         text = json.dumps(res, indent=1)

@@ -1008,24 +1008,24 @@ lane_static_decode_kernel(const uint16_t* __restrict__ words,
 //           lanes need not fill whole CTAs)
 //   O1Byte  id 64: 256 hi rows prev and 4,096 lo rows prev 16 + hi,
 //           started from cdf16.init
-// L1's team of T = kTeam threads a lane, one entry a thread, with every
-// row of the lane in shared memory as u16 (entries stay in [0, 2^15), see
-// cdf_update): id 59's 112 rows are 3,584 B a lane, C::kLanes = 8 lanes a
-// CTA of 128 threads; id 64's 4,352 rows are 139,264 B, so a CTA holds one
-// lane and, to keep its warp whole for the team's shuffles and ballots,
-// a team on dummy data whose every row is a 16-entry scratch row of its
-// own (stride 0).  Row r of lane n lies at (r N + n) 16, N lanes a CTA
-// (C::kLanes in the models, C::kDLanes in the decodes, which run a warp a
-// lane beside a dummy team), the hi rows first.  A step reads the lane's
-// hi and lo rows and writes each back after its update; a thread touches
-// only its own entries, so a step needs no barrier.  The bytes and probs
-// (L5, L7) move as in L1; the decodes' stream words as in L3, held a
-// chunk deeper (O1Words).
+// A team of kTeam threads, one entry a thread, with every row of a lane
+// in shared memory as u16 (entries stay in [0, 2^15), see cdf_update): id
+// 59's 112 rows are 3,584 B a lane, id 64's 4,352 rows 139,264 B.  The
+// models (L5, L7) run a warp a lane, its hi chain on one team and its lo
+// chain on the other, the rows in groups of 4 by bank (o1m_hi_slot,
+// o1m_lo_slot): C::kLanes lanes a CTA (id 59 4, id 64 1).  The decodes
+// (L6, L8) run a warp a lane beside a dummy team whose every row is a
+// 16-entry scratch row of its own (stride 0): row r of lane n at (r N + n)
+// 16, N = C::kDLanes lanes a CTA, the hi rows first.  A thread touches
+// only its own entries, so a step needs no barrier.  The models' bytes
+// and probs move a chunk of 16 steps at a time, as in L1; the decodes'
+// stream words as in L3, held a chunk deeper (O1Words).
 constexpr int kO1Rate = 7;  // cdf16.CDFRATE: ids 59 and 64 take no rate
 
 struct O1Rank {
-  static constexpr int kHiRows = 64, kLoRows = 48, kLanes = 8;
+  static constexpr int kHiRows = 64, kLoRows = 48, kLanes = 4;
   static constexpr int kDLanes = 4;  // the decode's lanes a CTA, a warp each
+  static constexpr int kHiGroups = 2;  // the model's hi slots a bank group
   static constexpr bool kWarm = true;  // warm tables per segment
   static constexpr int kLin = kHiRows - 8;  // exact ranks below it
   // ranks < kLin exact, log2 buckets above
@@ -1043,27 +1043,11 @@ struct O1Rank {
 struct O1Byte {
   static constexpr int kHiRows = 256, kLoRows = 4096, kLanes = 1;
   static constexpr int kDLanes = 1;
+  static constexpr int kHiGroups = 1;
   static constexpr bool kWarm = false;  // cdf16.init
   __device__ static int hi_row(int prev) { return prev; }
   __device__ static int lo_row(int prev, int hs) { return prev * 16 + hs; }
 };
-
-// Threads of a CTA (whole warps), its dummy teams and its shared memory:
-// the lanes' rows, then a scratch row a dummy team.
-template <class C>
-__host__ __device__ constexpr int o1_threads() {
-  return C::kLanes * kTeam > 32 ? C::kLanes * kTeam : 32;
-}
-template <class C>
-__host__ __device__ constexpr int o1_dummies() {
-  return o1_threads<C>() / kTeam - C::kLanes;
-}
-template <class C>
-__host__ __device__ constexpr int o1_smem() {
-  return ((C::kHiRows + C::kLoRows) * C::kLanes + o1_dummies<C>()) * 32;
-}
-static_assert(o1_smem<O1Byte>() <= kSmemMax, "a lane of id 64 fits a CTA");
-static_assert(o1_smem<O1Rank>() <= kSmemMax, "8 lanes of id 59 fit a CTA");
 
 // This team thread's entries of its lane's rows: row r at base + r stride.
 struct O1Rows {
@@ -1117,59 +1101,222 @@ __device__ __forceinline__ void o1_start(const int* __restrict__ hi_tbl,
 
 // ---- L5 (C = O1Rank) and L7 (O1Byte): the model over known bytes.
 // cols [K, L] u8 -> probs [2K, L] int32 (rans_cdf_r1.model_pass; the model
-// half of rans_cdf_o1.encode_device).  Both rows of a byte are read at
-// once: its hi nibble is known.
-template <int T, class C>
-__global__ void __launch_bounds__(o1_threads<C>(), 1)
+// half of rans_cdf_o1.encode_device).
+//
+// What bounds it: as in the decodes, a lane is one serial chain and there
+// are few lanes (id 64: 128 lanes of 32,768 bytes, one an SM), so the
+// kernel's time is K times the dependent chain of a step, or the
+// instructions a step issues where they are more.  BWT output is runs: on
+// realsrcbwt the busiest row of a lane holds most of its bytes, so the
+// chain to shorten is that of a row met again at once (read, update,
+// store, read).  The step keeps on it one select and the update:
+//   - Mask by index.  Every row that reaches the model is strictly
+//     increasing (id 64's from cdf16.init, id 59's from segment_cdfs, with
+//     freq >= 1; cdf_update keeps it so), so cdf_update's c_i > c_sym is
+//     i > sym: an entry updates with no value from another thread, and the
+//     lookup (two shuffles) makes only the slot, off the chain.
+//   - Two chains, two teams.  A hi row's update never reads a lo row, so a
+//     lane has a warp: team 0 walks the hi rows and writes probs rows 2t,
+//     team 1 the lo rows and rows 2t + 1 (id 59: kLanes = 4 lanes a CTA of
+//     128 threads; id 64: one lane a CTA of 32).
+//   - Rows known ahead.  The bytes are known, so is every row: a thread
+//     plans step t0 + j of a chunk of 16, two chunks ahead (its team's
+//     row, nibble and whether the row is that of one of the kO1Ahead - 1
+//     steps before: one unsigned, o1m_plan), shuffled to the team kO1Ahead
+//     steps before its step.  Step t's row is read right after step t - kO1Ahead's store;
+//     where it is the row of a step between, that step's updated entry is
+//     taken from registers instead (on a run, the last step's), so no
+//     store -> load round trip is on the chain.
+//   - A lane's rows in groups of 4 (128 B, the 32 banks): the hi rows in
+//     the first kHiGroups rows of a group, the lo rows in the rest, so the
+//     warp's two teams never meet on a bank.
+//   - Steps in unrolled chunks of 16 (no branch on data); the bytes loaded
+//     a chunk before they are planned, the probs stored a chunk at a time.
+// Measured (tools/decode_probe.py, PERF.md): about 50 cycles a step, the
+// warp issuing some 22 instructions a step at under half its rate; with
+// no lookup, no update or no store it runs no faster.  Tried and dropped:
+// rows read 1, 2 or 4 steps ahead (3 is the fastest); the rows one after
+// another, with no bank groups; the mask by value (the lookup's low back
+// on the chain); the two chains on two warps, each team beside a dummy;
+// id 59 at 2 or 8 lanes a CTA; the plan's row offset in its low bits,
+// the nibbles shifted out of it (17% more instructions).
+constexpr int kO1Ahead = 3;  // a step's row is read this many steps ahead
+// A step's plan, one unsigned: its nibble sym (bits 0-3), (sym + 1) & 15
+// (4-7), for k = 1 .. kO1Ahead - 1 whether its row is that of step t - k
+// (bit kPlanFwd + k - 1), and its row's byte offset in the lane's slots
+// (bits kPlanRow-31).  A team's shuffle reads only the low 4 bits of its
+// source index, so the plan and plan >> kPlanNext index the lookup as
+// they stand, and the offset is one shift from the address.
+constexpr int kPlanNext = 4, kPlanFwd = 8, kPlanRow = 14;
+static_assert(kO1Ahead >= 1 && kPlanFwd + kO1Ahead - 1 <= kPlanRow,
+              "the plan's forward flags fit below its offset");
+
+// A lane's row slots (32 B each): hi row r, lo row q, and the slots a lane
+// takes (whole groups of 4).
+template <class C>
+__host__ __device__ constexpr int o1m_hi_slot(int r) {
+  return 4 * (r / C::kHiGroups) + r % C::kHiGroups;
+}
+template <class C>
+__host__ __device__ constexpr int o1m_lo_slot(int q) {
+  return 4 * (q / (4 - C::kHiGroups)) + C::kHiGroups + q % (4 - C::kHiGroups);
+}
+template <class C>
+__host__ __device__ constexpr int o1m_slots() {
+  return ((o1m_hi_slot<C>(C::kHiRows - 1) > o1m_lo_slot<C>(C::kLoRows - 1)
+               ? o1m_hi_slot<C>(C::kHiRows - 1)
+               : o1m_lo_slot<C>(C::kLoRows - 1)) + 4) & ~3;
+}
+template <class C>
+__host__ __device__ constexpr int o1m_threads() {
+  return C::kLanes * 32;
+}
+template <class C>
+__host__ __device__ constexpr int o1m_smem() {
+  return C::kLanes * o1m_slots<C>() * 32;
+}
+static_assert(o1m_smem<O1Byte>() <= kSmemMax, "a lane of id 64 fits a CTA");
+static_assert(o1m_smem<O1Rank>() <= kSmemMax, "id 59's lanes fit a CTA");
+static_assert(o1m_slots<O1Byte>() * 32 <= 1 << (32 - kPlanRow),
+              "a row offset fits the plan");
+
+// The lane's start rows, team g its own (id 59: its segment's warm tables,
+// a lane past L segment 0) or, for id 64, the CTA every slot's cdf16.init
+// (entry i = i << 11); then a barrier.  `rows` is this thread's entry j of
+// its lane's slot 0.
+template <class C>
+__device__ __forceinline__ void o1m_start(const int* __restrict__ hi_tbl,
+                                          const int* __restrict__ lo_tbl,
+                                          int L, int n_seg, int l, bool real,
+                                          uint16_t* rows, int g, int j) {
+  if constexpr (C::kWarm) {
+    const int seg = real ? int((long long)l * n_seg / L) : 0;
+    const int n = g ? C::kLoRows : C::kHiRows;
+    const int* src = g ? lo_tbl + seg * C::kLoRows * 16
+                       : hi_tbl + seg * C::kHiRows * 16;
+#pragma unroll 8
+    for (int h = 0; h < n; ++h)
+      rows[(g ? o1m_lo_slot<C>(h) : o1m_hi_slot<C>(h)) * 16] =
+          uint16_t(src[h * 16 + j]);
+  } else {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    uint32_t* w = reinterpret_cast<uint32_t*>(smem_raw);
+    for (int i = threadIdx.x; i < o1m_smem<C>() / 4; i += blockDim.x) {
+      const uint32_t e = (2u * i) & 15u;  // entry of the low half
+      w[i] = e * (kTotal / 16) | (e + 1u) * (kTotal / 16) << 16;
+    }
+  }
+  __syncthreads();
+}
+
+// The plan of step t0 + j for team g (0 hi, 1 lo); `slot` gets its row's
+// slot.  `b` is this thread's byte (step t0 + j), `pb` and `ps` its byte
+// and slot of the chunk before (0 and -1 before the first).  All threads
+// of the team call it.
+template <class C>
+__device__ __forceinline__ unsigned o1m_plan(int b, int pb, int ps, int g,
+                                             int j, int& slot) {
+  const int up = __shfl_sync(kFull, b, (j - 1) & 15, kTeam);
+  const int last = __shfl_sync(kFull, pb, 15, kTeam);
+  const int prev = j ? up : last;
+  const int hs = b >> 4;
+  const int rh = o1m_hi_slot<C>(C::hi_row(prev));
+  const int rl = o1m_lo_slot<C>(C::lo_row(prev, hs));
+  const int r = g ? rl : rh;
+  const int sym = g ? (b & 15) : hs;
+  unsigned plan = unsigned(r) << (kPlanRow + 5) | sym |
+                  ((sym + 1) & 15) << kPlanNext;
+#pragma unroll
+  for (int k = 1; k < kO1Ahead; ++k) {
+    const int a = __shfl_sync(kFull, r, (j - k) & 15, kTeam);
+    const int z = __shfl_sync(kFull, ps, (j - k) & 15, kTeam);
+    plan |= (j >= k ? a : z) == r ? 1u << (kPlanFwd + k - 1) : 0u;
+  }
+  slot = r;
+  return plan;
+}
+
+template <class C>
+__global__ void __launch_bounds__(o1m_threads<C>(), 1)
 lane_o1_model_kernel(const uint8_t* __restrict__ cols,
                      const int* __restrict__ hi_tbl,
                      const int* __restrict__ lo_tbl,
                      int* __restrict__ probs, int K, int L, int n_seg) {
-  constexpr int E = 16 / T;
-  const int n = threadIdx.x / T, j = threadIdx.x % T;
+  constexpr int D = kO1Ahead, F = D > 1 ? D - 1 : 1;
+  // warp n: lane n's hi team (g = 0), then its lo team
+  const int n = threadIdx.x >> 5, g = (threadIdx.x >> 4) & 1;
+  const int j = threadIdx.x & 15;
   const int l = blockIdx.x * C::kLanes + n;
-  const bool real = n < C::kLanes && l < L;
-  const O1Rows r =
-      o1_rows<T, C, C::kLanes>(n, n >= C::kLanes, n - C::kLanes, j);
-  o1_start<T, C>(hi_tbl, lo_tbl, L, n_seg, l, real, r, j, o1_smem<C>());
-  // L1's chunks of T bytes and of their probs
-  const uint8_t* src = cols + (real ? l : 0) + size_t(j) * L;
-  int* out = probs + (real ? l : 0);
-  int cur = real && j < K ? src[0] : 0;
-  int nxt = real && T + j < K ? src[size_t(T) * L] : 0;
-  int sym_next = __shfl_sync(kFull, cur, 0, T);
-  int prev = 0, slot_h = 0, slot_l = 0;
-  for (int t = 0; t < K; ++t) {
-    const int sym = sym_next;
-    if ((t & (T - 1)) == T - 1) {
-      cur = nxt;
-      nxt = real && t + 1 + T + j < K ? src[size_t(t + 1 + T) * L] : 0;
-    }
-    sym_next = __shfl_sync(kFull, cur, (t + 1) & (T - 1), T);
-    const int hs = sym >> 4, ls = sym & 15;
-    uint16_t* hp = r.base + C::hi_row(prev) * r.stride;
-    uint16_t* lp = r.base + (C::kHiRows + C::lo_row(prev, hs)) * r.stride;
-    int hrow[E], lrow[E];
-    ld_part<E>(hp, hrow);
-    ld_part<E>(lp, lrow);
-    int low_h, fr_h, low_l, fr_l;
-    team_lookup<T>(hrow, hs, low_h, fr_h);
-    team_lookup<T>(lrow, ls, low_l, fr_l);
-    team_update<T>(hrow, low_h, kO1Rate, j);
-    team_update<T>(lrow, low_l, kO1Rate, j);
-    st_part<E>(hp, hrow);
-    st_part<E>(lp, lrow);
-    prev = sym;
-    const bool take = j == (t & (T - 1));
-    slot_h = take ? (low_h << 16) | fr_h : slot_h;
-    slot_l = take ? (low_l << 16) | fr_l : slot_l;
-    if ((t & (T - 1)) == T - 1 || t == K - 1) {
-      const int tj = (t & ~(T - 1)) + j;
-      if (real && tj <= t) {
-        out[(size_t(2) * tj) * L] = slot_h;
-        out[(size_t(2) * tj + 1) * L] = slot_l;
+  const bool real = l < L;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint16_t* rows =
+      reinterpret_cast<uint16_t*>(smem_raw) + n * o1m_slots<C>() * 16 + j;
+  o1m_start<C>(hi_tbl, lo_tbl, L, n_seg, l, real, rows, g, j);
+  // entry j of the row a plan names
+  auto row = [rows](unsigned p) -> uint16_t& {
+    return *reinterpret_cast<uint16_t*>(
+        reinterpret_cast<unsigned char*>(rows) + (p >> kPlanRow));
+  };
+  const uint8_t* src = cols + (real ? l : 0);
+  int* out = probs + (real ? l : 0) + size_t(g) * L;
+  // cdf_update's targets of entry j: j <= sym, j > sym
+  const int lo_t = j * kIC, hi_t = j * kIC + kMixd;
+  // chunk 0's and 1's plans, chunk 2's bytes
+  const int b_cur = real && j < K ? src[size_t(j) * L] : 0;
+  int b_nxt = real && kTeam + j < K ? src[size_t(kTeam + j) * L] : 0;
+  int sl_cur, sl_nxt;
+  unsigned p_cur = o1m_plan<C>(b_cur, 0, -1, g, j, sl_cur);
+  unsigned p_nxt = o1m_plan<C>(b_nxt, b_cur, sl_cur, g, j, sl_nxt);
+  int b_far =
+      real && 2 * kTeam + j < K ? src[size_t(2 * kTeam + j) * L] : 0;
+  // steps t .. t + D - 1: their plans and the rows read for them; the
+  // updated entries of steps t - 1 .. t - D + 1
+  unsigned pl[D];
+  int ld[D], fw[F];
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    pl[d] = __shfl_sync(kFull, p_cur, d, kTeam);
+    ld[d] = row(pl[d]);
+  }
+#pragma unroll
+  for (int k = 0; k < F; ++k) fw[k] = 0;
+  int slot = 0;  // the slot of step t0 + j of the chunk t0
+  for (int t0 = 0; t0 < K; t0 += kTeam) {
+    auto step = [&](int u) {
+      const unsigned p = pl[0];
+      int c = ld[0];
+#pragma unroll
+      for (int k = D - 1; k >= 1; --k)  // the latest step's entry wins
+        c = (p >> (kPlanFwd + k - 1)) & 1 ? fw[k - 1] : c;
+      const int cn = c + (((j > int(p & 15) ? hi_t : lo_t) - c) >> kO1Rate);
+      row(p) = uint16_t(cn);
+      // entries sym and sym + 1 (the plan's low bits index the team)
+      const int low = __shfl_sync(kFull, c, p, kTeam);
+      const int nx = __shfl_sync(kFull, j ? c : kTotal, p >> kPlanNext, kTeam);
+      slot = j == u ? low * 65535 + nx : slot;  // (low << 16) | (nx - low)
+#pragma unroll
+      for (int k = F - 1; k >= 1; --k) fw[k] = fw[k - 1];
+      fw[0] = cn;
+#pragma unroll
+      for (int d = 0; d + 1 < D; ++d) {
+        pl[d] = pl[d + 1];
+        ld[d] = ld[d + 1];
       }
-    }
+      // step t + D's plan and row, read after this step's store
+      pl[D - 1] = __shfl_sync(kFull, u + D < kTeam ? p_cur : p_nxt,
+                              (u + D) & (kTeam - 1), kTeam);
+      ld[D - 1] = row(pl[D - 1]);
+    };
+#pragma unroll
+    for (int u = 0; u < kTeam; ++u) step(u);
+    if (real && t0 + j < K) out[size_t(2) * (t0 + j) * L] = slot;
+    // the plan of the chunk after next, the bytes of the one after that
+    const int tf = t0 + 3 * kTeam + j;
+    const int b_new = real && tf < K ? src[size_t(tf) * L] : 0;
+    p_cur = p_nxt;
+    p_nxt = o1m_plan<C>(b_far, b_nxt, sl_nxt, g, j, sl_nxt);
+    b_nxt = b_far;
+    b_far = b_new;
   }
 }
 
@@ -1432,8 +1579,9 @@ int team_dispatch(const Span& m, F launch) {
   return launch(std::integral_constant<int, kTeam>(), std::true_type());
 }
 
-// The launches of L5-L8: C::kLanes lanes a CTA of o1_threads<C>() threads,
-// the rows in o1_smem<C>() bytes of shared memory.  id 59 takes n_seg
+// The launches of L5-L8: the models C::kLanes lanes a CTA of
+// o1m_threads<C>() threads, the rows in o1m_smem<C>() bytes of shared
+// memory; the decodes C::kDLanes lanes a CTA (o1_dthreads, o1_drows).  id 59 takes n_seg
 // warm-table segments, 1 to L; id 64 none.
 template <class C>
 bool o1_fits(int K, int L, int n_seg) {
@@ -1446,11 +1594,13 @@ template <class C>
 int o1_model_launch(const uint8_t* cols, const int* hi_tbl, const int* lo_tbl,
                     int* probs, int K, int L, int n_seg,
                     cudaStream_t stream) {
-  if (!o1_fits<C>(K, L, n_seg)) return int(cudaErrorInvalidValue);
-  if (const int e = allow_smem(lane_o1_model_kernel<kTeam, C>, o1_smem<C>()))
+  // the byte loads past the last chunk index up to K + 3 kTeam
+  if (!o1_fits<C>(K, L, n_seg) || K > INT_MAX - 4 * kTeam)
+    return int(cudaErrorInvalidValue);
+  if (const int e = allow_smem(lane_o1_model_kernel<C>, o1m_smem<C>()))
     return e;
-  lane_o1_model_kernel<kTeam, C>
-      <<<(L + C::kLanes - 1) / C::kLanes, o1_threads<C>(), o1_smem<C>(),
+  lane_o1_model_kernel<C>
+      <<<(L + C::kLanes - 1) / C::kLanes, o1m_threads<C>(), o1m_smem<C>(),
          stream>>>(cols, hi_tbl, lo_tbl, probs, K, L, n_seg);
   return int(cudaGetLastError());
 }

@@ -26,11 +26,12 @@ segment, cumulative int32 hi [n_seg, 64, 16] and lo [n_seg, 48, 16],
 strictly increasing from 0 (``rans_cdf_r1_lane.segment_cdfs``); lane l starts from
 segment ``l * n_seg // L``.  Id 64 starts every lane at ``cdf16.init``.
 
-The kernels run a team of ``O1_TEAM`` threads a lane: the models
-``O1R_LANES`` lanes a CTA (id 59) or one lane a CTA beside a dummy team
-(id 64, whose 4,352 rows a lane take 139,264 B of shared memory), the
-decodes a warp a lane, its second team a dummy (``O1_DECODE_LANES`` lanes
-a CTA).  A wrapper validates its inputs, then runs the plain version when
+The kernels run teams of ``O1_TEAM`` threads, one entry a thread: the
+models a warp a lane, its hi chain on one team and its lo chain on the
+other (``O1R_LANES`` lanes a CTA for id 59, ``O1_LANES`` for id 64, whose
+4,352 rows a lane fill most of a CTA's shared memory), the rows in slots
+grouped by bank (``o1m_slot``); the decodes a warp a lane, its second
+team a dummy (``O1_DECODE_LANES`` lanes a CTA).  A wrapper validates its inputs, then runs the plain version when
 they lie on the CPU and launches the kernel when they lie on a CUDA
 device; there is no fallback from one to the other.  ``launches[name]``
 counts kernel launches only.
@@ -43,12 +44,16 @@ from turborc_tpu_torch.codecs import rans_cdf_r1 as R1
 from turborc_tpu_torch.ops import rans_lane_kernel as LK
 from turborc_tpu_torch.ops.rans_kernel import _check, launch
 
-# kTeam threads a lane; O1Rank::kLanes and O1Byte::kLanes lanes a CTA;
-# the decodes' kDLanes lanes a CTA (a warp each)
+# kTeam threads a team; the models' O1Rank::kLanes and O1Byte::kLanes
+# lanes a CTA (a warp each); the decodes' kDLanes lanes a CTA (a warp each)
 O1_TEAM = 16
-O1R_LANES = 8
+O1R_LANES = 4
 O1_LANES = 1
 O1_DECODE_LANES = {"rans-cdf-r1": 4, "rans-cdf-o1": 1}
+# the models' rows: a lane's 32-byte slots in groups of 4 (the 32 banks),
+# the hi rows in the first kHiGroups slots of a group, the lo rows in the
+# rest (o1m_hi_slot, o1m_lo_slot)
+O1M_HI_GROUPS = {"rans-cdf-r1": 2, "rans-cdf-o1": 1}
 
 launches = dict.fromkeys(("lane_o1r_model", "lane_o1r_decode",
                           "lane_o1_model", "lane_o1_decode"), 0)
@@ -59,22 +64,37 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
+def o1m_slot(codec: str, lo: bool, r: int) -> int:
+    """The slot of a lane's hi row ``r`` (``lo`` False) or lo row ``r`` in
+    the models' shared memory (the source's o1m_hi_slot / o1m_lo_slot)."""
+    g = O1M_HI_GROUPS[codec]
+    return 4 * (r // (4 - g)) + g + r % (4 - g) if lo else 4 * (r // g) + r % g
+
+
+def o1m_slots(codec: str) -> int:
+    """Slots a lane takes in the models (whole groups of 4)."""
+    hi, lo = _ROWS[codec]
+    return (max(o1m_slot(codec, False, hi - 1),
+                o1m_slot(codec, True, lo - 1)) + 4) & ~3
+
+
+_ROWS = {"rans-cdf-r1": (R1.NCTX, R1.LROWS),
+         "rans-cdf-o1": (R1.BYTE_HROWS, R1.BYTE_LROWS)}
+
+
 def o1_launch(L: int, codec: str,
               decode: bool = False) -> tuple[int, int, int, int]:
     """(lanes a CTA, threads a CTA, shared-memory bytes, CTAs) of L5 / L6
     (``codec`` "rans-cdf-r1") or L7 / L8 ("rans-cdf-o1") on L lanes: the
-    source's o1_threads and o1_smem (the models: 16 threads a lane, whole
-    warps) or, with ``decode``, o1_dthreads and o1_drows (a warp a lane,
-    its second team a dummy), and grid.  A dummy team has a scratch
-    row."""
-    hi, lo, lanes = {"rans-cdf-r1": (R1.NCTX, R1.LROWS, O1R_LANES),
-                     "rans-cdf-o1": (R1.BYTE_HROWS, R1.BYTE_LROWS, O1_LANES)}[codec]
+    source's o1m_threads and o1m_smem (the models: a warp a lane, its
+    slots of 32 B) or, with ``decode``, o1_dthreads and o1_drows (a warp
+    a lane, its second team a dummy on a scratch row), and grid."""
+    hi, lo = _ROWS[codec]
     if decode:
         lanes = O1_DECODE_LANES[codec]
         return lanes, lanes * 32, (hi + lo + 1) * lanes * 32, -(-L // lanes)
-    threads = max(32, lanes * O1_TEAM)
-    dummies = threads // O1_TEAM - lanes
-    return lanes, threads, ((hi + lo) * lanes + dummies) * 32, -(-L // lanes)
+    lanes = {"rans-cdf-r1": O1R_LANES, "rans-cdf-o1": O1_LANES}[codec]
+    return lanes, lanes * 32, lanes * o1m_slots(codec) * 32, -(-L // lanes)
 
 
 # ---------------------------------------------------------------------------

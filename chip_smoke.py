@@ -11,8 +11,12 @@ every ported path through the port's ``compress``/``decompress``
 flagships; the bit-tree ``rc-p`` on K9, K3, K4 and K8; the per-lane scan
 codecs ``rans-cdf-o0`` (the default) and ``rans-cdf-s8`` on L1, L2 and
 L3, ``rans-static`` on L2 and L4, the order-1 ``rans-cdf-r1`` on L5, L2
-and L6 and ``rans-cdf-o1`` on L7, L2 and L8), checks every container
-against the golden hashes the JAX package wrote, then times the kernels.  The
+and L6 and ``rans-cdf-o1`` on L7, L2 and L8; the nibble codecs ``rc4``
+on L9, L2 and L10 and ``rc4c`` on L2 and L10's static instantiation; the
+bitwise byte-tree codecs ``rc-o0``, ``rcc-o1``, ``rc-o0-ss``,
+``rcc-o1-ss``, ``rc-o0-sf`` and ``rcc-o1-sf`` on L11, L2 and L12),
+checks every container against the golden hashes the JAX package wrote,
+then times the kernels.  The
 decoders on a shared-memory ring of stream words (the o0 K1 and K5, the
 o1 K6, the bit-tree K8) are also held against their plain versions where
 the ring wraps and on corrupt streams, the placement K4 on edge cases of
@@ -28,7 +32,12 @@ at their extremes (``lane-edge``), and L5-L8 (with L2 on their probs)
 at their codecs' shapes, at 14 warm-table segments over 512 lanes and on
 corrupt streams, and the models L5 and L7 on runs of one byte,
 alternations, all 256 bytes in turn, K of 1, 7 and 9 and segments that do
-not divide the lanes (``lane-o1-kernels-vs-plain``).  With ``--before
+not divide the lanes (``lane-o1-kernels-vs-plain``), L9 and both L10s
+(``lane-nibble-kernels-vs-plain``) and L11 and L12 at every (predictor,
+order) (``lane-bit-kernels-vs-plain``) at the full shape of a default
+4 MB block, the plain versions on the host, then on runs, alternations,
+all 256 bytes in turn, K of 1 and 37, extreme CDFs and predictor rates,
+a random FSM table and corrupt streams.  With ``--before
 COMMIT``, L5-L8 are timed in turns against those of a ``git archive
 COMMIT`` unpacked in ``_archive/COMMIT/``.  It imports no JAX
 and nothing of ``turborc_tpu``; the corpora under
@@ -61,6 +70,7 @@ GOLDEN_RCP = ROOT / "turborc_tpu_torch" / "golden" / "rcp.json"
 GOLDEN_X2 = ROOT / "turborc_tpu_torch" / "golden" / "o0p_x2.json"
 GOLDEN_LANE = ROOT / "turborc_tpu_torch" / "golden" / "lane.json"
 GOLDEN_LANE_O1 = ROOT / "turborc_tpu_torch" / "golden" / "lane_o1.json"
+GOLDEN_BIT = ROOT / "turborc_tpu_torch" / "golden" / "bit.json"
 BUDGET_S = 600
 BENCH_GEOM = "g64c8s8y8l32a4r4"
 BENCH_GEOM_X2 = BENCH_GEOM + "x2"
@@ -87,7 +97,10 @@ SOURCE.update({k: CSRC + "rans_lane_kernel.cu"
                for k in ("lane_model", "lane_coder", "lane_decode",
                          "lane_static_decode", "lane_o1r_model",
                          "lane_o1r_decode", "lane_o1_model",
-                         "lane_o1_decode")})
+                         "lane_o1_decode", "lane_nibble_model",
+                         "lane_nibble_decode", "lane_nibble_static_decode")})
+SOURCE.update({k: CSRC + "rans_bit_kernel.cu"
+               for k in ("lane_bit_model", "lane_bit_decode")})
 REPLACES = {
     "model": "turborc_tpu/ops/pallas/rans_kernel.py:807",
     "coder": "turborc_tpu/ops/pallas/rans_kernel.py:883",
@@ -109,6 +122,13 @@ REPLACES = {
     "lane_o1r_decode": "turborc_tpu/codecs/rans_cdf_r1.py:144",
     "lane_o1_model": "turborc_tpu/codecs/rans_cdf_o1.py:38",
     "lane_o1_decode": "turborc_tpu/codecs/rans_cdf_o1.py:63",
+    # those of ids 41 and 40
+    "lane_nibble_model": "turborc_tpu/codecs/rans_nibble.py:38",
+    "lane_nibble_decode": "turborc_tpu/codecs/rans_nibble.py:52",
+    "lane_nibble_static_decode": "turborc_tpu/codecs/rans_nibble.py:80",
+    # and those of ids 1, 2, 101-104
+    "lane_bit_model": "turborc_tpu/codecs/rc_bit.py:71",
+    "lane_bit_decode": "turborc_tpu/codecs/rc_bit.py:100",
 }
 # Kernels timed against a parent's with --before.
 REDESIGNED = ("lane_o1r_model", "lane_o1r_decode", "lane_o1_model",
@@ -126,6 +146,14 @@ LANE = {"rans-cdf-o0": ("lane_model", "lane_coder", "lane_decode"),
 # decode.
 LANE_O1 = {"rans-cdf-r1": ("lane_o1r_model", "lane_coder", "lane_o1r_decode"),
            "rans-cdf-o1": ("lane_o1_model", "lane_coder", "lane_o1_decode")}
+# The lane kernels of the nibble codecs rc4 (id 41) and rc4c (id 40).
+NIBBLE = {"rc4": ("lane_nibble_model", "lane_coder", "lane_nibble_decode"),
+          "rc4c": ("lane_coder", "lane_nibble_static_decode")}
+# The bitwise byte-tree codecs, (order, predictor) each; every one runs
+# L11, L2 and L12 (BIT_KERNELS).
+BIT = {"rc-o0": (0, "s"), "rcc-o1": (1, "s"), "rc-o0-ss": (0, "ss"),
+       "rcc-o1-ss": (1, "ss"), "rc-o0-sf": (0, "sf"), "rcc-o1-sf": (1, "sf")}
+BIT_KERNELS = ("lane_bit_model", "lane_coder", "lane_bit_decode")
 # H100 SXM peaks: HBM3 bytes/s, and the float32 rate outside the tensor
 # cores, used for 32-bit integer ops (taking the higher of the two rates
 # keeps this a lower bound).
@@ -199,6 +227,8 @@ def phase_build(before: str | None):
             m = re.search(r"Compiling entry function '\w*?"
                           r"(lane_static_decode|lane_model|lane_coder|"
                           r"lane_decode|lane_o1_model|lane_o1_decode|"
+                          r"lane_nibble_model|lane_nibble_decode|"
+                          r"lane_bit_model|lane_bit_decode|bit_fill|"
                           r"tree_model|tree_decode|decode_x2|"
                           r"o1_model|o1_decode|place_count|model|coder|"
                           r"place|decode)"
@@ -207,6 +237,11 @@ def phase_build(before: str | None):
                 fn = m.group(1)
                 if fn.startswith("lane_o1") and "O1Rank" in line:
                     fn = fn.replace("lane_o1", "lane_o1r")  # id 59's
+                if fn == "lane_nibble_decode" and "ILb1E" in line:
+                    fn = "lane_nibble_static_decode"  # id 40's
+                t = re.search(r"Pred(SS|SF|S)ELi(\d)E", line)
+                if fn.startswith("lane_bit") and t:
+                    fn = f"{fn}<{t.group(1).lower()},{t.group(2)}>"
             elif ("Used" in line or "stack frame" in line) and fn:
                 log(f"ptxas {fn}: {line.split(':', 1)[-1].strip()}")
     libs = {}
@@ -232,7 +267,7 @@ def _max_abs(a, b) -> int:
         raise AssertionError(f"shape {tuple(a.shape)} vs {tuple(b.shape)}")
     if a.numel() == 0:
         return 0
-    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+    return int((a.to(torch.int64) - b.to(a.device, torch.int64)).abs().max())
 
 
 def _codec(kind: str):
@@ -584,11 +619,13 @@ def _golden(path: Path) -> dict:
 
 def _kernel_modules():
     from turborc_tpu_torch.ops import bittree_kernel as B
+    from turborc_tpu_torch.ops import rans_bit_kernel as BK
     from turborc_tpu_torch.ops import rans_kernel as K_
     from turborc_tpu_torch.ops import rans_lane_kernel as LK
     from turborc_tpu_torch.ops import rans_lane_o1_kernel as LO
+    from turborc_tpu_torch.ops import rans_nibble_kernel as NK
     from turborc_tpu_torch.ops import rans_o1_kernel as K1
-    return K_, K1, B, LK, LO
+    return K_, K1, B, LK, LO, NK, BK
 
 
 def _launch_counts() -> dict:
@@ -608,7 +645,7 @@ def _roundtrip(label: str, case: dict, needs: tuple, dev) -> dict:
     from turborc_tpu_torch.ops.geom import Geom
     from turborc_tpu_torch.utils.config import CodecConfig
     phase(label)
-    data = _corpus(case["file"])
+    data = _corpus(case["file"], case.get("n"))
     geom = Geom.parse(case["geom"]) if case.get("geom") else None
     cfg = CodecConfig(codec=case.get("codec", "rans-cdf-o0-p"),
                       block_size=case["block_size"], geom=geom)
@@ -643,6 +680,10 @@ def _roundtrip(label: str, case: dict, needs: tuple, dev) -> dict:
 # A CDF16 lookup (symbol -> low, freq): two picks of an entry, a select
 # (entry 16 is 2^15) and a subtraction, as the kernels' lookups do it.
 LOOKUP = 4
+# A binary decision of the bitwise codecs: the slot's load and clamp (3),
+# the bit (2), the predictor's update (5), the slot's store and the
+# (low, freq) pair (4).
+BIT_STEP = 14
 
 
 def _lane_ops(kind: str, geom, K: int, decode: bool) -> int:
@@ -1367,8 +1408,307 @@ def phase_lane_o1_kernels(dev) -> None:
                 f"CPU's ({len(card)} B), decodes on the card")
 
 
+# Small cases of the nibble and bitwise kernels on the card against their
+# plain versions on the CPU: (bytes, L, K).  "textbwt" slices of the
+# corpus, "run" one byte a lane (0x00 or 0xFF), "random" uniform bytes,
+# "alternate" two bytes in turn, "every byte" all 256 bytes in turn from
+# a lane's own start; K = 1, and 37 (not a multiple of a team's chunk of
+# 16 or of L11's unroll of 4).
+LANE_NEW_EDGE = (("textbwt", 16, 37), ("textbwt", 4, 1), ("run", 64, 32),
+                 ("random", 8, 100), ("alternate", 32, 48),
+                 ("every byte", 16, 256))
+# Predictors beyond the codecs' own on the "textbwt" case of K = 37:
+# dual-speed at rates 0 / 16 and 40 / 3 (a rate of 16 or more moves
+# nothing), and an FSM of 100 random states from state 3 (probabilities
+# 0 to 2^15 - 1, clamped when read).
+BIT_EDGE_PREDS = (("ss", (0, 16)), ("ss", (40, 3)), ("sf", "random"))
+
+
+def _edge_cols(what: str, K: int, L: int, rng, text):
+    """LANE_NEW_EDGE's bytes, [K, L] uint8 (numpy)."""
+    import numpy as np
+    if what == "textbwt":
+        off = int(rng.integers(0, text.size - K * L))
+        return text[off:off + K * L].reshape(K, L).copy()
+    if what == "run":
+        return np.broadcast_to((np.arange(L) % 2 * 255).astype(np.uint8),
+                               (K, L)).copy()
+    if what == "random":
+        return rng.integers(0, 256, (K, L), dtype=np.uint8)
+    if what == "alternate":
+        return rng.integers(0, 256, (2, L), dtype=np.uint8)[np.arange(K) % 2]
+    return ((np.arange(K)[:, None] + 37 * np.arange(L)) % 256).astype(
+        np.uint8)
+
+
+def _bit_pred(name: str, rates, dev, rng=None):
+    """A bitpred predictor on ``dev``: the codecs' own at ``rates`` None,
+    else BIT_EDGE_PREDS's."""
+    import numpy as np
+    import torch
+    from turborc_tpu_torch.models import bitpred
+    if rates == "random":
+        S = 100
+        table = torch.from_numpy(np.stack([
+            rng.integers(0, 1 << 15, S), rng.integers(0, S, S),
+            rng.integers(0, S, S)]).astype(np.int32)).to(dev)
+        return bitpred.Fsm(table, start=3)
+    return bitpred.make(name, *(rates or (None, None)), device=dev)
+
+
+def host_pool():
+    """Six spawned worker processes on the host CPU for the plain versions
+    of L9-L12 at full shape (``_plain_job``, one thread each), which run
+    while the correctness phases before ``phase_lane_nibble_kernels`` run
+    on the card; the card's machine has 8 cores."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    return ProcessPoolExecutor(6, multiprocessing.get_context("spawn"))
+
+
+def _default_block(x, dev):
+    """Block ``x`` at the default CodecConfig (512 lanes, step_quant 256):
+    (cols [K, L] on ``dev``, K)."""
+    import torch
+    from turborc_tpu_torch.codecs import blockio
+    from turborc_tpu_torch.utils.config import CodecConfig
+    cfg = CodecConfig()
+    block, K = blockio.shape_block(x, cfg.lanes, cfg.step_quant)
+    return torch.from_numpy(block).to(dev).T.contiguous(), K
+
+
+def _nibble_static_probs(cols, dev):
+    """id 40's encode model on the card over ``cols`` and its cdf [17]."""
+    import torch
+    from turborc_tpu_torch.codecs import rans_nibble as N40
+    from turborc_tpu_torch.codecs import rans_static as S42
+    from turborc_tpu_torch.ops import rans_nibble_kernel as NK
+    freqs = N40.build_nibble_freqs(cols.reshape(-1).cpu().numpy())
+    cdf = torch.from_numpy(N40._cdf(freqs)).to(dev)
+    return S42.slot_probs(NK.nibbles(cols), cdf), cdf
+
+
+def _full_jobs(names_args: list) -> tuple:
+    """(jobs as numpy, the kernels' outputs on the host) of
+    ``names_args``: (plain name, kernel output(s), arguments)."""
+    import torch
+    jobs, kern = [], []
+    for name, out, args in names_args:
+        jobs.append((name, [a.cpu().numpy() if isinstance(a, torch.Tensor)
+                            else a for a in args]))
+        kern.append(tuple(o.cpu() for o in (
+            out if isinstance(out, tuple) else (out,))))
+    return jobs, kern
+
+
+def _held(label: str, jobs: list, kern: list, futures) -> tuple[dict, dict]:
+    """Hold the results of ``jobs`` (``futures`` of ``_plain_job``) against
+    ``kern``: (max abs err by job name, plain ms by job name)."""
+    import torch
+    err, ms = {}, {}
+    for (name, _), outs, fut in zip(jobs, kern, futures):
+        plain, sec = fut.result()
+        key = name if name not in err else f"{name} {len(err)}"
+        err[key] = max(_max_abs(torch.from_numpy(a), b.cpu())
+                       for a, b in zip(plain, outs))
+        ms[key] = sec * 1e3
+    if any(err.values()):
+        raise AssertionError(f"{label}: kernel differs from plain: {err}")
+    return err, ms
+
+
+def phase_lane_new_full_shape(dev, pool) -> dict:
+    """L9, both instantiations of L10, and L11 and L12 at every
+    (predictor, order) of BIT, with L2 on L9's and id 1's probs, at the
+    full shape: one 4 MB block of textbwt at the default CodecConfig (512
+    lanes, K = 8,192); the decodes must return the bytes.  Their plain
+    versions at the same shape go to the host workers of ``pool`` (the
+    decodes, the longest, first), which run them while the next phases
+    run on the card; ``phase_lane_nibble_kernels`` and
+    ``phase_lane_bit_kernels`` hold the kernels' outputs (kept on the
+    host) against them.  Returns {"nibble" | "bit": (jobs, outputs,
+    futures)}."""
+    import torch
+    from turborc_tpu_torch.codecs import blockio
+    from turborc_tpu_torch.ops import rans
+    from turborc_tpu_torch.ops import rans_bit_kernel as BK
+    from turborc_tpu_torch.ops import rans_lane_kernel as LK
+    from turborc_tpu_torch.ops import rans_nibble_kernel as NK
+    phase("lane-new-kernels-full-shape")
+    cols, K = _default_block(_corpus("textbwt_16777216.bin", 1 << 22), dev)
+    L = cols.shape[1]
+    init = torch.full((L,), rans.ANS_LOW, dtype=torch.int32, device=dev)
+    probs = NK.lane_nibble_model(cols)
+    st, ln = LK.lane_coder(probs, init)
+    words = blockio.device_words(st, ln)
+    out = NK.lane_nibble_decode(words, ln, K)
+    sprobs, cdf = _nibble_static_probs(cols, dev)
+    sst, sln = LK.lane_coder(sprobs, init)
+    swords = blockio.device_words(sst, sln)
+    sout = NK.lane_nibble_static_decode(swords, sln, K, cdf)
+    if not (torch.equal(out, cols) and torch.equal(sout, cols)):
+        raise AssertionError("L10 did not return the bytes")
+    todo = {"nibble": [
+        ("lane_nibble_decode", out, [words, ln, K]),
+        ("lane_nibble_model", probs, [cols]),
+        ("lane_nibble_static_decode", sout, [swords, sln, K, cdf]),
+        ("lane_coder", (st, ln), [probs, init])], "bit": []}
+    for codec, (order, pred) in BIT.items():
+        p = _bit_pred(pred, None, dev)
+        probs = BK.lane_bit_model(cols, order, p)
+        st, ln = LK.lane_coder(probs, init)
+        words = blockio.device_words(st, ln)
+        out = BK.lane_bit_decode(words, ln, K, order, p)
+        if not torch.equal(out, cols):
+            raise AssertionError(f"L12 {codec}: did not return the bytes")
+        todo["bit"] += [("lane_bit_model", probs, [cols, order, pred]),
+                        ("lane_bit_decode", out, [words, ln, K, order, pred])]
+        if codec == "rc-o0":
+            todo["bit"].append(("lane_coder", (st, ln), [probs, init]))
+    todo["bit"].sort(key=lambda job: job[0] != "lane_bit_decode")
+    started = {}
+    for what in ("nibble", "bit"):
+        jobs, kern = _full_jobs(todo[what])
+        started[what] = (jobs, kern, [pool.submit(_plain_job, job)
+                                      for job in jobs])
+    log(f"lane new kernels L={L} K={K} (full shape): L10 and L12 return the "
+        f"bytes; {sum(len(v[0]) for v in started.values())} plain versions "
+        "handed to the host workers")
+    return dict(started, K=K, L=L)
+
+
+def phase_lane_nibble_kernels(dev, started: dict) -> dict:
+    """L9 and both instantiations of L10 (and L2 on L9's probs) against
+    their plain versions at the full shape (``started``, from
+    ``phase_lane_new_full_shape``), exact (tolerance 0).  Then on
+    LANE_NEW_EDGE's bytes, static CDFs where one symbol holds almost all
+    and where some have frequency 0, and corrupt streams (``_corrupt``),
+    against the plain versions on the CPU, exact.  Returns the
+    full-shape errors and plain ms."""
+    import numpy as np
+    import torch
+    from turborc_tpu_torch.codecs import blockio
+    from turborc_tpu_torch.ops import rans
+    from turborc_tpu_torch.ops import rans_lane_kernel as LK
+    from turborc_tpu_torch.ops import rans_nibble_kernel as NK
+    phase("lane-nibble-kernels-vs-plain")
+    text = _corpus("textbwt_16777216.bin", 1 << 22)
+    jobs, kern, futures = started["nibble"]
+    K, L = started["K"], started["L"]
+    rng = np.random.default_rng(20261018)
+    gen = torch.Generator().manual_seed(20261018)
+    cdfs = {"symbol 0 holds all but 15": [(1 << 15) - 15] + [1] * 15,
+            "frequencies 0 between": [0, 9000, 0, 0, 7000, 1] + [0] * 9
+            + [(1 << 15) - 16001]}
+    for what, L_, K_ in LANE_NEW_EDGE:
+        x = torch.from_numpy(_edge_cols(what, K_, L_, rng, text))
+        c = x.to(dev)
+        i_ = torch.full((L_,), rans.ANS_LOW, dtype=torch.int32)
+        err = {"lane_nibble_model": _max_abs(
+            NK.lane_nibble_model(c), NK.lane_nibble_model_plain(x))}
+        st, n = LK.lane_coder(NK.lane_nibble_model_plain(x), i_)
+        w = blockio.device_words(st, n)
+        # the streams coded on the block's CDF, decoded on each table
+        sp, block_cdf = _nibble_static_probs(x, "cpu")
+        sst, sn = LK.lane_coder(sp, i_)
+        sw = blockio.device_words(sst, sn)
+        for name, f in dict(cdfs, block=None).items():
+            sc = block_cdf if f is None else torch.from_numpy(
+                np.concatenate([[0], np.cumsum(f)]).astype(np.int32))
+            for bad, (bw, bn) in {"sound": (sw, sn), **_corrupt(
+                    sw, sn, gen, "cpu")}.items():
+                err[f"lane_nibble_static_decode {name} {bad}"] = _max_abs(
+                    NK.lane_nibble_static_decode(bw.to(dev), bn.to(dev), K_,
+                                                 sc.to(dev)),
+                    NK.lane_nibble_static_decode_plain(bw, bn, K_, sc))
+        for bad, (bw, bn) in {"sound": (w, n), **_corrupt(
+                w, n, gen, "cpu")}.items():
+            err[f"lane_nibble_decode {bad}"] = _max_abs(
+                NK.lane_nibble_decode(bw.to(dev), bn.to(dev), K_),
+                NK.lane_nibble_decode_plain(bw, bn, K_))
+        if any(err.values()):
+            raise AssertionError(f"lane nibble {what} L={L_} K={K_}: kernel "
+                                 f"differs from plain: {err}")
+        log(f"lane nibble kernels {what} L={L_} K={K_}: equal to plain, "
+            f"tolerance 0 (max abs err 0 on {len(err)} comparisons: L9; "
+            "L10 adaptive and static on the block's, a one-symbol and a "
+            "zero-frequency CDF; sound and corrupt streams)")
+    full_err, plain_ms = _held("lane-nibble-kernels-vs-plain", jobs, kern,
+                               futures)
+    log(f"lane nibble kernels L={L} K={K} (full shape): equal to plain, "
+        f"tolerance 0 (max abs err {full_err}); plain ms on the host "
+        + json.dumps(plain_ms))
+    return dict(err=full_err, plain_ms=plain_ms, K=K, L=L)
+
+
+def phase_lane_bit_kernels(dev, started: dict) -> dict:
+    """L11 and L12 at every (predictor, order) of BIT, and L2 on id 1's
+    probs, against their plain versions at the full shape (``started``,
+    from ``phase_lane_new_full_shape``), exact.  Then on LANE_NEW_EDGE's
+    bytes at every (predictor, order), and on the K = 37 case also
+    BIT_EDGE_PREDS's predictors and corrupt streams (``_corrupt``),
+    against the plain versions on the CPU, exact.  Returns the full-shape
+    errors and plain ms by codec."""
+    import numpy as np
+    import torch
+    from turborc_tpu_torch.codecs import blockio
+    from turborc_tpu_torch.ops import rans
+    from turborc_tpu_torch.ops import rans_bit_kernel as BK
+    from turborc_tpu_torch.ops import rans_lane_kernel as LK
+    phase("lane-bit-kernels-vs-plain")
+    text = _corpus("textbwt_16777216.bin", 1 << 22)
+    jobs, kern, futures = started["bit"]
+    K, L = started["K"], started["L"]
+    rng = np.random.default_rng(20261019)
+    gen = torch.Generator().manual_seed(20261019)
+    for what, L_, K_ in LANE_NEW_EDGE:
+        x = torch.from_numpy(_edge_cols(what, K_, L_, rng, text))
+        i_ = torch.full((L_,), rans.ANS_LOW, dtype=torch.int32)
+        preds = [(n, None) for n in ("s", "ss", "sf")]
+        if K_ == 37:
+            preds += list(BIT_EDGE_PREDS)
+        err = {}
+        for order in (0, 1):
+            for name, rates in preds:
+                pc = _bit_pred(name, rates, "cpu",
+                               np.random.default_rng(len(err)))
+                pd = _bit_pred(name, rates, dev,
+                               np.random.default_rng(len(err)))
+                tag = f"{name}{rates or ''} o{order}"
+                probs = BK.lane_bit_model_plain(x, order, pc)
+                err[f"L11 {tag}"] = _max_abs(
+                    BK.lane_bit_model(x.to(dev), order, pd), probs)
+                st, n = LK.lane_coder(probs, i_)
+                w = blockio.device_words(st, n)
+                streams = {"sound": (w, n)}
+                if K_ == 37:
+                    streams.update(_corrupt(w, n, gen, "cpu"))
+                for bad, (bw, bn) in streams.items():
+                    err[f"L12 {tag} {bad}"] = _max_abs(
+                        BK.lane_bit_decode(bw.to(dev), bn.to(dev), K_, order,
+                                           pd),
+                        BK.lane_bit_decode_plain(bw, bn, K_, order, pc))
+        if any(err.values()):
+            raise AssertionError(f"lane bit {what} L={L_} K={K_}: kernel "
+                                 f"differs from plain: {err}")
+        log(f"lane bit kernels {what} L={L_} K={K_}: equal to plain, "
+            f"tolerance 0 (max abs err 0 on {len(err)} comparisons: "
+            + ", ".join(err) + ")")
+    full_err, ms = _held("lane-bit-kernels-vs-plain", jobs, kern, futures)
+    plain_ms, errs = {}, {}
+    for (name, args), key in zip(jobs, ms):
+        codec = "rc-o0" if name == "lane_coder" else next(
+            c for c, v in BIT.items() if v == (args[-2], args[-1]))
+        plain_ms.setdefault(codec, {})[name] = ms[key]
+        errs.setdefault(codec, {})[name] = full_err[key]
+    log(f"lane bit kernels L={L} K={K} (full shape), every (predictor, "
+        f"order): equal to plain, tolerance 0 (max abs err {errs}); plain "
+        "ms on the host " + json.dumps(plain_ms))
+    return dict(plain_ms=plain_ms, err=errs, K=K, L=L)
+
+
 def _lane_bound_ms(name: str, L: int, K: int, geom, n_seg: int,
-                   words: int) -> tuple[float, str]:
+                   words: int, fsm_states: int = 0) -> tuple[float, str]:
     """``_bound_ms``'s rule for the lane kernels on L lanes and K bytes a
     lane: bytes each input read once and each output written once (the
     decoders read only the ``words`` u16 words the streams hold, and a
@@ -1378,7 +1718,13 @@ def _lane_bound_ms(name: str, L: int, K: int, geom, n_seg: int,
     3 ops an entry): the work of the function, whatever number of CTAs
     build their own copies.  L5-L8 (ids 59 and 64) also write each lane's
     start rows, an op an entry (112 rows a lane for id 59, read from
-    its ``n_seg`` segment tables; 4,352 for id 64, from cdf16.init)."""
+    its ``n_seg`` segment tables; 4,352 for id 64, from cdf16.init).  L9
+    and L10 (ids 41, 40) do a lookup, an update (adaptive) and, decoding,
+    a search, a state step and a fetch a nibble; L11 and L12 (ids 1, 2,
+    101-104) ``BIT_STEP`` ops a binary decision, 8 a byte, and decoding a
+    state step and a fetch each, and read an FSM table of
+    ``fsm_states`` states (3 ints each) once; the order-1 tables are
+    working state, as L5-L8's rows are."""
     S = 2 * K if name != "lane_static_decode" else K
     tables = n_seg * (16 + 256) * 4
     streams = words * 2 + L * (8 + 4)
@@ -1390,6 +1736,18 @@ def _lane_bound_ms(name: str, L: int, K: int, geom, n_seg: int,
         nbytes = ((streams if decode else 2 * K * L * 4) + K * L
                   + segs * rows * 16 * 4)
         ops = L * (_lane_ops(kind, geom, K, decode) + rows * 16)
+    elif name == "lane_nibble_model":
+        nbytes = K * L + 2 * K * L * 4
+        ops = L * K * 2 * (LOOKUP + 80)
+    elif name.startswith("lane_nibble_"):
+        static = name == "lane_nibble_static_decode"
+        nbytes = streams + K * L + (17 * 4 if static else 0)
+        ops = L * K * 2 * (LOOKUP + 30 + 6 + 6 + (0 if static else 80))
+    elif name.startswith("lane_bit_"):
+        model = name == "lane_bit_model"
+        nbytes = (K * L + 8 * K * L * 4 if model else streams + K * L) \
+            + fsm_states * 3 * 4
+        ops = L * K * 8 * (BIT_STEP + (0 if model else 6 + 6))
     elif name == "lane_model":
         nbytes = K * L + 2 * K * L * 4 + tables
         ops = L * _lane_ops("o0", geom, K, False)
@@ -1446,7 +1804,7 @@ def _events_ms(fn, *args):
     return out, start.elapsed_time(end), _segments() - seg
 
 
-def phase_lane_timing(dev) -> dict:
+def phase_lane_timing(dev, nib: dict, bit: dict) -> dict:
     """The lane kernels on one 4 MB block of textbwt at the default
     CodecConfig (512 lanes, K = 8192; id 58 at its default geometry,
     share 8, 64 segments): per kernel a warm-up, then 3 timed calls on
@@ -1455,7 +1813,9 @@ def phase_lane_timing(dev) -> dict:
     end-to-end MB/s of ids 56, 58 and 42 on textbwt 16 MB (api round
     trips, 4 blocks, a warm-up and 2 timed on distinct rotations); then
     ids 59 and 64 on realsrcbwt likewise (``_lane_o1_timing``) and their
-    end-to-end MB/s on realsrcbwt 16 MB."""
+    end-to-end MB/s on realsrcbwt 16 MB; then L9-L12 on textbwt
+    (``_lane_new_timing``, with the plain ms of ``nib`` and ``bit``) and
+    ids 41, 40, 1, 2, 101-104's end-to-end MB/s on textbwt 16 MB."""
     import numpy as np
     import torch
     from turborc_tpu_torch import api
@@ -1539,8 +1899,10 @@ def phase_lane_timing(dev) -> dict:
         del probs, st, words, out
         log(f"timing-lane {codec} " + json.dumps(res[codec]))
     res.update(_lane_o1_timing(dev))
+    res.update(_lane_new_timing(dev, nib, bit))
     real = _corpus("realsrcbwt_16777216.bin")
-    for codec in ("rans-cdf-o0", "rans-cdf-s8", "rans-static", *LANE_O1):
+    for codec in ("rans-cdf-o0", "rans-cdf-s8", "rans-static", *LANE_O1,
+                  *NIBBLE, *BIT):
         corpus = text if codec not in LANE_O1 else real
         enc, dec = [], []
         c = CodecConfig(codec=codec)
@@ -1572,17 +1934,25 @@ def phase_lane_timing(dev) -> dict:
 
 def _plain_job(job):
     """One plain version on the host CPU, in a worker process of
-    ``_lane_o1_timing``: (wrapper name, arguments as numpy arrays or
-    ints) -> (outputs as numpy arrays, seconds it took)."""
+    ``_lane_o1_timing`` or ``host_pool``: (wrapper name, arguments as
+    numpy arrays or ints; L11 / L12's predictor by name) -> (outputs as
+    numpy arrays, seconds it took)."""
     import numpy as np
     import torch
+    from turborc_tpu_torch.models import bitpred
+    from turborc_tpu_torch.ops import rans_bit_kernel as BK
     from turborc_tpu_torch.ops import rans_lane_kernel as LK
     from turborc_tpu_torch.ops import rans_lane_o1_kernel as LO
+    from turborc_tpu_torch.ops import rans_nibble_kernel as NK
     torch.set_num_threads(1)
     name, args = job
-    fn = getattr(LK if name == "lane_coder" else LO, name + "_plain")
+    mod = {"lane_coder": LK, "lane_bit": BK, "lane_nibble": NK}.get(
+        "_".join(name.split("_")[:2]) if name != "lane_coder" else name, LO)
+    fn = getattr(mod, name + "_plain")
     args = [torch.from_numpy(a) if isinstance(a, np.ndarray) else a
             for a in args]
+    if mod is BK:  # the predictor by name, on the CPU
+        args[-1] = bitpred.make(args[-1], device="cpu")
     t0 = time.perf_counter()
     out = fn(*args)
     seconds = time.perf_counter() - t0
@@ -1664,6 +2034,76 @@ def _lane_o1_timing(dev) -> dict:
     return res
 
 
+def _lane_new_timing(dev, nib: dict, bit: dict) -> dict:
+    """L9, both L10s, and L11 and L12 at every (predictor, order), with L2
+    on their probs, on one 4 MB block of textbwt at the default
+    CodecConfig (512 lanes, K = 8,192): a warm-up, then 3 timed calls on
+    distinct rotations (CUDA events; a cudaMalloc inside a span fails the
+    phase).  The plain ms and errors are those of the vs-plain phases
+    (``nib``, ``bit``: the plain versions at this shape on the host)."""
+    import numpy as np
+    import torch
+    from turborc_tpu_torch.codecs import blockio
+    from turborc_tpu_torch.ops import rans
+    from turborc_tpu_torch.ops import rans_bit_kernel as BK
+    from turborc_tpu_torch.ops import rans_lane_kernel as LK
+    from turborc_tpu_torch.ops import rans_nibble_kernel as NK
+    from turborc_tpu_torch.utils.config import CodecConfig
+    text = _corpus("textbwt_16777216.bin")
+    B, res = CodecConfig().block_size, {}
+    for codec in (*NIBBLE, *BIT):
+        names = NIBBLE.get(codec, BIT_KERNELS)
+        ms, grew = {k: [] for k in names}, 0
+        for r in range(4):  # rep 0 is the warm-up
+            cols, K = _default_block(np.roll(text, 7919 * (r + 1))[:B], dev)
+            L = cols.shape[1]
+            init = torch.full((L,), rans.ANS_LOW, dtype=torch.int32,
+                              device=dev)
+            timed, extra = [], ()
+            if codec == "rc4":
+                model, decode = (NK.lane_nibble_model,), NK.lane_nibble_decode
+            elif codec == "rc4c":
+                probs, cdf = _nibble_static_probs(cols, dev)
+                model, decode, extra = None, NK.lane_nibble_static_decode, (
+                    cdf,)
+            else:
+                order, pred = BIT[codec]
+                extra = (order, _bit_pred(pred, None, dev))
+                model, decode = (BK.lane_bit_model,), BK.lane_bit_decode
+            if model:
+                probs, t, g = _events_ms(model[0], cols, *extra)
+                timed.append((t, g))
+            (st, lens), t, g = _events_ms(LK.lane_coder, probs, init)
+            timed.append((t, g))
+            words = blockio.device_words(st, lens)
+            out, t, g = _events_ms(decode, words, lens, K, *extra)
+            timed.append((t, g))
+            if not torch.equal(out, cols):
+                raise AssertionError(f"timing-lane {codec}: round trip")
+            if r:
+                grew += sum(g for _, g in timed)
+                for k, (t, _) in zip(names, timed):
+                    ms[k].append(t)
+            nwords = int(lens.to(torch.int64).sum())
+            del cols, probs, st, lens, words, out
+        if grew:
+            raise AssertionError(f"timing-lane {codec}: {grew} cudaMallocs "
+                                 "inside the timed spans")
+        src = nib if codec in NIBBLE else dict(
+            plain_ms=bit["plain_ms"][codec], err=bit["err"][codec])
+        states = 1 << 15 if codec.endswith("-sf") else 0
+        res[codec] = dict(
+            ms={k: sum(v) / len(v) for k, v in ms.items()}, ms_reps=ms,
+            K=K, L=L, words=nwords,
+            plain_ms={k: v for k, v in src["plain_ms"].items()
+                      if k in names},
+            err={k: v for k, v in src["err"].items() if k in names},
+            bound={k: _lane_bound_ms(k, L, K, None, 0, nwords, states)
+                   for k in names})
+        log(f"timing-lane {codec} " + json.dumps(res[codec]))
+    return res
+
+
 def _lane_rows(timed: dict, launches: dict) -> list:
     """The kernels-line rows of L1-L4: L1-L3 at id 56's main path (the
     default codec), L4 at id 42's; L1, L3 and L4 with T (threads a lane),
@@ -1716,6 +2156,37 @@ def _lane_o1_rows(timed: dict, launches: dict, before: dict) -> list:
     return rows
 
 
+def _lane_new_rows(timed: dict, launches: dict) -> list:
+    """The kernels-line rows of L9-L12 at their codecs' main paths: L9
+    and L10 (adaptive) at id 41's, L10's static instantiation at id 40's,
+    L11 and L12 at each of ids 1, 2, 101-104's (one row a template
+    instantiation, ``lane_bit_model<predictor,order>``), with T (threads
+    a lane) or threads (a CTA), and CTAs."""
+    from turborc_tpu_torch.ops import rans_bit_kernel as BK
+    from turborc_tpu_torch.ops import rans_nibble_kernel as NK
+    rows = []
+    cases = [(k, k, c, dict(T=NK.NIB_TEAM, CTAs=NK.nib_launch(
+        timed[c]["L"])[1])) for k, c in (
+            ("lane_nibble_model", "rc4"), ("lane_nibble_decode", "rc4"),
+            ("lane_nibble_static_decode", "rc4c"))]
+    for codec, (order, pred) in BIT.items():
+        for k in ("lane_bit_model", "lane_bit_decode"):
+            threads, ctas = BK.bit_launch(timed[codec]["L"],
+                                          decode=k == "lane_bit_decode")
+            cases.append((f"{k}<{pred},{order}>", k, codec,
+                          dict(threads=threads, CTAs=ctas)))
+    for row_name, k, codec, extra in cases:
+        t = timed[codec]
+        bound, by = t["bound"][k]
+        rows.append(dict(
+            name=row_name, route="cuda", source=SOURCE[k],
+            replaces=REPLACES[k], launches=launches[codec][k],
+            max_abs_err=t["err"][k], ms=t["ms"][k],
+            plain_ms=t["plain_ms"][k], bound_ms=bound, bound_by=by,
+            library_ms=None, codec=codec, **extra))
+    return rows
+
+
 def _rows(names, timed: dict, geom, launches: dict) -> list:
     from turborc_tpu_torch.ops import rans_kernel as K_
     rows = []
@@ -1741,13 +2212,17 @@ def child(before: str | None) -> int:
     log("device " + json.dumps(dict(kind=torch.cuda.get_device_name(0),
                                     count=torch.cuda.device_count())))
     before_libs = phase_build(before)
-    phase_kernels(dev)
-    phase_decode_cases(dev)
-    phase_place_edge(dev)
-    phase_coder_edge(dev)
-    phase_lane_kernels(dev)
-    phase_lane_edge(dev)
-    phase_lane_o1_kernels(dev)
+    with host_pool() as pool:
+        started = phase_lane_new_full_shape(dev, pool)
+        phase_kernels(dev)
+        phase_decode_cases(dev)
+        phase_place_edge(dev)
+        phase_coder_edge(dev)
+        phase_lane_kernels(dev)
+        phase_lane_edge(dev)
+        phase_lane_o1_kernels(dev)
+        nib = phase_lane_nibble_kernels(dev, started)
+        bit = phase_lane_bit_kernels(dev, started)
     golden, golden_r1 = _golden(GOLDEN), _golden(GOLDEN_R1)
     golden_rcp, golden_x2 = _golden(GOLDEN_RCP), _golden(GOLDEN_X2)
     main = _roundtrip("roundtrip-64MB-bench-geom",
@@ -1778,6 +2253,11 @@ def child(before: str | None) -> int:
                           golden_lane_o1[f"realsrcbwt_16777216_{codec}"],
                           LANE_O1[codec], dev)["launches"]
         for codec in LANE_O1})
+    for case in json.loads(GOLDEN_BIT.read_text())["large"]:
+        codec, mb = case["codec"], case.get("n", 1 << 24) >> 20
+        main_lane[codec] = _roundtrip(
+            f"roundtrip-{codec}-{mb}MB-default-config", case,
+            NIBBLE.get(codec, BIT_KERNELS), dev)["launches"]
     bench, bench_x2 = Geom.parse(BENCH_GEOM), Geom.parse(BENCH_GEOM_X2)
     t0 = _time_path("timing", "o0", "textbwt_67108864.bin", bench, dev)
     t1 = _time_path("timing-o1", "o1", "realsrcbwt_16777216.bin", Geom(),
@@ -1786,7 +2266,7 @@ def child(before: str | None) -> int:
                     dev)
     tt = _time_path("timing-tree", "tree", "textbwt_16777216.bin", Geom(),
                     dev)
-    tl = phase_lane_timing(dev)
+    tl = phase_lane_timing(dev, nib, bit)
     timed = phase_before_after(dev, before, before_libs)
     rows = (_rows(KERNELS["o0"], t0, bench, main["launches"])
             + _rows(("o1_model", "o1_decode"), t1, Geom(),
@@ -1795,7 +2275,8 @@ def child(before: str | None) -> int:
             + _rows(("tree_model", "tree_decode"), tt, Geom(),
                     main_rcp["launches"])
             + _lane_rows(tl, main_lane)
-            + _lane_o1_rows(tl, main_lane, timed))
+            + _lane_o1_rows(tl, main_lane, timed)
+            + _lane_new_rows(tl, main_lane))
     log("card (nvidia-smi name, power.limit):")
     log(_smi())
     log(json.dumps({"kernels": rows}))

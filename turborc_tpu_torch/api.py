@@ -25,7 +25,10 @@ def _as_bytes_array(data) -> np.ndarray:
 
 def compress(data, cfg: CodecConfig | None = None, device=None) -> bytes:
     """Compress a byte buffer into a TRCT container (geometry in the v3
-    header, so the container decodes with no configuration)."""
+    header, so the container decodes with no configuration).  A codec
+    gets what the JAX package's ``compress`` passes it: lanes,
+    step_quant, the predictor rates prm0 / prm1, level, ctx_bits and the
+    geometry (and the device)."""
     dev = resolve_device(device)
     cfg = cfg or CodecConfig()
     geom = cfg.geom or DEFAULT
@@ -37,7 +40,10 @@ def compress(data, cfg: CodecConfig | None = None, device=None) -> bytes:
     for off in range(0, max(arr.shape[0], 1), cfg.block_size):
         blk = arr[off:off + cfg.block_size]
         payload = codec.encode_block(blk, lanes=cfg.lanes,
-                                     step_quant=cfg.step_quant, geom=geom,
+                                     step_quant=cfg.step_quant,
+                                     prm0=cfg.prm0, prm1=cfg.prm1,
+                                     level=cfg.level,
+                                     ctx_bits=cfg.ctx_bits, geom=geom,
                                      device=dev)
         stored = len(payload) >= blk.shape[0]
         if stored:
@@ -47,7 +53,9 @@ def compress(data, cfg: CodecConfig | None = None, device=None) -> bytes:
 
 
 def decompress(buf: bytes, device=None) -> bytes:
-    """Decompress a TRCT container; verifies the per-block crc32."""
+    """Decompress a TRCT container; verifies the per-block crc32.  A codec
+    gets the header's lanes, step_quant, prm0 / prm1, ctx_bits and
+    geometry, as in the JAX package's ``decompress``."""
     dev = resolve_device(device)
     hdr = fmt.read_header(buf)
     codec = registry.get(hdr["codec_id"])
@@ -60,6 +68,8 @@ def decompress(buf: bytes, device=None) -> bytes:
         else:
             blk = codec.decode_block(payload, n, lanes=hdr["lanes"],
                                      step_quant=hdr["step_quant"],
+                                     prm0=hdr["prm0"], prm1=hdr["prm1"],
+                                     ctx_bits=hdr["ctx_bits"],
                                      geom=hdr["geom"], device=dev)
         if zlib.crc32(blk.tobytes()) != crc:
             raise ValueError(

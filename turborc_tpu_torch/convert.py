@@ -9,7 +9,9 @@ kernels take the same layouts as torch int32 tensors.  The bit-tree
 kernels take one warm tree, [256] int32 (row 0 unused, rows 1..255 in
 [1, 32767]).  The per-lane order-1 codec rans-cdf-r1 (id 59) takes its
 warm tables per segment, cumulative hi [n_seg, 64, 16] and lo [n_seg,
-48, 16] int32 (L5, L6; lane l from segment l * n_seg // lanes).
+48, 16] int32 (L5, L6; lane l from segment l * n_seg // lanes).  The
+FSM predictor of the bitwise codecs (ids 103, 104; L11, L12) takes its
+state machine as one int32 table [3, S]: rows prob, next0, next1.
 """
 from __future__ import annotations
 
@@ -82,3 +84,24 @@ def r1_tables_from_jax(hi, lo, device=None):
                              "with no zero")
     return tuple(torch.from_numpy(blockio.cumulative(a))
                  .to(resolve_device(device)) for a in (hi, lo))
+
+
+def fsm_table_from_jax(prob, nxt0, nxt1, device=None) -> torch.Tensor:
+    """The JAX package's FSM table (``turborc_tpu.models.fsm.build_table``
+    or ``load_reference_table``: prob, next0, next1, each [S], as numpy)
+    -> the port's [3, S] int32 tensor on ``device`` (None: the CUDA card),
+    checked: every probability in [0, 2^15 - 1] (a loaded table's zero
+    fill is 0; the predictor clamps to [1, 2^15 - 1]), every next state a
+    state."""
+    t = np.stack([_int32(a) for a in (prob, nxt0, nxt1)]) if all(
+        np.ndim(a) == 1 and np.shape(a) == np.shape(prob)
+        for a in (nxt0, nxt1)) else None
+    if t is None or t.shape[1] < 1:
+        raise ValueError("prob, nxt0, nxt1: expected three [S] arrays, "
+                         "S >= 1")
+    S = t.shape[1]
+    if t[0].min() < 0 or t[0].max() > (1 << 15) - 1:
+        raise ValueError("prob: every entry must lie in [0, 32767]")
+    if t[1:].min() < 0 or t[1:].max() >= S:
+        raise ValueError(f"nxt0, nxt1: every entry must be a state < {S}")
+    return torch.from_numpy(t).to(resolve_device(device))

@@ -77,6 +77,20 @@ SIGNATURES = {
         "trc_lane_o1_model": [_P] * 2 + [_I] * 2 + [_P],
         # L8: words, offsets, lengths, output; K, L, W
         "trc_lane_o1_decode": [_P] * 4 + [_I] * 3 + [_P],
+        # L9: cols, probs; K, L
+        "trc_lane_nibble_model": [_P] * 2 + [_I] * 2 + [_P],
+        # L10: words, offsets, lengths, cdf (null: adaptive), output;
+        # K, L, W
+        "trc_lane_nibble_decode": [_P] * 5 + [_I] * 3 + [_P],
+    },
+    "rans_bit_kernel.cu": {
+        # L11: cols, probs, the order-1 tables (null at order 0), the FSM
+        # table (null but for sf); K, L, order, predictor, the two rates,
+        # the FSM's states and start state
+        "trc_lane_bit_model": [_P] * 4 + [_I] * 8 + [_P],
+        # L12: words, offsets, lengths, output, the order-1 tables, the
+        # FSM table; K, L, W, order, predictor, rates, states, start
+        "trc_lane_bit_decode": [_P] * 6 + [_I] * 9 + [_P],
     },
 }
 SOURCES = tuple(SIGNATURES)

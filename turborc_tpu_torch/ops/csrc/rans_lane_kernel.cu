@@ -1,19 +1,24 @@
 // Per-lane scan codecs (rans-cdf-o0 id 56, rans-cdf-s8 id 58, rans-static
-// id 42, rans-cdf-r1 id 59, rans-cdf-o1 id 64) for Hopper, sm_90a.
+// id 42, rans-cdf-r1 id 59, rans-cdf-o1 id 64, rc4 id 41, rc4c id 40) for
+// Hopper, sm_90a.
 //
 // The JAX package runs these passes as lax.scans compiled by XLA
 // (turborc_tpu/codecs/rans_cdf_o0.py, rans_cdf_s8.py, rans_static.py,
-// rans_cdf_r1.py, rans_cdf_o1.py); they have no Pallas kernel.  One
+// rans_cdf_r1.py, rans_cdf_o1.py, rans_nibble.py); they have no Pallas
+// kernel.  One
 // compiled device loop becomes one kernel:
 //   lane_model_kernel          L1  bytes -> slot probs (ids 56, 58)
 //   lane_coder_kernel          L2  backward rANS + per-lane compaction
-//                                  (ids 56, 58, 42, 59, 64)
+//                                  (ids 56, 58, 42, 59, 64, 41, 40)
 //   lane_decode_kernel         L3  per-lane streams -> bytes (ids 56, 58)
 //   lane_static_decode_kernel  L4  per-lane streams -> bytes (id 42)
 //   lane_o1_model_kernel       L5  bytes -> slot probs (id 59, O1Rank)
 //                              L7  (id 64, O1Byte)
 //   lane_o1_decode_kernel      L6  per-lane streams -> bytes (id 59)
 //                              L8  (id 64)
+//   lane_nibble_model_kernel   L9  bytes -> nibble slot probs (id 41)
+//   lane_nibble_decode_kernel  L10 per-lane streams -> bytes (id 41;
+//                                  static, id 40)
 //
 // Layout (ops/rans_lane_kernel.py): L lanes, any power of two; byte t of
 // lane l at cols/out[t * L + l]; slot s of lane l at probs[s * L + l],
@@ -26,7 +31,7 @@
 // lane reads 0 at or past min(len, M) or past the W words (the JAX
 // package's zero-padded [L, M] matrix, for the lengths it accepts).
 //
-// L1, L3-L8 run a team of T threads a lane, L2 one thread a lane on
+// L1, L3-L10 run a team of T threads a lane, L2 one thread a lane on
 // CTAs of kCoderN lanes (below).  A CTA's threads past L run the loop on
 // dummy data and write nothing, so every barrier and shuffle has all its
 // threads.  A lane is a serial state machine; lanes are coupled only by the
@@ -1519,6 +1524,115 @@ lane_o1_decode_kernel(const uint16_t* __restrict__ words,
   }
 }
 
+// ---- L9 / L10: the nibble codecs rc4 (id 41) and rc4c (id 40).  A byte
+// is two 4-bit symbols, hi then lo (slots 2t and 2t + 1), on L1 / L3's
+// team of kNibTeam threads a lane, one entry of the lane's one CDF16 a
+// thread in a register, kNibThreads a CTA; no lo rows, no re-join.  The
+// adaptive table (id 41) starts at cdf16.init and takes cdf_update at rate
+// kNibRate after every nibble, so it stays strictly increasing and needs
+// no repair (cdf_update's note); the static one (id 40) is the block's
+// cdf [17] (non-decreasing, cdf[0] = 0, cdf[16] = 2^15), read once.
+constexpr int kNibTeam = 16;     // threads a lane
+constexpr int kNibThreads = 128;  // threads a CTA
+constexpr int kNibLanes = kNibThreads / kNibTeam;
+constexpr int kNibRate = 7;
+static_assert(kNibTeam == 16, "L9 / L10: one CDF16 entry a thread");
+
+// L9: cols [K, L] u8 -> probs [2K, L] int32 (rans_nibble.encode_adaptive's
+// scan).  L1's chunked bytes and slots: thread j holds byte t0 + j of the
+// chunk t0 and of the next, and the two slots of step t0 + j.
+__global__ void __launch_bounds__(kNibThreads)
+lane_nibble_model_kernel(const uint8_t* __restrict__ cols,
+                         int* __restrict__ probs, int K, int L) {
+  constexpr int T = kNibTeam;
+  const int n = threadIdx.x / T, j = threadIdx.x % T;
+  const int l = blockIdx.x * kNibLanes + n;
+  const bool real = l < L;
+  int c[1] = {j << (15 - 4)};  // cdf16.init
+  const uint8_t* src = cols + (real ? l : 0) + size_t(j) * L;
+  int* out = probs + (real ? l : 0);
+  int cur = real && j < K ? src[0] : 0;
+  int nxt = real && T + j < K ? src[size_t(T) * L] : 0;
+  int sym_next = __shfl_sync(kFull, cur, 0, T);
+  int slot_h = 0, slot_l = 0;
+  for (int t = 0; t < K; ++t) {
+    const int sym = sym_next;
+    if ((t & (T - 1)) == T - 1) {
+      cur = nxt;
+      nxt = real && t + 1 + T + j < K ? src[size_t(t + 1 + T) * L] : 0;
+    }
+    sym_next = __shfl_sync(kFull, cur, (t + 1) & (T - 1), T);
+    int low_h, fr_h, low_l, fr_l;
+    team_lookup<T>(c, sym >> 4, low_h, fr_h);
+    team_update<T>(c, low_h, kNibRate, j);
+    team_lookup<T>(c, sym & 15, low_l, fr_l);
+    team_update<T>(c, low_l, kNibRate, j);
+    const bool take = j == (t & (T - 1));
+    slot_h = take ? (low_h << 16) | fr_h : slot_h;
+    slot_l = take ? (low_l << 16) | fr_l : slot_l;
+    if ((t & (T - 1)) == T - 1 || t == K - 1) {
+      const int tj = (t & ~(T - 1)) + j;
+      if (real && tj <= t) {
+        out[size_t(2 * tj) * L] = slot_h;
+        out[size_t(2 * tj + 1) * L] = slot_l;
+      }
+    }
+  }
+}
+
+// L10: lane streams (words, off, len; M = 2K + 2) -> bytes [K, L] u8,
+// adaptive (kStatic false: rans_nibble.decode_adaptive) or on the static
+// cdf17 (rans_nibble.decode_static: the symbol is 15 - #{i < 16: cdf_i >
+// value}, here #{i < 16: cdf_i <= value} - 1, at least 0, by one ballot).
+// L3's reader (TeamWords) and chunked bytes.
+template <bool kStatic>
+__global__ void __launch_bounds__(kNibThreads)
+lane_nibble_decode_kernel(const uint16_t* __restrict__ words,
+                          const long long* __restrict__ off,
+                          const int* __restrict__ len,
+                          const int* __restrict__ cdf17,
+                          uint8_t* __restrict__ out, int K, int L,
+                          long long W) {
+  constexpr int T = kNibTeam;
+  const int n = threadIdx.x / T, j = threadIdx.x % T;
+  const int l = blockIdx.x * kNibLanes + n;
+  const bool real = l < L;
+  const unsigned mask = team_mask<T>();
+  int c[1] = {kStatic ? cdf17[j] : j << (15 - 4)};
+  const int top = kStatic ? cdf17[16] : kTotal;  // entry 16
+  TeamWords w;
+  uint32_t state;
+  team_words_init<T>(w, words, off, len, W, 2 * K + 2, l, real, j, state);
+  uint8_t* dst = out + (real ? l : 0);
+  uint8_t mine = 0;  // the byte of step t0 + j of the chunk t0
+  for (int t = 0; t < K; ++t) {
+    int nib[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t value = state & (kTotal - 1);
+      int s;
+      if constexpr (kStatic) {
+        s = __popc(__ballot_sync(kFull, uint32_t(c[0]) <= value) & mask) - 1;
+        s = s < 0 ? 0 : s;
+      } else {
+        s = team_search<T>(c, int(value), j, mask);
+      }
+      const int low = team_pick<T>(c, s);
+      const int nx = team_pick<T>(c, (s + 1) & 15);
+      const int freq = (s == 15 ? top : nx) - low;
+      state = uint32_t(freq) * (state >> 15) + value - uint32_t(low);
+      team_words_renorm<T>(w, state, j);
+      if constexpr (!kStatic) team_update<T>(c, low, kNibRate, j);
+      nib[h] = s;
+    }
+    if (j == (t & (T - 1))) mine = uint8_t((nib[0] << 4) | nib[1]);
+    if ((t & (T - 1)) == T - 1 || t == K - 1) {
+      const int tj = (t & ~(T - 1)) + j;
+      if (real && tj <= t) dst[size_t(tj) * L] = mine;
+    }
+  }
+}
+
 bool pow2(int v, int cap) { return v >= 1 && v <= cap && !(v & (v - 1)); }
 
 // The span geometry of L1 / L3, or false where it does not fit L lanes,
@@ -1720,6 +1834,33 @@ int trc_lane_o1_decode(const uint16_t* words, const long long* off,
                        cudaStream_t stream) {
   return o1_decode_launch<O1Byte>(words, off, len, nullptr, nullptr, out, K,
                                   L, W, 1, stream);
+}
+
+// L9: rc4's model.
+int trc_lane_nibble_model(const uint8_t* cols, int* probs, int K, int L,
+                          cudaStream_t stream) {
+  if (K < 0 || K > INT_MAX / 2 - kNibTeam || !pow2(L, 1 << 30) ||
+      size_t(2) * size_t(K) * size_t(L) > size_t(1) << 40)
+    return int(cudaErrorInvalidValue);
+  lane_nibble_model_kernel<<<(L + kNibLanes - 1) / kNibLanes, kNibThreads,
+                             0, stream>>>(cols, probs, K, L);
+  return int(cudaGetLastError());
+}
+
+// L10: rc4's decode (cdf17 null) and rc4c's (cdf17 [17] int32).
+int trc_lane_nibble_decode(const uint16_t* words, const long long* off,
+                           const int* len, const int* cdf17, uint8_t* out,
+                           int K, int L, int W, cudaStream_t stream) {
+  if (K < 0 || K > (INT_MAX - 2) / 2 || W < 0 || !pow2(L, 1 << 30))
+    return int(cudaErrorInvalidValue);
+  const int grid = (L + kNibLanes - 1) / kNibLanes;
+  if (cdf17)
+    lane_nibble_decode_kernel<true><<<grid, kNibThreads, 0, stream>>>(
+        words, off, len, cdf17, out, K, L, W);
+  else
+    lane_nibble_decode_kernel<false><<<grid, kNibThreads, 0, stream>>>(
+        words, off, len, cdf17, out, K, L, W);
+  return int(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -18,11 +18,13 @@ class CodecConfig:
       codec:      registered codec name (ported: "rans-static",
                   "rans-cdf-o0", "rans-cdf-o0-p", "rans-cdf-s8",
                   "rans-cdf-r1", "rans-cdf-r1-p", "rans-auto",
-                  "rans-cdf-o1", "rc-p").
+                  "rans-cdf-o1", "rc-p", "rc-o0", "rcc-o1", "rc-o0-ss",
+                  "rcc-o1-ss", "rc-o0-sf", "rcc-o1-sf", "rc4", "rc4c").
       lanes:      lane count recorded in the header (power of two).
       block_size: bytes per independently decodable block.
       step_quant: per-lane symbol-count alignment recorded in the header.
-      prm0/prm1:  predictor rate parameters recorded in the header.
+      prm0/prm1:  predictor rate parameters recorded in the header (the
+                  dual-speed predictor's rates: rc-o0-ss, rcc-o1-ss).
       ctx_bits:   sliding-context size recorded in the header.
       level:      pipeline level (BWT entropy-stage selector).
       geom:       flagship kernel geometry (ops.geom.Geom); None = Geom().

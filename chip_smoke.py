@@ -36,10 +36,12 @@ not divide the lanes (``lane-o1-kernels-vs-plain``), L9 and both L10s
 (``lane-nibble-kernels-vs-plain``) and L11 and L12 at every (predictor,
 order) (``lane-bit-kernels-vs-plain``) at the full shape of a default
 4 MB block, the plain versions on the host, then on runs, alternations,
-all 256 bytes in turn, K of 1 and 37, extreme CDFs and predictor rates,
-a random FSM table and corrupt streams.  With ``--before
-COMMIT``, L5-L8 are timed in turns against those of a ``git archive
-COMMIT`` unpacked in ``_archive/COMMIT/``.  It imports no JAX
+all 256 bytes in turn, bytes whose depth-4 nodes are siblings, K of 1,
+7, 9 and 37, extreme CDFs and predictor rates, a random FSM table and
+corrupt streams, and the bitwise wrappers must refuse an FSM past 32,768
+states.  With ``--before COMMIT``, L5-L8, L11 and L12 are timed in turns
+against those of a ``git archive COMMIT`` unpacked in
+``_archive/COMMIT/``.  It imports no JAX
 and nothing of ``turborc_tpu``; the corpora under
 ``turborc_tpu/bench/_data/`` are read as files.
 
@@ -78,10 +80,11 @@ BENCH_GEOM_X2 = BENCH_GEOM + "x2"
 # _archive/COMMIT/ (a git archive of COMMIT unpacked there) that hold the
 # kernels in REDESIGNED and times those against the current ones.  Their
 # C signatures there, as (pointers, ints) before the stream: those of
-# af5a925, the same as now.  Without it the phase is skipped.
+# fdd1d6f, the same as now.  Without it the phase is skipped.
 BEFORE_FLAG = "--before"
 BEFORE_ARGS = {"trc_lane_o1r_model": (4, 3), "trc_lane_o1r_decode": (6, 4),
-               "trc_lane_o1_model": (2, 2), "trc_lane_o1_decode": (4, 3)}
+               "trc_lane_o1_model": (2, 2), "trc_lane_o1_decode": (4, 3),
+               "trc_lane_bit_model": (4, 8), "trc_lane_bit_decode": (6, 9)}
 ARCHIVE = ROOT / "_archive"
 CSRC_REL = "turborc_tpu_torch/ops/csrc"
 CHILD_FLAG = "--child"
@@ -132,7 +135,7 @@ REPLACES = {
 }
 # Kernels timed against a parent's with --before.
 REDESIGNED = ("lane_o1r_model", "lane_o1r_decode", "lane_o1_model",
-              "lane_o1_decode")
+              "lane_o1_decode", "lane_bit_model", "lane_bit_decode")
 # Each path's kernels in stage order: model, coder, place, decode.
 KERNELS = {"o0": ("model", "coder", "place", "decode"),
            "o1": ("o1_model", "coder", "place", "o1_decode"),
@@ -846,12 +849,14 @@ def phase_before_after(dev, before: str | None, libs: dict) -> dict:
     """L5-L8 of commit ``before`` against the current ones, on one 4 MB
     block of realsrcbwt at the default CodecConfig as ids 59 and 64 shape
     it (id 59: 512 lanes, K = 8192, 16 segments; id 64: 128 lanes, K =
-    32,768): the models on its bytes, the decodes on the streams the
-    current L5 / L7 and L2 write.  A warm-up, then 3 repetitions on
-    distinct rotations, the two builds in turns (before first on odd
-    repetitions), CUDA events around the bare C entry of each: outputs are
-    allocated beforehand, and a new allocator segment inside a span fails
-    the phase.  Both models must write the current wrapper's probs, both
+    32,768), and L11 and L12 at every (predictor, order) of BIT on one
+    4 MB block of textbwt at the default (512 lanes, K = 8192): the models
+    on its bytes, the decodes on the streams the current models and L2
+    write.  A warm-up, then 3 repetitions on distinct rotations, the two
+    builds in turns (before first on odd repetitions), CUDA events around
+    the bare C entry of each: outputs (and order 1's tables) are allocated
+    beforehand, and a new allocator segment inside a span fails the
+    phase.  Both models must write the current wrapper's probs, both
     decodes return the block's bytes.  Returns {codec: {name: {"before":
     ms per repetition, "after": ...}}}, empty without ``before``."""
     import ctypes
@@ -860,6 +865,7 @@ def phase_before_after(dev, before: str | None, libs: dict) -> dict:
     import torch
     from turborc_tpu_torch.codecs import blockio
     from turborc_tpu_torch.ops import build, rans
+    from turborc_tpu_torch.ops import rans_bit_kernel as BK
     from turborc_tpu_torch.ops import rans_lane_kernel as LK
     from turborc_tpu_torch.ops import rans_lane_o1_kernel as LO
     from turborc_tpu_torch.utils.config import CodecConfig
@@ -877,9 +883,12 @@ def phase_before_after(dev, before: str | None, libs: dict) -> dict:
         fn.restype = ctypes.c_int
         fns[name] = fn
     real = _corpus("realsrcbwt_16777216.bin")
+    text = _corpus("textbwt_16777216.bin")
     B = CodecConfig().block_size
     ms = {c: {k: {"before": [], "after": []} for k in (m, d)}
           for c, (m, _, d) in LANE_O1.items()}
+    ms.update({c: {k: {"before": [], "after": []} for k in BIT_KERNELS
+                   if k != "lane_coder"} for c in BIT})
 
     def timed(fn, cargs) -> float:
         cargs = [x.data_ptr() if isinstance(x, torch.Tensor) else x
@@ -934,6 +943,39 @@ def phase_before_after(dev, before: str | None, libs: dict) -> dict:
                     raise AssertionError(f"{d} of {who} ({before}): not the "
                                          "block's bytes")
                 del cargs, out
+            del cols, probs, words, offs, lens
+
+    def turns(codec: str, name: str, r: int, make, want) -> None:
+        """The two builds of ``name`` in turns on the arguments make(out)
+        gives, each output equal to ``want``."""
+        for who in (("before", "after") if r % 2 else ("after", "before")):
+            out = torch.empty_like(want)
+            cargs = make(out)
+            fn = build.load()["trc_" + name] if who == "after" else fns[name]
+            t = timed(fn, cargs)
+            if r:
+                ms[codec][name][who].append(t)
+            if not torch.equal(out, want):
+                raise AssertionError(f"{name} {codec} of {who} ({before}): "
+                                     "not the current wrapper's output")
+            del cargs, out
+
+    for codec, (order, pname) in BIT.items():
+        for r in range(4):  # rep 0 is the warm-up
+            cols, K = _default_block(np.roll(text, 7919 * (r + 1))[:B], dev)
+            pred = _bit_pred(pname, None, dev)
+            init = torch.full((cols.shape[1],), rans.ANS_LOW,
+                              dtype=torch.int32, device=dev)
+            probs = BK.lane_bit_model(cols, order, pred)
+            st, lens = LK.lane_coder(probs, init)
+            words = blockio.device_words(st, lens)
+            offs = LK._offsets(lens)
+            del st
+            turns(codec, "lane_bit_model", r, lambda out: (
+                BK.lane_bit_model_cargs(cols, out, order, pred)), probs)
+            turns(codec, "lane_bit_decode", r, lambda out: (
+                BK.lane_bit_decode_cargs(words, offs, lens, K, out, order,
+                                         pred)), cols)
             del cols, probs, words, offs, lens
     log(f"{label} " + json.dumps(dict(before=before, ms=ms)))
     return ms
@@ -1417,6 +1459,11 @@ def phase_lane_o1_kernels(dev) -> None:
 LANE_NEW_EDGE = (("textbwt", 16, 37), ("textbwt", 4, 1), ("run", 64, 32),
                  ("random", 8, 100), ("alternate", 32, 48),
                  ("every byte", 16, 256))
+# Cases of L11 and L12 alone: bytes whose depth-4 nodes are siblings (the
+# two halves of one pair region), and K of 7 and 9 (a step of L11's
+# read-ahead ring short of and past a multiple of 8); with the K = 37
+# case they also take BIT_EDGE_PREDS's predictors and corrupt streams.
+BIT_EDGE = (("siblings", 16, 40), ("textbwt", 8, 7), ("textbwt", 2, 9))
 # Predictors beyond the codecs' own on the "textbwt" case of K = 37:
 # dual-speed at rates 0 / 16 and 40 / 3 (a rate of 16 or more moves
 # nothing), and an FSM of 100 random states from state 3 (probabilities
@@ -1437,6 +1484,9 @@ def _edge_cols(what: str, K: int, L: int, rng, text):
         return rng.integers(0, 256, (K, L), dtype=np.uint8)
     if what == "alternate":
         return rng.integers(0, 256, (2, L), dtype=np.uint8)[np.arange(K) % 2]
+    if what == "siblings":  # depth-4 nodes 2 i and 2 i + 1 in turn
+        b = rng.integers(0, 8, (K, L)) * 32 + rng.integers(0, 16, (K, L))
+        return (b + 16 * (np.arange(K)[:, None] % 2)).astype(np.uint8)
     return ((np.arange(K)[:, None] + 37 * np.arange(L)) % 256).astype(
         np.uint8)
 
@@ -1644,14 +1694,16 @@ def phase_lane_nibble_kernels(dev, started: dict) -> dict:
 def phase_lane_bit_kernels(dev, started: dict) -> dict:
     """L11 and L12 at every (predictor, order) of BIT, and L2 on id 1's
     probs, against their plain versions at the full shape (``started``,
-    from ``phase_lane_new_full_shape``), exact.  Then on LANE_NEW_EDGE's
-    bytes at every (predictor, order), and on the K = 37 case also
-    BIT_EDGE_PREDS's predictors and corrupt streams (``_corrupt``),
-    against the plain versions on the CPU, exact.  Returns the full-shape
-    errors and plain ms by codec."""
+    from ``phase_lane_new_full_shape``), exact.  First the wrappers must
+    refuse an FSM table past BIT_MAX_STATES states.  Then on
+    LANE_NEW_EDGE's and BIT_EDGE's bytes at every (predictor, order), and
+    on the K = 37 case and BIT_EDGE's also BIT_EDGE_PREDS's predictors and
+    corrupt streams (``_corrupt``), against the plain versions on the CPU,
+    exact.  Returns the full-shape errors and plain ms by codec."""
     import numpy as np
     import torch
     from turborc_tpu_torch.codecs import blockio
+    from turborc_tpu_torch.models import bitpred
     from turborc_tpu_torch.ops import rans
     from turborc_tpu_torch.ops import rans_bit_kernel as BK
     from turborc_tpu_torch.ops import rans_lane_kernel as LK
@@ -1661,11 +1713,28 @@ def phase_lane_bit_kernels(dev, started: dict) -> dict:
     K, L = started["K"], started["L"]
     rng = np.random.default_rng(20261019)
     gen = torch.Generator().manual_seed(20261019)
-    for what, L_, K_ in LANE_NEW_EDGE:
+    for order in (0, 1):  # the wrappers refuse an FSM past 32,768 states
+        big = bitpred.Fsm(torch.zeros((3, BK.BIT_MAX_STATES + 1),
+                                      dtype=torch.int32, device=dev))
+        for name, call in (("L11", lambda: BK.lane_bit_model(
+                torch.zeros((4, 4), dtype=torch.uint8, device=dev), order,
+                big)), ("L12", lambda: BK.lane_bit_decode(
+                    torch.zeros((40,), dtype=torch.int16, device=dev),
+                    torch.full((4,), 10, dtype=torch.int32, device=dev), 4,
+                    order, big))):
+            try:
+                call()
+            except ValueError:
+                continue
+            raise AssertionError(f"{name} order {order}: an FSM of "
+                                 f"{BK.BIT_MAX_STATES + 1} states ran")
+    log("lane bit kernels: an FSM past 32768 states refused (ValueError)")
+    for what, L_, K_ in LANE_NEW_EDGE + BIT_EDGE:
         x = torch.from_numpy(_edge_cols(what, K_, L_, rng, text))
         i_ = torch.full((L_,), rans.ANS_LOW, dtype=torch.int32)
         preds = [(n, None) for n in ("s", "ss", "sf")]
-        if K_ == 37:
+        hard = K_ == 37 or (what, L_, K_) in BIT_EDGE
+        if hard:
             preds += list(BIT_EDGE_PREDS)
         err = {}
         for order in (0, 1):
@@ -1681,7 +1750,7 @@ def phase_lane_bit_kernels(dev, started: dict) -> dict:
                 st, n = LK.lane_coder(probs, i_)
                 w = blockio.device_words(st, n)
                 streams = {"sound": (w, n)}
-                if K_ == 37:
+                if hard:
                     streams.update(_corrupt(w, n, gen, "cpu"))
                 for bad, (bw, bn) in streams.items():
                     err[f"L12 {tag} {bad}"] = _max_abs(
@@ -2156,12 +2225,13 @@ def _lane_o1_rows(timed: dict, launches: dict, before: dict) -> list:
     return rows
 
 
-def _lane_new_rows(timed: dict, launches: dict) -> list:
+def _lane_new_rows(timed: dict, launches: dict, before: dict) -> list:
     """The kernels-line rows of L9-L12 at their codecs' main paths: L9
     and L10 (adaptive) at id 41's, L10's static instantiation at id 40's,
     L11 and L12 at each of ids 1, 2, 101-104's (one row a template
     instantiation, ``lane_bit_model<predictor,order>``), with T (threads
-    a lane) or threads (a CTA), and CTAs."""
+    a lane) or threads (a CTA), and CTAs; L11 and L12 also with
+    before_ms and after_ms from ``before`` (timing-before-after)."""
     from turborc_tpu_torch.ops import rans_bit_kernel as BK
     from turborc_tpu_torch.ops import rans_nibble_kernel as NK
     rows = []
@@ -2184,6 +2254,13 @@ def _lane_new_rows(timed: dict, launches: dict) -> list:
             max_abs_err=t["err"][k], ms=t["ms"][k],
             plain_ms=t["plain_ms"][k], bound_ms=bound, bound_by=by,
             library_ms=None, codec=codec, **extra))
+        if k in REDESIGNED:
+            pair = before.get(codec, {}).get(k, {})
+            mean = {w: sum(v) / len(v) if v else None
+                    for w, v in pair.items()}
+            # before_ms / after_ms: bare C entries, in turns, one phase
+            rows[-1].update(before_ms=mean.get("before"),
+                            after_ms=mean.get("after"))
     return rows
 
 
@@ -2276,7 +2353,7 @@ def child(before: str | None) -> int:
                     main_rcp["launches"])
             + _lane_rows(tl, main_lane)
             + _lane_o1_rows(tl, main_lane, timed)
-            + _lane_new_rows(tl, main_lane))
+            + _lane_new_rows(tl, main_lane, timed))
     log("card (nvidia-smi name, power.limit):")
     log(_smi())
     log(json.dumps({"kernels": rows}))
@@ -2347,8 +2424,8 @@ def _args(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(CHILD_FLAG, action="store_true", help=argparse.SUPPRESS)
     ap.add_argument(BEFORE_FLAG, metavar="COMMIT",
-                    help="also time L6 and L8 of the git archive of COMMIT "
-                    "unpacked in _archive/COMMIT/")
+                    help="also time L5-L8, L11 and L12 of the git archive "
+                    "of COMMIT unpacked in _archive/COMMIT/")
     return ap.parse_args(argv)
 
 

@@ -11,9 +11,10 @@ JAX package, on the CPU, and the api's predictor rates.
   ``encode_block`` (encode only: its decode takes minutes to compile on
   the CPU; the golden containers of ``tests/test_torch_golden_bit.py``
   stand in for it) and decode back; corrupt payloads raise;
-- numpy mirrors of L11's eight depth chains and L12's read of both
-  children equal the plain versions, with negative controls; the C
-  entries, constants and refusals match the wrappers.
+- numpy mirrors of L11's eight depth chains and L12's reads of a row
+  (``tests/test_torch_bit_step.py``) equal the plain versions, with
+  negative controls; the C entries, constants and refusals match the
+  wrappers.
 
 Every comparison is exact.  The JAX encodes run at K = 12 bytes a lane,
 which ``rc_bit.encode_device`` scans a byte a step (K not a multiple of
@@ -36,6 +37,9 @@ from turborc_tpu_torch.models import bitpred, fsm
 from turborc_tpu_torch.ops import binary, build, rans
 from turborc_tpu_torch.ops import rans_bit_kernel as BK
 from turborc_tpu_torch.ops import rans_lane_kernel as LK
+from test_torch_bit_step import Pred
+from test_torch_bit_step import decode_mirror as step_decode_mirror
+from test_torch_bit_step import model_mirror as step_model_mirror
 
 ROOT = Path(__file__).resolve().parents[1]
 TEXT = np.fromfile(ROOT / "turborc_tpu" / "bench" / "_data" /
@@ -243,99 +247,35 @@ def test_fsm_table_from_jax():
 # ---------------------------------------------------------------------------
 
 def _np_pred(name: str, prm0: int = 5, prm1: int = 8):
-    """(init, prob, next) of a predictor on one u32 slot, as the kernels
-    hold it (ss: c0 | c1 << 16)."""
-    if name == "s":
-        return (16384, lambda v: v,
-                lambda v, p, b: p - (((p - (b << 15)) >> 5) + b))
-    if name == "ss":
-        def nxt(v, p, b):
-            c = [v & 0xFFFF, v >> 16]
-            r = [min(prm0, 16), min(prm1, 16)]
-            c = [x + ((x ^ 0xFFFF) >> k) if b else x - (x >> k)
-                 for x, k in zip(c, r)]
-            return c[0] | (c[1] << 16)
-        return 0x80008000, lambda v: ((v & 0xFFFF) + (v >> 16)) >> 2, nxt
-    prob, n0, n1 = fsm.build_table()
-    return (fsm.initial_state(), lambda v: int(prob[v]),
-            lambda v, p, b: int((n1 if b else n0)[v]))
+    """(init, prob, next) of a predictor on one u32 slot, as L11 holds it
+    (ss: c0 | c1 << 16; sf: the state)."""
+    p = Pred(name, prm0, prm1)
+    return p.init(), p.prob, p.next
 
 
 def _clamp(p: int) -> int:
     return min(max(p, 1), 32767)
 
 
-def model_mirror(cols: np.ndarray, order: int, name: str,
-                 depths=range(8)) -> np.ndarray:
-    """L11's design: lane l's depth d is its own chain over all K bytes
-    (the thread (d, l)), on its own slots; probs [8K, L]."""
-    init, prob, nxt = _np_pred(name)
-    K, L = cols.shape
-    probs = np.zeros((8 * K, L), np.int64)
-    for l in range(L):
-        for d in depths:
-            tab = {}
-            ctx = 0
-            for t in range(K):
-                b = int(cols[t, l])
-                slot = (ctx << 8 if order else 0) | ((256 | b) >> (8 - d))
-                v = tab.get(slot, init)
-                p = _clamp(prob(v))
-                bit = (b >> (7 - d)) & 1
-                tab[slot] = nxt(v, p, bit)
-                probs[8 * t + d, l] = p if bit else (p << 16) | (32768 - p)
-                if order:
-                    ctx = b
-    return probs
+def model_mirror(cols: np.ndarray, order: int, name: str) -> np.ndarray:
+    """L11's design (``test_torch_bit_step.model_mirror``): lane l's depth
+    d is its own chain over all K bytes (the thread (d, l)), on its own
+    slots, each read ahead and forwarded; probs [8K, L]."""
+    return step_model_mirror(cols, order, Pred(name))
 
 
 def decode_mirror(words: np.ndarray, lengths: np.ndarray, K: int,
-                  order: int, name: str, stale_root: bool = False
+                  order: int, name: str, early_pair: bool = False
                   ) -> np.ndarray:
-    """L12's design, one lane at a time: the children's values and
-    predictions read before the bit resolves and the parent's store,
-    which is sound because a byte's 8 slots are distinct.  The negative
-    control (``stale_root``) reads a byte's root as it stood before the
-    byte before it, a read across bytes moved too early."""
-    init, prob, nxt = _np_pred(name)
-    L = lengths.size
-    off = np.concatenate([[0], np.cumsum(lengths)[:-1]])
-    out = np.zeros((K, L), np.uint8)
-    for l in range(L):
-        n = int(max(0, min(lengths[l], 8 * K + 2, words.size - off[l])))
-        src = words[off[l]:off[l] + n].astype(np.int64) & 0xFFFF
-
-        def w(p):
-            return int(src[p]) if p < n else 0
-        state, pos, nxtw = (w(0) << 16) | w(1), 2, w(2)
-        tab, ctx, before = {}, 0, {}
-        for t in range(K):
-            base = ctx << 8 if order else 0
-            v = (before if stale_root else tab).get(base | 1, init)
-            before = dict(tab)
-            p = _clamp(prob(v))
-            node = 1
-            for d in range(8):
-                if d < 7:
-                    v0 = tab.get(base | 2 * node, init)
-                    v1 = tab.get(base | 2 * node + 1, init)
-                value = state & 0x7FFF
-                bit = int(value < p)
-                f, lo = (p, 0) if bit else (32768 - p, p)
-                state = (f * (state >> 15) + value - lo) & 0xFFFFFFFF
-                tab[base | node] = nxt(v, p, bit)
-                if state < 1 << 15:
-                    state = ((state << 16) | nxtw) & 0xFFFFFFFF
-                    pos += 1
-                    nxtw = w(pos)
-                node = 2 * node + bit
-                if d < 7:
-                    v = v1 if bit else v0
-                    p = _clamp(prob(v))
-            out[t, l] = node & 255
-            if order:
-                ctx = node & 255
-    return out
+    """L12's design (``test_torch_bit_step.decode_mirror``), one lane at a
+    time: order 1's rows read a line at a time, order 0's a decision's
+    grandchildren at a time, a child's value and prediction picked as soon
+    as its parent's bit resolves, each update stored two decisions later.
+    The negative control (``early_pair``) reads too early: order 1's pair
+    region of depths 5-7 when the byte starts, order 0's next head at
+    decision 3, before the stores they need."""
+    return step_decode_mirror(words, lengths, K, order, Pred(name),
+                              early=early_pair)
 
 
 MIRROR = [(o, n) for o in (0, 1) for n in ("s", "ss", "sf")]
@@ -381,9 +321,11 @@ def test_model_depth_chains_equal_plain(order, name):
 
 @pytest.mark.parametrize("order,name", MIRROR)
 def test_decode_children_read_equal_plain(order, name):
-    """L12's read of both children before the bit resolves decodes the
-    plain decode's bytes, on a sound stream and on corrupt ones (flipped
-    words, a length table cut short)."""
+    """L12's reads (a row a line at a time, both children's values and
+    predictions at hand before the bit resolves) decode the plain
+    decode's bytes, on a sound stream and on corrupt ones (flipped words,
+    a length table cut short); read too early, the pair region does
+    not."""
     K, L = 16, 4
     cols = torch.from_numpy(_mirror_cols(K, L, 5))
     pred = bitpred.make(name, device="cpu")
@@ -404,7 +346,7 @@ def test_decode_children_read_equal_plain(order, name):
     assert torch.equal(BK.lane_bit_decode_plain(words, ln, K, order, pred),
                        cols)
     bad = decode_mirror(words.numpy(), ln.numpy().astype(np.int64), K,
-                        order, name, stale_root=True)
+                        order, name, early_pair=True)
     assert not np.array_equal(bad, cols.numpy())
 
 
@@ -443,8 +385,8 @@ def test_constants_match_source():
     assert _const("kBitDLanes") == BK.BIT_DECODE_LANES
     assert _const("kCtxSlots") == BK.BIT_CTX_SLOTS
     assert _const("kMaxRate") == bitpred.MAX_RATE
-    assert BK.bit_launch(512) == (256, 16)
-    assert BK.bit_launch(512, decode=True) == (8, 64)
+    assert BK.bit_launch(512) == (256, 128)
+    assert BK.bit_launch(512, decode=True) == (256, 128)
 
 
 @pytest.mark.parametrize("name", sorted(build.SIGNATURES[

@@ -178,11 +178,13 @@ extern "C" int trc_split_read(void* out) {
 
 def stamped(source: str, loop_in: str, stamps: list,
             second: str | None = None,
-            loop_head: str = "for (int t = 0; t < K; ++t) {") -> str:
+            loop_head: str = "for (int t = 0; t < K; ++t) {",
+            prelude: bool = True) -> str:
     """The source with clock64() stamps (``STAMPS``' form) in the byte
     loop (``loop_head``, at two spaces' indent) of the function that
     starts at ``loop_in``, for thread 0 of CTA 0 and, with ``second`` (a C
-    expression), that thread too (its sums at ``trc_split_acc[16:]``)."""
+    expression), that thread too (its sums at ``trc_split_acc[16:]``).
+    ``prelude`` False: a second loop of a source stamped already."""
     head, sep, rest = source.partition('#include "rans_common.cuh"\n')
     if not sep:
         raise ValueError("rans_common.cuh include not found")
@@ -202,7 +204,9 @@ def stamped(source: str, loop_in: str, stamps: list,
         body = (body[:eol] + f"\n    TRC_STAMP({seg}, {val});"
                 + body[eol:])
     define = f"#define TRC_SECOND {second}\n" if second else ""
-    return (head + sep + define + PRELUDE + rest[:loop]
+    if not prelude:
+        define = ""
+    return (head + sep + define + (PRELUDE if prelude else "") + rest[:loop]
             + "TRC_SPLIT_BEGIN\n  "
             + body + "  TRC_SPLIT_END\n" + rest[end:])
 
@@ -2183,6 +2187,342 @@ def probe_io(opt, dev, res: dict, work: Path) -> dict:
     return res
 
 
+# L11 (``--kernel lane_bit_model``) and L12 (``--kernel lane_bit_decode``):
+# the bitwise byte-tree kernels of rans_bit_kernel.cu at every (predictor,
+# order) of ids 1, 2, 101-104, on one 4 MB block of textbwt at the default
+# CodecConfig (512 lanes, K = 8192).  Two layouts, told apart by the
+# source: "first" (fdd1d6f's design: L11 a warp a depth on CTAs of 32
+# lanes, each byte read from device memory at every step and each slot
+# read after the last store; L12 a thread a lane on CTAs of 8, both
+# children read while a bit resolves, the FSM's probability a table read
+# on the chain) and "line" (the port's: L11 a warp of 4 lanes x 8 depths,
+# the bytes a chunk ahead, the slots read kAhead steps ahead and
+# forwarded; L12 4 lanes a CTA, a row read a line at a time, FSM slots
+# (p << 16) | state, the tables in shared memory).  Stamps for thread 0 of
+# CTA 0 (L11: depth 0 of lane 0, and the thread of depth 7 of lane 0);
+# variants are held byte for byte against the base build, the base against
+# the port's kernel (``equal_to_port``); ablations are timed only, and
+# "rows-4" (order 1: the context taken mod 4, four rows a lane) stands in
+# for the table's L2 hit rate, which the card's tools do not report here.
+BIT_CASES = (("s", 0), ("ss", 0), ("sf", 0), ("s", 1), ("ss", 1),
+             ("sf", 1))
+BIT_LAYOUT = {"first": "const int b = src[size_t(t) * L];",
+              "line": "constexpr int kAhead0 = "}
+BIT_SECTION = ("constexpr int kBitLanes", "bool pow2(int v")
+# The FSM read from the table in device memory (through L1 / L2) instead
+# of the CTA's copy in shared memory: the same values.
+BIT_FSM_GLOBAL = [
+    ("return pq[v];", "return clamp_p(__ldg(tab + v));"),
+    ("return nx[2 * v + bit];",
+     "const uint32_t s = uint32_t(__ldg(tab + (1 + bit) * S + v));\n"
+     "    return s < uint32_t(S) ? s : uint32_t(S - 1);"),
+    ("return nx[2 * (v & 0xFFFFu) + bit];",
+     "const uint32_t s =\n        uint32_t(__ldg(tab + (1 + bit) * S + "
+     "(v & 0xFFFFu)));\n    return s < uint32_t(S) ? s : uint32_t(S - 1);"),
+    ("return uint32_t(pq[s]) << 16 | s;",
+     "return uint32_t(clamp_p(__ldg(tab + s))) << 16 | s;")]
+BIT_SPLIT = {
+    ("lane_bit_model", "first"): dict(
+        second="224",
+        stamps=[("const int b = src[size_t(t) * L];", 1, 0, "b"),
+                ("const uint32_t v = tab[slot];", 1, 1, "int(v)"),
+                ("const int p = clamp_p(pred.prob(v));", 1, 2, "p"),
+                ("tab[slot] = pred.next(v, p, bit);", 1, 3, "0"),
+                ("out[size_t(8) * t * L] = bit ? p : (p << 16) | "
+                 "(kTotal - p);", 1, 4, "0")],
+        segments=["byte read (device memory, every step)",
+                  "slot read (after the last store)",
+                  "prediction (sf: the FSM's prob read)",
+                  "update and slot store (sf: the FSM's next read)",
+                  "probs store"],
+        variants={},
+        ablations={
+            "no-byte": [("const int b = src[size_t(t) * L];",
+                         "const int b = (t * 37 + l) & 255;")],
+            "no-slot-read": [("const uint32_t v = tab[slot];",
+                              "const uint32_t v = pred.init() ^ "
+                              "uint32_t(slot & 7);")],
+            "no-fsm": [("const int p = clamp_p(pred.prob(v));",
+                        "const int p = clamp_p(int(v & 32767));"),
+                       ("tab[slot] = pred.next(v, p, bit);",
+                        "tab[slot] = v ^ uint32_t(bit);")],
+            "no-store": [("tab[slot] = pred.next(v, p, bit);", "")],
+            "no-probs": [("out[size_t(8) * t * L] = bit ? p : (p << 16) | "
+                          "(kTotal - p);", "if (p == -1) out[0] = 0;")],
+            "rows-4": [("const int slot = (kOrder ? ctx << 8 : 0)",
+                        "const int slot = (kOrder ? (ctx & 3) << 8 : 0)")]}),
+    ("lane_bit_model", "line"): dict(
+        second="28",
+        loop_head="auto half = [&](int t0, auto hi, auto guard) {",
+        stamps=[("const int p = pr.prob(v);", 1, 0, "p"),
+                ("const uint32_t nv = pr.next(v, p, bit);", 1, 1, "int(nv)"),
+                ("tab[sl[r]] = nv;", 1, 2, "0"),
+                ("plan(kH + j + kA < 32 ? cur : nxt, (kH + j + kA) & 31, "
+                 "sl[r], bt[r]);", 1, 3, "sl[r]"),
+                ("rv[r] = tab[sl[r]];  // after this step's store", 1, 4,
+                 "0")],
+        segments=["slot value (read kAhead steps before, forward picks), "
+                  "prediction (sf: a table read in shared memory)",
+                  "update (sf: a table read in shared memory)",
+                  "probs and slot stores",
+                  "plan of step t + kAhead (a shuffle)",
+                  "its slot read issued"],
+        variants={
+            "ahead0-1": [("constexpr int kAhead0 = 2;",
+                          "constexpr int kAhead0 = 1;")],
+            "ahead0-4": [("constexpr int kAhead0 = 2;",
+                          "constexpr int kAhead0 = 4;")],
+            "ahead1-4": [("constexpr int kAhead1 = 8;",
+                          "constexpr int kAhead1 = 4;")],
+            "ahead1-16": [("constexpr int kAhead1 = 8;",
+                           "constexpr int kAhead1 = 16;")],
+            "fsm-global": BIT_FSM_GLOBAL},
+        ablations={
+            "no-forward": [("v = sl[r] == fs[i] ? fv[i] : v;", "")],
+            "no-read": [("rv[r] = tab[sl[r]];  // after this step's store",
+                         "rv[r] = pr.init() ^ uint32_t(sl[r] & 7);")],
+            "no-store": [("tab[sl[r]] = nv;", "")],
+            "no-probs": [("*out = bit ? p : (p << 16) | (kTotal - p);",
+                          "if (p == -1) *out = 0;")],
+            "rows-4": [("slot = (kOrder ? prev << 8 : 0)",
+                        "slot = (kOrder ? (prev & 3) << 8 : 0)")]}),
+    ("lane_bit_decode", "first"): dict(
+        stamps=[("v1 = row[2 * node + 1];", 1, 0, "int(v0 + v1)"),
+                ("p1 = clamp_p(pred.prob(v1));", 1, 1, "p0 + p1"),
+                (": uint32_t(kTotal - p) * (state >> 15) + value - "
+                 "uint32_t(p);", 1, 2, "int(state)"),
+                ("row[node] = pred.next(v, p, bit);", 1, 3, "0"),
+                ("node = 2 * node + bit;", 1, 4, "int(state)"),
+                ("dst[size_t(t) * L] = uint8_t(byte);", 1, 5, "byte")],
+        segments=["children's slot reads (and the row's root, a byte)",
+                  "children's predictions (sf: the FSM's prob reads)",
+                  "bit and state step", "update and slot store (sf: the "
+                  "FSM's next read)", "renorm and word read",
+                  "byte store, context"],
+        variants={},
+        ablations={
+            "no-children": [("v0 = row[2 * node];", "v0 = v + 1;"),
+                            ("v1 = row[2 * node + 1];", "v1 = v + 2;")],
+            "no-fsm": [("p0 = clamp_p(pred.prob(v0));",
+                        "p0 = clamp_p(int(v0 & 32767));"),
+                       ("p1 = clamp_p(pred.prob(v1));",
+                        "p1 = clamp_p(int(v1 & 32767));")],
+            "no-word": [("        next = pos < nw ? uint32_t(src[pos]) : 0u;",
+                         "        next = uint32_t(pos) & 0xFFFFu;")],
+            "no-store": [("row[node] = pred.next(v, p, bit);", "")],
+            "no-byte-store": [("dst[size_t(t) * L] = uint8_t(byte);",
+                               "if (byte == 256) dst[0] = 0;")],
+            "rows-4": [("uint32_t* row = tab + (kOrder ? ctx << 8 : 0);",
+                        "uint32_t* row = tab + (kOrder ? (ctx & 3) << 8 "
+                        ": 0);")]}),
+    ("lane_bit_decode", "line"): dict(
+        stamps=[("kids(h0.z, h0.w);", 1, 0, "int(c0 + c1)"),
+                ("const Upd u2{hrow + 4 + 2 * b0 + b1, pr.dnext1(v, p, b2)};",
+                 1, 1, "int(u2.v)"),
+                ("kids(b2 ? z.z : z.x, b2 ? z.w : z.y);", 1, 2,
+                 "int(c0 + c1)"),
+                ("for (int i = 0; i < 14; ++i) H[i] = b3 ? Q[14 + i] : Q[i];",
+                 1, 3, "int(H[0] + H[13])"),
+                ("u7 = Upd{half + 6 + 4 * b4 + 2 * b5 + b6, "
+                 "pr.dnext1(v, p, b7)};", 1, 4, "int(u7.v)"),
+                ("    ctx = byte;", 1, 5, "byte")],
+        # order 0's loop (decode_o0), stamped too
+        stamps_o0=[("const int b = st.bit(p);", 1, 0, "b"),
+                   ("U = Upd{row + node, pr.dnext1(v, p, b)};", 1, 1,
+                    "int(U.v)"),
+                   ("p = pr.dprob(v);", 2, 2, "p"),
+                   ("if (d < 5) gc = ld4(row + 4 * node);", 1, 3, "0"),
+                   ("dst[size_t(t) * L] = uint8_t(node & 255);", 1, 4,
+                    "node")],
+        segments_o0=["bit and state step (waits on p)",
+                     "update under way, the one two decisions back stored",
+                     "the child picked, its prediction",
+                     "grandchildren's read issued (at decision 5 the next "
+                     "head's)", "byte store, ring refill"],
+        segments=["byte start: head and line A issued, the root's "
+                  "children (waits on the head)",
+                  "decisions 0-2 (state steps, picks, updates)",
+                  "pair region issued; line A's picks (waits on line A)",
+                  "decision 3; the pair region's half (waits on it)",
+                  "decisions 4-7", "byte store, context"],
+        variants={"dlanes-8": [("constexpr int kBitDLanes = 4;",
+                                "constexpr int kBitDLanes = 8;")],
+                  "fsm-global": BIT_FSM_GLOBAL},
+        ablations={
+            "no-word": [("return uint32_t(ring[(o + i) & (kRingW - 1)]);",
+                         "return uint32_t(i) & 0xFFFFu;")],
+            "no-store": [(f"*{f}.at = {f}.v;", "") for f in
+                         ("f6", "f7", "f0", "f1", "f2", "f3", "f4", "f5",
+                          "F")],
+            "no-fsm": [("return nx[2 * (v & 0xFFFFu) + bit];",
+                        "return (v & 0xFFFFu) ^ uint32_t(bit);"),
+                       ("return uint32_t(pq[s]) << 16 | s;",
+                        "return (s & 0x3FFFu) << 16 | s;")],
+            "pair-fixed": [("const uint32_t* pair = brow + kPairAt + kPair "
+                            "* j3;", "const uint32_t* pair = brow + "
+                            "kPairAt;")],
+            "rows-4": [("uint32_t* hrow = head + ctx * kHeadSlots;",
+                        "uint32_t* hrow = head + (ctx & 3) * kHeadSlots;"),
+                       ("uint32_t* brow = body + ctx * kBodySlots;",
+                        "uint32_t* brow = body + (ctx & 3) * kBodySlots;")]}),
+}
+
+
+def _bit_ptxas(report: str, kernel: str) -> dict:
+    """Registers, stack, spills and smem of each instantiation of
+    ``kernel`` (keys ``s,0`` ... ``sf,1``)."""
+    res, key = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line \
+                or "Function properties for" in line:
+            t = re.search(rf"{kernel}_kernel\w*?Pred(SS|SF|S)ELi(\d)E", line)
+            key = f"{t.group(1).lower()},{t.group(2)}" if t else None
+            if key:
+                res.setdefault(key, {})
+            continue
+        if key:
+            for name, pat in (("stack_bytes", r"(\d+) bytes stack frame"),
+                              ("spill_stores", r"(\d+) bytes spill stores"),
+                              ("spill_loads", r"(\d+) bytes spill loads"),
+                              ("registers", r"Used (\d+) registers"),
+                              ("smem", r"(\d+) bytes smem")):
+                m = re.search(pat, line)
+                if m:
+                    res[key][name] = int(m.group(1))
+    return res
+
+
+def _bit_inputs(kernel: str, name: str, order: int, dev, rot: int):
+    """(C arguments maker, the port's output, K) of one textbwt block at
+    the default CodecConfig for (predictor ``name``, ``order``):
+    make(out) -> the C entry's arguments."""
+    from turborc_tpu_torch.codecs import blockio
+    from turborc_tpu_torch.models import bitpred
+    from turborc_tpu_torch.ops import rans
+    from turborc_tpu_torch.ops import rans_bit_kernel as BK
+    from turborc_tpu_torch.ops import rans_lane_kernel as LK
+    from turborc_tpu_torch.utils.config import CodecConfig
+    cfg = CodecConfig()
+    x = np.roll(np.fromfile(LANE_CORPUS, np.uint8), rot)[:cfg.block_size]
+    block, K = blockio.shape_block(x, cfg.lanes, cfg.step_quant)
+    cols = torch.from_numpy(block).to(dev).T.contiguous()
+    pred = bitpred.make(name, device=dev)
+    probs = BK.lane_bit_model(cols, order, pred)
+    if kernel == "lane_bit_model":
+        return (lambda out: BK.lane_bit_model_cargs(cols, out, order,
+                                                    pred)), probs, K
+    init = torch.full((cfg.lanes,), rans.ANS_LOW, dtype=torch.int32,
+                      device=dev)
+    st, lens = LK.lane_coder(probs, init)
+    words = blockio.device_words(st, lens)
+    offs = LK._offsets(lens)
+    return (lambda out: BK.lane_bit_decode_cargs(
+        words, offs, lens, K, out, order, pred)), cols, K
+
+
+def probe_lane_bit(opt, dev, res: dict, work: Path) -> dict:
+    """L11 or L12 of the source in ``--src``: ptxas of every
+    instantiation, SASS, then per (predictor, order) the clock64() split
+    of the step and the bare C entry timed (a warm-up, then 3 repetitions
+    on distinct rotations of the block, every build in turn) for the base,
+    the stamped build, the layout's variants and the named ablations.  A
+    build a case cannot launch (too much shared memory) is reported, not
+    fatal."""
+    src = Path(opt.src).resolve()
+    base = (src / "rans_bit_kernel.cu").read_text()
+    header = (src / "rans_common.cuh").read_text()
+    layout = next(k for k, v in BIT_LAYOUT.items() if v in base)
+    res["layout"] = layout
+    plan = BIT_SPLIT[(opt.kernel, layout)]
+    variants = {"base": base,
+                "stamped": stamped(base, opt.kernel + "_kernel(",
+                                   plan["stamps"], second=plan.get("second"),
+                                   loop_head=plan.get(
+                                       "loop_head",
+                                       "for (int t = 0; t < K; ++t) {"))}
+    if "stamps_o0" in plan:
+        variants["stamped"] = stamped(variants["stamped"], "decode_o0(const",
+                                      plan["stamps_o0"], prelude=False)
+    for name, changes in plan["variants"].items():
+        variants[name] = _ablate(name, base, header, BIT_SECTION, changes)
+    for name in [x for x in opt.ablate.split(",") if x]:
+        variants[name] = _ablate(name, base, header, BIT_SECTION,
+                                 plan["ablations"][name])
+    exact = ("stamped", *plan["variants"])
+    libs, reports, res["nvcc_s"] = _build_all(variants, src, work,
+                                              "rans_bit_kernel.cu")
+    res["ptxas"] = {k: _bit_ptxas(v, opt.kernel) for k, v in reports.items()}
+    res["sass"] = _sass(libs["base"], opt.kernel)
+    entry = "trc_" + opt.kernel
+    # the port's kernels run first (they make the inputs), and the builds
+    # load after them
+    _bit_inputs(opt.kernel, "s", 0, dev, 0)
+    types = build.SIGNATURES["rans_bit_kernel.cu"][entry]
+    fns, loaded = {}, {}
+    for k, lib in libs.items():
+        loaded[k] = ctypes.CDLL(str(lib))
+        fns[k] = getattr(loaded[k], entry)
+        fns[k].argtypes, fns[k].restype = types, ctypes.c_int
+    res["cases"] = {}
+    for name, order in BIT_CASES:
+        segs = plan.get("segments_o0" if order == 0 else "segments",
+                        plan["segments"])
+        times = {k: [] for k in variants}
+        split = second = None
+        same, K = True, 0
+        for r in range(4):  # rep 0 is the warm-up
+            make, port, K = _bit_inputs(opt.kernel, name, order, dev,
+                                        7919 * (r + 1))
+            ref = None
+            for k, fn in fns.items():
+                print(f"probe {opt.kernel} {name},{order} rep {r}: {k}",
+                      file=sys.stderr, flush=True)
+                out = torch.empty_like(port)
+                try:
+                    ms = _bare(fn, make(out))
+                except RuntimeError as e:
+                    times[k] = str(e)
+                    continue
+                if k == "base":
+                    ref = out
+                    same = same and torch.equal(out, port)
+                elif k in exact and not torch.equal(out, ref):
+                    raise AssertionError(f"{k} differs from the base at "
+                                         f"{name},{order}")
+                if r and isinstance(times[k], list):
+                    times[k].append(ms)
+                if k == "stamped":
+                    acc = (ctypes.c_ulonglong * 32)()
+                    loaded[k].trc_split_read(ctypes.cast(acc,
+                                                         ctypes.c_void_p))
+                    split = [int(x) for x in acc[:len(segs)]]
+                    second = [int(x) for x in acc[16:16 + len(segs)]]
+                if k != "base":
+                    del out
+            del make, port, ref
+        per = K * (8 if opt.kernel == "lane_bit_decode" else 1)
+
+        def table(cyc):
+            total = sum(cyc)
+            return {"cycles_total": total, "cycles_per_step": total / K,
+                    "cycles_per_decision": total / (8 * K),
+                    "segments": [{"segment": segs[i], "cycles": c,
+                                  "per_step": c / K,
+                                  "share": c / max(total, 1)}
+                                 for i, c in enumerate(cyc)]}
+        case = {"K": K, "decisions": per, "equal_to_port": same,
+                "split": dict(thread="thread 0 of CTA 0", **table(split)),
+                "ms": times,
+                "mean_ms": {k: (sum(v) / len(v) if isinstance(v, list)
+                                else v) for k, v in times.items()}}
+        if plan.get("second"):
+            case["split_second"] = dict(
+                thread=f"thread {plan['second']} of CTA 0 (depth 7)",
+                **table(second))
+        res["cases"][f"{name},{order}"] = case
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=str(build.CSRC))
@@ -2191,7 +2531,8 @@ def main() -> int:
     ap.add_argument("--out", default="")
     ap.add_argument("--kernel", choices=("decode", "model", "coder",
                                          *SPLIT_KERNELS, *LANE_SPLIT,
-                                         *IO_KERNELS),
+                                         *IO_KERNELS, "lane_bit_model",
+                                         "lane_bit_decode"),
                     default="decode")
     opt = ap.parse_args()
     if not torch.cuda.is_available():
@@ -2207,15 +2548,18 @@ def main() -> int:
         res = {"label": label, "kernel": opt.kernel, "src": opt.src,
                "card": _smi(),
                "geom": GEOM if opt.kernel in ("model", "coder")
-               else "CodecConfig()" if opt.kernel in (*LANE_SPLIT,
-                                                      *IO_KERNELS)
+               else "CodecConfig()" if opt.kernel in (
+                   *LANE_SPLIT, *IO_KERNELS, "lane_bit_model",
+                   "lane_bit_decode")
                else Geom().spec}
         probe = {"model": probe_model, "coder": probe_coder,
                  **dict.fromkeys(SPLIT_KERNELS, probe_split),
                  **{k: {"o1": probe_lane_o1, "o1m": probe_lane_o1_model}.get(
                      v.get("probe"), probe_lane)
                     for k, v in LANE_SPLIT.items()},
-                 **dict.fromkeys(IO_KERNELS, probe_io)}[opt.kernel]
+                 **dict.fromkeys(IO_KERNELS, probe_io),
+                 **dict.fromkeys(("lane_bit_model", "lane_bit_decode"),
+                                 probe_lane_bit)}[opt.kernel]
         res = probe(opt, dev, res, work)
         text = json.dumps(res, indent=1)
         print(text)

@@ -25,15 +25,20 @@ freq`` (decision d of byte t at slot 8t + d), lane streams as ``words``
 ``DualSpeed`` (its rates) or ``Fsm`` (its table [3, S] int32 and start
 state, on the tensors' device).
 
-L11 runs a thread a lane and depth, a warp a depth, ``BIT_LANES`` lanes
-a CTA; L12 a thread a lane, ``BIT_DECODE_LANES`` lanes a CTA.  At order
-0 the slots lie in shared memory, at order 1 in a ``[L, 65536]`` int32
-scratch table the wrapper allocates (``BIT_CTX_SLOTS`` slots a lane,
-256 KB) and the C entry fills before its kernel; the wrappers refuse
-more than ``BIT_MAX_TABLE`` bytes of it.  A wrapper validates its
-inputs, then runs the plain version when they lie on the CPU and
-launches the kernel when they lie on a CUDA device; there is no fallback
-from one to the other.  ``launches[name]`` counts kernel launches only.
+A CTA of either kernel has ``BIT_SETUP`` threads, which load the FSM
+table into shared memory (at most ``BIT_MAX_STATES`` states, as u16)
+and set the shared slots; then L11 runs one warp, a thread a lane and
+depth, ``BIT_LANES`` lanes a CTA, and L12 a thread a lane,
+``BIT_DECODE_LANES`` lanes a CTA.  At order 0 the slots lie in shared
+memory, at order 1 (L12: but for the rows' first 7 nodes) in a ``[L,
+65536]`` int32 scratch table the wrapper allocates (``BIT_CTX_SLOTS``
+slots a lane, 256 KB) and the C entry fills before its kernel; the
+wrappers refuse more than ``BIT_MAX_TABLE`` bytes of it.  Each kernel
+lays its slots out its own way (``csrc/rans_bit_kernel.cu``).  A wrapper
+validates its inputs, then runs the plain version when they lie on the
+CPU and launches the kernel when they lie on a CUDA device; there is no
+fallback from one to the other.  ``launches[name]`` counts kernel
+launches only.
 """
 from __future__ import annotations
 
@@ -44,11 +49,14 @@ from turborc_tpu_torch.ops import binary
 from turborc_tpu_torch.ops import rans_lane_kernel as LK
 from turborc_tpu_torch.ops.rans_kernel import INT32_MAX, _check, launch
 
-# kBitLanes lanes a CTA of L11 (8 warps, one a depth); kBitDLanes lanes a
-# CTA of L12; kCtxSlots slots a lane at order 1
-BIT_LANES = 32
-BIT_DECODE_LANES = 8
+# kBitLanes lanes a CTA of L11 (a warp: 4 lanes x 8 depths); kBitDLanes
+# lanes a CTA of L12; kBitSetup threads a CTA of either; kCtxSlots slots a
+# lane at order 1; kMaxStates FSM states (u16 in shared memory)
+BIT_LANES = 4
+BIT_DECODE_LANES = 4
+BIT_SETUP = 256
 BIT_CTX_SLOTS = 65536
+BIT_MAX_STATES = 32768
 BIT_MAX_TABLE = 1 << 32  # bytes of order-1 scratch a launch may take
 KINDS = {bitpred.Simple: 0, bitpred.DualSpeed: 1, bitpred.Fsm: 2}
 
@@ -68,9 +76,7 @@ def ctx_slots(order: int) -> int:
 def bit_launch(L: int, decode: bool = False) -> tuple[int, int]:
     """(threads a CTA, CTAs) of L11 (or, with ``decode``, L12) on L
     lanes."""
-    if decode:
-        return BIT_DECODE_LANES, -(-L // BIT_DECODE_LANES)
-    return BIT_LANES * 8, -(-L // BIT_LANES)
+    return BIT_SETUP, -(-L // (BIT_DECODE_LANES if decode else BIT_LANES))
 
 
 # ---------------------------------------------------------------------------
@@ -139,8 +145,11 @@ def _check_pred(order: int, pred, L: int, device) -> None:
     if isinstance(pred, bitpred.Fsm):
         t = pred.table
         if not isinstance(t, torch.Tensor) or t.dim() != 2 or \
-                t.shape[0] != 3 or not 1 <= t.shape[1] <= INT32_MAX // 3:
+                t.shape[0] != 3 or t.shape[1] < 1:
             raise ValueError("Fsm table: expected a [3, S] tensor")
+        if t.shape[1] > BIT_MAX_STATES:
+            raise ValueError(f"Fsm table of {t.shape[1]} states: the kernels "
+                             f"hold at most {BIT_MAX_STATES}")
         _check("Fsm table", t, torch.int32, tuple(t.shape), device)
         if not 0 <= pred.start < t.shape[1]:
             raise ValueError(f"Fsm start state {pred.start}: not a state")
@@ -191,13 +200,16 @@ def lane_bit_model_cargs(cols, probs, order: int, pred) -> list:
 def lane_bit_decode(words: torch.Tensor, lengths: torch.Tensor, K: int,
                     order: int, pred) -> torch.Tensor:
     """L12: lane streams (words [W] int16, lengths [L] int32) -> bytes
-    [K, L] uint8."""
+    [K, L] uint8.  The kernel reads ``words`` 16 bytes at a time: words
+    on the card that do not start on 16 bytes are copied first."""
     L = LK._check_streams(words, lengths, K)
     if 8 * K + 2 > INT32_MAX:
         raise ValueError(f"K = {K}: out of range")
     _check_pred(order, pred, L, words.device)
     if not words.is_cuda:
         return lane_bit_decode_plain(words, lengths, K, order, pred)
+    if words.data_ptr() % 16:  # the kernel copies 16-byte units of words
+        words = words.clone()
     out = torch.empty((K, L), dtype=torch.uint8, device=words.device)
     launch("lane_bit_decode", "trc_lane_bit_decode",
            *lane_bit_decode_cargs(words, LK._offsets(lengths), lengths, K,

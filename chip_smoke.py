@@ -38,10 +38,10 @@ order) (``lane-bit-kernels-vs-plain``) at the full shape of a default
 4 MB block, the plain versions on the host, then on runs, alternations,
 all 256 bytes in turn, bytes whose depth-4 nodes are siblings, K of 1,
 7, 9 and 37, extreme CDFs and predictor rates, a random FSM table and
-corrupt streams, and the bitwise wrappers must refuse an FSM past 32,768
-states.  With ``--before COMMIT``, L5-L8, L11 and L12 are timed in turns
-against those of a ``git archive COMMIT`` unpacked in
-``_archive/COMMIT/``.  It imports no JAX
+corrupt streams, the bitwise wrappers must refuse an FSM past 32,768
+states and L10's static wrapper a cdf that is not non-decreasing from 0
+to 2^15.  With ``--before COMMIT``, L5-L12 are timed in turns against
+those of a ``git archive COMMIT`` unpacked in ``_archive/COMMIT/``.  It imports no JAX
 and nothing of ``turborc_tpu``; the corpora under
 ``turborc_tpu/bench/_data/`` are read as files.
 
@@ -80,11 +80,16 @@ BENCH_GEOM_X2 = BENCH_GEOM + "x2"
 # _archive/COMMIT/ (a git archive of COMMIT unpacked there) that hold the
 # kernels in REDESIGNED and times those against the current ones.  Their
 # C signatures there, as (pointers, ints) before the stream: those of
-# fdd1d6f, the same as now.  Without it the phase is skipped.
+# 1b4e577, the same as now.  Without it the phase is skipped.
 BEFORE_FLAG = "--before"
 BEFORE_ARGS = {"trc_lane_o1r_model": (4, 3), "trc_lane_o1r_decode": (6, 4),
                "trc_lane_o1_model": (2, 2), "trc_lane_o1_decode": (4, 3),
-               "trc_lane_bit_model": (4, 8), "trc_lane_bit_decode": (6, 9)}
+               "trc_lane_bit_model": (4, 8), "trc_lane_bit_decode": (6, 9),
+               "trc_lane_nibble_model": (2, 2),
+               "trc_lane_nibble_decode": (5, 3)}
+# The C entry of a kernel where it is not trc_<kernel>: L10's static
+# instantiation shares the adaptive one's.
+ENTRY = {"lane_nibble_static_decode": "trc_lane_nibble_decode"}
 ARCHIVE = ROOT / "_archive"
 CSRC_REL = "turborc_tpu_torch/ops/csrc"
 CHILD_FLAG = "--child"
@@ -135,7 +140,9 @@ REPLACES = {
 }
 # Kernels timed against a parent's with --before.
 REDESIGNED = ("lane_o1r_model", "lane_o1r_decode", "lane_o1_model",
-              "lane_o1_decode", "lane_bit_model", "lane_bit_decode")
+              "lane_o1_decode", "lane_bit_model", "lane_bit_decode",
+              "lane_nibble_model", "lane_nibble_decode",
+              "lane_nibble_static_decode")
 # Each path's kernels in stage order: model, coder, place, decode.
 KERNELS = {"o0": ("model", "coder", "place", "decode"),
            "o1": ("o1_model", "coder", "place", "o1_decode"),
@@ -849,10 +856,10 @@ def phase_before_after(dev, before: str | None, libs: dict) -> dict:
     """L5-L8 of commit ``before`` against the current ones, on one 4 MB
     block of realsrcbwt at the default CodecConfig as ids 59 and 64 shape
     it (id 59: 512 lanes, K = 8192, 16 segments; id 64: 128 lanes, K =
-    32,768), and L11 and L12 at every (predictor, order) of BIT on one
-    4 MB block of textbwt at the default (512 lanes, K = 8192): the models
-    on its bytes, the decodes on the streams the current models and L2
-    write.  A warm-up, then 3 repetitions on distinct rotations, the two
+    32,768), and L11 and L12 at every (predictor, order) of BIT and L9
+    and both L10s (ids 41 and 40) on one 4 MB block of textbwt at the
+    default (512 lanes, K = 8192): the models on its bytes, the decodes on
+    the streams the current models (id 40: its gather) and L2 write.  A warm-up, then 3 repetitions on distinct rotations, the two
     builds in turns (before first on odd repetitions), CUDA events around
     the bare C entry of each: outputs (and order 1's tables) are allocated
     beforehand, and a new allocator segment inside a span fails the
@@ -868,6 +875,7 @@ def phase_before_after(dev, before: str | None, libs: dict) -> dict:
     from turborc_tpu_torch.ops import rans_bit_kernel as BK
     from turborc_tpu_torch.ops import rans_lane_kernel as LK
     from turborc_tpu_torch.ops import rans_lane_o1_kernel as LO
+    from turborc_tpu_torch.ops import rans_nibble_kernel as NK
     from turborc_tpu_torch.utils.config import CodecConfig
     label = "timing-before-after"
     phase(label)
@@ -876,8 +884,9 @@ def phase_before_after(dev, before: str | None, libs: dict) -> dict:
         return {}
     fns = {}
     for name, path in libs.items():  # that commit's signatures
-        fn = getattr(ctypes.CDLL(str(path)), "trc_" + name)
-        ptrs, ints = BEFORE_ARGS["trc_" + name]
+        entry = ENTRY.get(name, "trc_" + name)
+        fn = getattr(ctypes.CDLL(str(path)), entry)
+        ptrs, ints = BEFORE_ARGS[entry]
         fn.argtypes = ([ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -889,6 +898,8 @@ def phase_before_after(dev, before: str | None, libs: dict) -> dict:
           for c, (m, _, d) in LANE_O1.items()}
     ms.update({c: {k: {"before": [], "after": []} for k in BIT_KERNELS
                    if k != "lane_coder"} for c in BIT})
+    ms.update({c: {k: {"before": [], "after": []} for k in ks
+                   if k != "lane_coder"} for c, ks in NIBBLE.items()})
 
     def timed(fn, cargs) -> float:
         cargs = [x.data_ptr() if isinstance(x, torch.Tensor) else x
@@ -951,7 +962,8 @@ def phase_before_after(dev, before: str | None, libs: dict) -> dict:
         for who in (("before", "after") if r % 2 else ("after", "before")):
             out = torch.empty_like(want)
             cargs = make(out)
-            fn = build.load()["trc_" + name] if who == "after" else fns[name]
+            fn = (build.load()[ENTRY.get(name, "trc_" + name)]
+                  if who == "after" else fns[name])
             t = timed(fn, cargs)
             if r:
                 ms[codec][name][who].append(t)
@@ -977,6 +989,26 @@ def phase_before_after(dev, before: str | None, libs: dict) -> dict:
                 BK.lane_bit_decode_cargs(words, offs, lens, K, out, order,
                                          pred)), cols)
             del cols, probs, words, offs, lens
+    for r in range(4):  # L9 and both L10s; rep 0 is the warm-up
+        cols, K = _default_block(np.roll(text, 7919 * (r + 1))[:B], dev)
+        init = torch.full((cols.shape[1],), rans.ANS_LOW, dtype=torch.int32,
+                          device=dev)
+        probs = NK.lane_nibble_model(cols)
+        turns("rc4", "lane_nibble_model", r, lambda out: (
+            NK.lane_nibble_model_cargs(cols, out)), probs)
+        for codec, name in (("rc4", "lane_nibble_decode"),
+                            ("rc4c", "lane_nibble_static_decode")):
+            cdf = None
+            if codec == "rc4c":
+                probs, cdf = _nibble_static_probs(cols, dev)
+            st, lens = LK.lane_coder(probs, init)
+            words = blockio.device_words(st, lens)
+            offs = LK._offsets(lens)
+            del st
+            turns(codec, name, r, lambda out: (NK.lane_nibble_decode_cargs(
+                words, offs, lens, K, cdf, out)), cols)
+            del words, offs, lens
+        del cols, probs
     log(f"{label} " + json.dumps(dict(before=before, ms=ms)))
     return ms
 
@@ -1649,7 +1681,25 @@ def phase_lane_nibble_kernels(dev, started: dict) -> dict:
     gen = torch.Generator().manual_seed(20261018)
     cdfs = {"symbol 0 holds all but 15": [(1 << 15) - 15] + [1] * 15,
             "frequencies 0 between": [0, 9000, 0, 0, 7000, 1] + [0] * 9
-            + [(1 << 15) - 16001]}
+            + [(1 << 15) - 16001],
+            "last frequency 0": [2048] * 14 + [(1 << 15) - 14 * 2048, 0],
+            "one symbol (0)": [1 << 15] + [0] * 15,
+            "one symbol (7)": [0] * 7 + [1 << 15] + [0] * 8,
+            "one symbol (15)": [0] * 15 + [1 << 15]}
+    # cdfs that are not non-decreasing from 0 to 2^15: the wrapper refuses
+    # them on the card as on the CPU
+    for bad in ([1] + [1 << 15] * 16, list(range(0, 17 * 2000, 2000)),
+                [0, 9000, 8000] + [1 << 15] * 14):
+        c_ = torch.tensor(bad, dtype=torch.int32, device=dev)
+        try:
+            NK.lane_nibble_static_decode(
+                torch.zeros(8, dtype=torch.int16, device=dev),
+                torch.full((4,), 2, dtype=torch.int32, device=dev), 2, c_)
+        except ValueError:
+            continue
+        raise AssertionError(f"L10 static accepted the cdf {bad}")
+    log("lane nibble kernels: L10's static wrapper refuses 3 cdfs that are "
+        "not non-decreasing from 0 to 2^15")
     for what, L_, K_ in LANE_NEW_EDGE:
         x = torch.from_numpy(_edge_cols(what, K_, L_, rng, text))
         c = x.to(dev)
@@ -1681,8 +1731,9 @@ def phase_lane_nibble_kernels(dev, started: dict) -> dict:
                                  f"differs from plain: {err}")
         log(f"lane nibble kernels {what} L={L_} K={K_}: equal to plain, "
             f"tolerance 0 (max abs err 0 on {len(err)} comparisons: L9; "
-            "L10 adaptive and static on the block's, a one-symbol and a "
-            "zero-frequency CDF; sound and corrupt streams)")
+            "L10 adaptive and static on the block's CDF, one where symbol 0 "
+            "holds all but 15, zero frequencies first, between and last, and "
+            "one symbol (0, 7, 15); sound and corrupt streams)")
     full_err, plain_ms = _held("lane-nibble-kernels-vs-plain", jobs, kern,
                                futures)
     log(f"lane nibble kernels L={L} K={K} (full shape): equal to plain, "
@@ -2235,10 +2286,12 @@ def _lane_new_rows(timed: dict, launches: dict, before: dict) -> list:
     from turborc_tpu_torch.ops import rans_bit_kernel as BK
     from turborc_tpu_torch.ops import rans_nibble_kernel as NK
     rows = []
-    cases = [(k, k, c, dict(T=NK.NIB_TEAM, CTAs=NK.nib_launch(
-        timed[c]["L"])[1])) for k, c in (
-            ("lane_nibble_model", "rc4"), ("lane_nibble_decode", "rc4"),
-            ("lane_nibble_static_decode", "rc4c"))]
+    cases = []
+    for k, c in (("lane_nibble_model", "rc4"), ("lane_nibble_decode", "rc4"),
+                 ("lane_nibble_static_decode", "rc4c")):
+        threads, ctas = NK.nib_launch(timed[c]["L"],
+                                      decode=k != "lane_nibble_model")
+        cases.append((k, k, c, dict(threads=threads, CTAs=ctas)))
     for codec, (order, pred) in BIT.items():
         for k in ("lane_bit_model", "lane_bit_decode"):
             threads, ctas = BK.bit_launch(timed[codec]["L"],
@@ -2424,8 +2477,8 @@ def _args(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(CHILD_FLAG, action="store_true", help=argparse.SUPPRESS)
     ap.add_argument(BEFORE_FLAG, metavar="COMMIT",
-                    help="also time L5-L8, L11 and L12 of the git archive "
-                    "of COMMIT unpacked in _archive/COMMIT/")
+                    help="also time L5-L12 of the git archive of COMMIT "
+                    "unpacked in _archive/COMMIT/")
     return ap.parse_args(argv)
 
 

@@ -177,3 +177,23 @@ def test_tree_convert_no_device_means_cuda_and_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         convert.tree_from_jax(tree)
     assert convert.tree_from_jax(tree, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("codec", ["rc4", "rc4c", "rc-o0"])
+def test_nibble_bit_codecs_no_device_means_cuda_and_raises(codec,
+                                                            monkeypatch):
+    """The nibble codecs (ids 41, 40) and the bitwise ones (id 1 for
+    them) default to the card too."""
+    from turborc_tpu_torch import CodecConfig, api
+    from turborc_tpu_torch.codecs import registry
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = CodecConfig(codec=codec, lanes=16, step_quant=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.compress(b"abc", cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        registry.get(codec).encode_block(np.zeros(10, np.uint8), lanes=16,
+                                         step_quant=16)
+    blob = api.compress(b"abc", cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.decompress(blob)
+    assert api.decompress(blob, device="cpu") == b"abc"

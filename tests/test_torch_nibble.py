@@ -191,10 +191,16 @@ def test_api_round_trip():
 
 def test_constants_match_source():
     for name, value in (("kNibTeam", NK.NIB_TEAM),
-                        ("kNibThreads", NK.NIB_THREADS)):
+                        ("kNibLanes", NK.NIB_LANES)):
         m = re.search(rf"constexpr int {name} = ([^;]+);", SRC)
         assert m and int(m.group(1)) == value, name
-    assert NK.nib_launch(512) == (128, 64)
+    for name, value in (("kNibModelThreads", "kNibLanes * kNibTeam"),
+                        ("kNibDecodeThreads", "kNibLanes * 32")):
+        m = re.search(rf"constexpr int {name} = ([^;]+);", SRC)
+        assert m and m.group(1) == value, name
+    assert NK.nib_launch(512) == (64, 128)
+    assert NK.nib_launch(512, decode=True) == (128, 128)
+    assert NK.nib_launch(2) == (64, 1)
 
 
 def test_cargs_fit_the_signatures():
@@ -241,6 +247,13 @@ _LN = torch.full((8,), 5, dtype=torch.int32)
         _W, _LN, 4, torch.zeros((16,), dtype=torch.int32))),
     ("L10 static cdf dtype", lambda: NK.lane_nibble_static_decode(
         _W, _LN, 4, torch.zeros((17,), dtype=torch.int64))),
+    ("L10 static cdf not from 0", lambda: NK.lane_nibble_static_decode(
+        _W, _LN, 4, torch.arange(17, dtype=torch.int32) * 2048 + 1)),
+    ("L10 static cdf not to 2^15", lambda: NK.lane_nibble_static_decode(
+        _W, _LN, 4, torch.arange(17, dtype=torch.int32) * 2000)),
+    ("L10 static cdf decreasing", lambda: NK.lane_nibble_static_decode(
+        _W, _LN, 4, torch.tensor([0, 9000, 8000] + [1 << 15] * 14,
+                                 dtype=torch.int32))),
 ])
 def test_wrappers_refuse(what, call):
     with pytest.raises(ValueError):

@@ -30,14 +30,20 @@ probe makes its inputs with the tree it runs from).  With ``--kernel
 lane_o1r_model`` or ``--kernel lane_o1_model``, L5 or L7 on the same
 blocks: the split, ptxas, SASS, the variants (held byte for byte) and
 ablations of ``LANE_O1M_STAMPS`` (``probe_lane_o1_model``); ``--src`` may
-also be the ``csrc`` of af5a925, whose first design it tells apart.
+also be the ``csrc`` of af5a925, whose first design it tells apart.  With
+``--kernel lane_bit_model`` or ``--kernel lane_bit_decode``, L11 or L12
+(``probe_lane_bit``, ``BIT_SPLIT``); with ``--kernel lane_nibble_model``
+or ``--kernel lane_nibble_decode``, L9 or L10 (adaptive and static) on a
+4 MB textbwt block (``probe_lane_nibble``, ``NIB_SPLIT``); run a copy of
+the probe from a parent's archive to split 1b4e577's first design.
 
     python3 tools/decode_probe.py [--src DIR] [--ablate no-rejoin,...]
         [--label NAME] [--out FILE]
         [--kernel decode|model|o1_decode|coder|o1_model|tree_decode|
                   tree_model|lane_model|lane_decode|lane_coder|
                   lane_static_decode|lane_o1r_decode|lane_o1_decode|
-                  lane_o1r_model|lane_o1_model]
+                  lane_o1r_model|lane_o1_model|lane_bit_model|
+                  lane_bit_decode|lane_nibble_model|lane_nibble_decode]
 
 ``--src`` is a ``csrc`` directory: the port's own (the default), or that
 of commit ff11eb3 (a ``git archive ff11eb3`` unpacked into a git-ignored
@@ -2523,6 +2529,345 @@ def probe_lane_bit(opt, dev, res: dict, work: Path) -> dict:
     return res
 
 
+# L9 (``--kernel lane_nibble_model``) and L10 (``--kernel
+# lane_nibble_decode``): the nibble kernels of rans_lane_kernel.cu on one
+# 4 MB block of textbwt at the default CodecConfig (512 lanes, K = 8192):
+# L9 on its bytes (id 41), L10 adaptive (id 41) and static (id 40) on the
+# streams the port's models and L2 write.  Two layouts, told apart by the
+# source: "first" (1b4e577's design: L1 / L3's team of 16 threads a lane,
+# 8 lanes a CTA; L9 a lookup by two shuffles and an update whose
+# predicate waits on them, a byte read in a branch every 16 steps; L10 a
+# ballot + popc search, two shuffles, the state step and a renorm with a
+# branch at each chunk edge, then the update) and "lanes4" (the port's:
+# 4 lanes a CTA; L9 the update by the known symbol, the lookups read
+# from the table's rows staged in shared memory after each half of 16
+# steps, a chunk's bytes one u32 read; L10 a warp a lane, the adaptive
+# search one redux.sync over (c_j << 16 | c_{j-1}), both update
+# candidates computed while it runs, the static step one load of a
+# value-indexed table, the words moved every 8 bytes).  Stamps for thread
+# 0 of CTA 0; variants are held byte for byte against the base build, the
+# base against the port's kernel (``equal_to_port``); ablations are timed
+# only.
+NIB_CASES = {"lane_nibble_model": (("rc4", False),),
+             "lane_nibble_decode": (("rc4", False), ("rc4c", True))}
+NIB_LAYOUT = {"first": "int c[1] = {j << (15 - 4)};  // cdf16.init",
+              "lanes4": "constexpr int kNibLanes = 4;"}
+NIB_SECTION = ("// L3's reader, the same words", "bool pow2(int v")
+NIB_SPLIT = {
+    ("lane_nibble_model", "first"): dict(
+        stamps=[("sym_next = __shfl_sync(kFull, cur, (t + 1) & (T - 1), T);",
+                 1, 0, "sym_next"),
+                ("team_lookup<T>(c, sym >> 4, low_h, fr_h);", 1, 1,
+                 "low_h + fr_h"),
+                ("team_update<T>(c, low_h, kNibRate, j);", 1, 2, "c[0]"),
+                ("team_lookup<T>(c, sym & 15, low_l, fr_l);", 1, 3,
+                 "low_l + fr_l"),
+                ("team_update<T>(c, low_l, kNibRate, j);", 1, 4, "c[0]"),
+                ("slot_l = take ? (low_l << 16) | fr_l : slot_l;", 1, 5,
+                 "slot_h + slot_l")],
+        segments=["byte: the last chunk's probs stored and the next chunk's "
+                  "byte read (every 16 steps), the byte's shuffle",
+                  "hi lookup (two shuffles)", "hi update",
+                  "lo lookup (two shuffles)", "lo update", "slot selects"],
+        variants={},
+        ablations={
+            "no-lookup": [("team_lookup<T>(c, sym >> 4, low_h, fr_h);",
+                           "low_h = c[0]; fr_h = sym + 1;"),
+                          ("team_lookup<T>(c, sym & 15, low_l, fr_l);",
+                           "low_l = c[0]; fr_l = sym + 2;")],
+            "no-update": [("team_update<T>(c, low_h, kNibRate, j);", ""),
+                          ("team_update<T>(c, low_l, kNibRate, j);", "")],
+            "no-byte": [("nxt = real && t + 1 + T + j < K ? "
+                         "src[size_t(t + 1 + T) * L] : 0;",
+                         "nxt = (t * 37 + j) & 255;")],
+            "no-store": [("        out[size_t(2 * tj) * L] = slot_h;\n"
+                          "        out[size_t(2 * tj + 1) * L] = slot_l;",
+                          "        if (slot_h == -1) out[0] = slot_l;")]}),
+    ("lane_nibble_decode", "first"): dict(
+        stamps=[("s = s < 0 ? 0 : s;", 1, 0, "s"),
+                ("s = team_search<T>(c, int(value), j, mask);", 1, 0, "s"),
+                ("const int nx = team_pick<T>(c, (s + 1) & 15);", 1, 1,
+                 "low + nx"),
+                ("state = uint32_t(freq) * (state >> 15) + value - "
+                 "uint32_t(low);", 1, 2, "int(state)"),
+                ("team_words_renorm<T>(w, state, j);", 1, 3, "int(state)"),
+                ("if constexpr (!kStatic) team_update<T>(c, low, kNibRate, "
+                 "j);", 1, 4, "c[0]"),
+                ("if (j == (t & (T - 1))) mine = uint8_t((nib[0] << 4) | "
+                 "nib[1]);", 1, 5, "mine"),
+                ("if (real && tj <= t) dst[size_t(tj) * L] = mine;", 1, 6,
+                 "0")],
+        segments=["search (adaptive: ballot + popc; static: one ballot), "
+                  "after the last byte's loop overhead",
+                  "picks (two shuffles)", "state step",
+                  "renorm and word (a branch at a chunk edge, a shuffle)",
+                  "update (adaptive)", "byte select",
+                  "byte store (every 16 bytes)"],
+        variants={},
+        ablations={
+            "no-search": [("s = team_search<T>(c, int(value), j, mask);",
+                           "s = int(value >> 11) & 15;"),
+                          ("s = __popc(__ballot_sync(kFull, uint32_t(c[0]) "
+                           "<= value) & mask) - 1;",
+                           "s = int(value >> 11) - 1;")],
+            "no-update": [("if constexpr (!kStatic) team_update<T>(c, low, "
+                           "kNibRate, j);", "")],
+            "no-word": [("w.nxt = p < w.n ? uint32_t(w.src[p]) : 0u;",
+                         "w.nxt = uint32_t(p) & 0xFFFFu;")],
+            "no-store": [("if (real && tj <= t) dst[size_t(tj) * L] = mine;",
+                          "if (real && tj <= t && mine == 1) dst[0] = "
+                          "mine;")]}),
+    ("lane_nibble_model", "lanes4"): dict(
+        loop_head="auto half = [&](int t0, uint32_t src, int base, "
+                  "auto guard) {",
+        stamps=[("const int b = int(__shfl_sync(kFull, src, base + u) >> "
+                 "(8 * n)) & 255;", 1, 0, "b"),
+                ("update(b >> 4);", 1, 1, "c"),
+                ("update(b & 15);", 1, 2, "c"),
+                ("const int sl = (r[ls] << 16) | (r[ls + 1] - r[ls]);", 1, 3,
+                 "sh + sl"),
+                ("o[L] = sl;", 1, 4, "0"),
+                ("const uint32_t nn = chunk(c0 + 64);", 1, 5, "0")],
+        segments=["byte (a shuffle of the chunk's u32)",
+                  "hi nibble: the entry stored, the update by j > s",
+                  "lo nibble",
+                  "the slots of step t0 + j read from the rows (every 16 "
+                  "steps)", "probs stores (every 16 steps)",
+                  "next chunk's read issued (every 32 steps)"],
+        # shuffles: the lookups by two shuffles of the table as it stands,
+        # thread j keeping the slots of step t0 + j (the PR's first try)
+        variants={
+            "shuffles": [
+                ("  auto update = [&](int s) {\n",
+                 "  auto pick = [&](int s) {\n"
+                 "    const int low = __shfl_sync(kFull, c, s, kNibTeam);\n"
+                 "    const int nx = __shfl_sync(kFull, c, (s + 1) & 15, "
+                 "kNibTeam);\n"
+                 "    return (low << 16) | ((s == 15 ? kTotal : nx) - low);\n"
+                 "  };\n"
+                 "  auto update = [&](int s) {\n"),
+                ("  auto half = [&](int t0, uint32_t src, int base, auto "
+                 "guard) {\n",
+                 "  auto half = [&](int t0, uint32_t src, int base, auto "
+                 "guard) {\n    int sh = 0, sl = 0;\n"),
+                ("      rows[2 * u * 17 + j] = c;\n"
+                 "      update(b >> 4);\n"
+                 "      rows[(2 * u + 1) * 17 + j] = c;\n"
+                 "      update(b & 15);\n"
+                 "    }\n"
+                 "    __syncwarp();\n"
+                 "    // the slots of step t0 + j\n"
+                 "    const int b = int(__shfl_sync(kFull, src, base + j) >> "
+                 "(8 * n)) & 255;\n"
+                 "    const int* r = rows + 2 * j * 17;\n"
+                 "    const int hs = b >> 4, ls = 17 + (b & 15);\n"
+                 "    const int sh = (r[hs] << 16) | (r[hs + 1] - r[hs]);\n"
+                 "    const int sl = (r[ls] << 16) | (r[ls + 1] - r[ls]);\n"
+                 "    __syncwarp();  // read before the next half's stores\n",
+                 "      const int ph = pick(b >> 4);\n"
+                 "      update(b >> 4);\n"
+                 "      const int pl = pick(b & 15);\n"
+                 "      update(b & 15);\n"
+                 "      sh = j == u ? ph : sh;\n"
+                 "      sl = j == u ? pl : sl;\n"
+                 "    }\n")]},
+        ablations={
+            "no-update": [("    c += (ic + (j > s ? kMixd : 0) - c) >> "
+                           "kNibRate;\n", "    c += s;\n")],
+            "no-rows": [("      rows[2 * u * 17 + j] = c;\n", ""),
+                        ("      rows[(2 * u + 1) * 17 + j] = c;\n", "")],
+            "no-byte": [("if (vec) return ld_u32_if(t < K, p);",
+                         "if (vec) return uint32_t(t) * 0x01010101u;")],
+            "no-store": [("      o[0] = sh;\n      o[L] = sl;",
+                          "      if (sh == -1) o[0] = sl;")]}),
+    ("lane_nibble_decode", "lanes4"): dict(
+        loop_head="auto nibble = [&]() {",
+        stamps=[("const uint32_t e = ent[value];", 1, 0, "int(e)"),
+                ("__reduce_min_sync(kFull, uint32_t(hi) > value ? key : "
+                 "~0u);", 1, 0, "int(kmin)"),
+                ("s = __popc(__ballot_sync(kFull, uint32_t(hi) <= value) & "
+                 "0xFFFEu);", 1, 1, "s"),
+                ("state = ((kmin >> 16) - low) * (state >> 15) + value - "
+                 "low;", 1, 2, "int(state)"),
+                ("state = (e >> 16) * (state >> 15) + (e & 0xFFFFu);", 1, 2,
+                 "int(state)"),
+                ("key = uint32_t(hi) << 16 | uint32_t(lo);", 1, 3,
+                 "int(key)"),
+                ("value = o1_renorm(w, state);", 1, 4, "int(value)"),
+                ("mine = j == (t & 15) ? uint8_t(b) : mine;", 1, 5, "mine"),
+                ("o1_words_move(w, j);", 1, 6, "0"),
+                ("if (real && i < 16 && tj < t1) dst[size_t(tj) * L] = "
+                 "mine;", 1, 7, "0")],
+        segments=["search (adaptive: one redux.sync, the update's candidates"
+                  " before it) / table load (static), after the last step's "
+                  "overhead", "symbol (adaptive: a ballot)", "state step",
+                  "update picked by i > s, the next key (adaptive)",
+                  "renorm and the next word (a shuffle)", "byte select",
+                  "words moved (every 8 bytes)",
+                  "byte store (every 16 bytes)"],
+        variants={
+            "lanes-8": [("constexpr int kNibLanes = 4;",
+                         "constexpr int kNibLanes = 8;")],
+            "by-low": [("hi = j == 0 ? kTotal : ih > s ? ha : hb;",
+                        "hi = j == 0 ? kTotal : uint32_t(hi) > low ? ha : "
+                        "hb;"),
+                       ("lo = il > s ? la : lb;",
+                        "lo = uint32_t(lo) > low ? la : lb;")]},
+        ablations={
+            "no-update": [("      hi = j == 0 ? kTotal : ih > s ? ha : hb;\n"
+                           "      lo = il > s ? la : lb;\n"
+                           "      key = uint32_t(hi) << 16 | uint32_t(lo);\n",
+                           "")],
+            "no-word": [("w.far = w.t.src[w.far_ok ? p : 0];",
+                         "w.far = uint32_t(p) & 0xFFFFu;")],
+            "no-store": [("if (real && i < 16 && tj < t1) dst[size_t(tj) * "
+                          "L] = mine;", "if (real && i < 16 && tj < t1 && "
+                          "mine == 1) dst[0] = mine;")],
+            "no-build": [("    nib_static_tables(cs, ent, sym_of);\n", "")],
+            "no-sym": [("s = sym_of[value];", "s = int(e & 15);")]}),
+}
+
+
+def _nib_ptxas(report: str, kernel: str) -> dict:
+    """Registers, stack, spills and smem of each instantiation of
+    ``kernel`` (L9: ``model``; L10: ``adaptive``, ``static``)."""
+    res, key = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line \
+                or "Function properties for" in line:
+            key = None
+            if f"{kernel}_kernel" in line:
+                key = ("model" if kernel == "lane_nibble_model"
+                       else "static" if "ILb1E" in line else "adaptive")
+                res.setdefault(key, {})
+            continue
+        if key:
+            for name, pat in (("stack_bytes", r"(\d+) bytes stack frame"),
+                              ("spill_stores", r"(\d+) bytes spill stores"),
+                              ("spill_loads", r"(\d+) bytes spill loads"),
+                              ("registers", r"Used (\d+) registers"),
+                              ("smem", r"(\d+) bytes smem")):
+                m = re.search(pat, line)
+                if m:
+                    res[key][name] = int(m.group(1))
+    return res
+
+
+def _nib_inputs(kernel: str, static: bool, dev, rot: int):
+    """(C arguments maker, the port's output, K) of one textbwt block at
+    the default CodecConfig: make(out) -> the C entry's arguments."""
+    from turborc_tpu_torch.codecs import blockio
+    from turborc_tpu_torch.codecs import rans_nibble as N
+    from turborc_tpu_torch.codecs import rans_static as S42
+    from turborc_tpu_torch.ops import rans
+    from turborc_tpu_torch.ops import rans_lane_kernel as LK
+    from turborc_tpu_torch.ops import rans_nibble_kernel as NK
+    from turborc_tpu_torch.utils.config import CodecConfig
+    cfg = CodecConfig()
+    x = np.roll(np.fromfile(LANE_CORPUS, np.uint8), rot)[:cfg.block_size]
+    block, K = blockio.shape_block(x, cfg.lanes, cfg.step_quant)
+    cols = torch.from_numpy(block).to(dev).T.contiguous()
+    if kernel == "lane_nibble_model":
+        return (lambda out: NK.lane_nibble_model_cargs(cols, out)), \
+            NK.lane_nibble_model(cols), K
+    cdf = None
+    if static:
+        cdf = torch.from_numpy(N._cdf(N.build_nibble_freqs(x))).to(dev)
+        probs = S42.slot_probs(NK.nibbles(cols), cdf)
+    else:
+        probs = NK.lane_nibble_model(cols)
+    init = torch.full((cfg.lanes,), rans.ANS_LOW, dtype=torch.int32,
+                      device=dev)
+    st, lens = LK.lane_coder(probs, init)
+    words = blockio.device_words(st, lens)
+    offs = LK._offsets(lens)
+    return (lambda out: NK.lane_nibble_decode_cargs(
+        words, offs, lens, K, cdf, out)), cols, K
+
+
+def probe_lane_nibble(opt, dev, res: dict, work: Path) -> dict:
+    """L9 or L10 of the source in ``--src``: ptxas of every
+    instantiation, SASS, then per case (L9: id 41; L10: ids 41 and 40) the
+    clock64() split of the byte step and the bare C entry timed (a
+    warm-up, then 3 repetitions on distinct rotations of the block, every
+    build in turn) for the base, the stamped build, the layout's variants
+    and the named ablations."""
+    src = Path(opt.src).resolve()
+    base = (src / "rans_lane_kernel.cu").read_text()
+    header = (src / "rans_common.cuh").read_text()
+    layout = next(k for k, v in NIB_LAYOUT.items() if v in base)
+    res["layout"] = layout
+    plan = NIB_SPLIT[(opt.kernel, layout)]
+    variants = {"base": base,
+                "stamped": stamped(base, opt.kernel + "_kernel(",
+                                   plan["stamps"], loop_head=plan.get(
+                                       "loop_head",
+                                       "for (int t = 0; t < K; ++t) {"))}
+    for name, changes in plan["variants"].items():
+        variants[name] = _ablate(name, base, header, NIB_SECTION, changes)
+    for name in [x for x in opt.ablate.split(",") if x]:
+        variants[name] = _ablate(name, base, header, NIB_SECTION,
+                                 plan["ablations"][name])
+    exact = ("stamped", *plan["variants"])
+    libs, reports, res["nvcc_s"] = _build_all(variants, src, work,
+                                              "rans_lane_kernel.cu")
+    res["ptxas"] = {k: _nib_ptxas(v, opt.kernel) for k, v in reports.items()}
+    res["sass"] = _sass(libs["base"], opt.kernel)
+    entry = "trc_" + opt.kernel
+    # the port's kernels run first (they make the inputs), and the builds
+    # load after them
+    _nib_inputs(opt.kernel, False, dev, 0)
+    types = build.SIGNATURES["rans_lane_kernel.cu"][entry]
+    fns, loaded = {}, {}
+    for k, lib in libs.items():
+        loaded[k] = ctypes.CDLL(str(lib))
+        fns[k] = getattr(loaded[k], entry)
+        fns[k].argtypes, fns[k].restype = types, ctypes.c_int
+    res["cases"] = {}
+    segs = plan["segments"]
+    for codec, static in NIB_CASES[opt.kernel]:
+        times = {k: [] for k in variants}
+        split = None
+        same, K = True, 0
+        for r in range(4):  # rep 0 is the warm-up
+            make, port, K = _nib_inputs(opt.kernel, static, dev,
+                                        7919 * (r + 1))
+            ref = None
+            for k, fn in fns.items():
+                print(f"probe {opt.kernel} {codec} rep {r}: {k}",
+                      file=sys.stderr, flush=True)
+                out = torch.empty_like(port)
+                ms = _bare(fn, make(out))
+                if k == "base":
+                    ref = out
+                    same = same and torch.equal(out, port)
+                elif k in exact and not torch.equal(out, ref):
+                    raise AssertionError(f"{k} differs from the base at "
+                                         f"{codec}")
+                if r:
+                    times[k].append(ms)
+                if k == "stamped":
+                    acc = (ctypes.c_ulonglong * 32)()
+                    loaded[k].trc_split_read(ctypes.cast(acc,
+                                                         ctypes.c_void_p))
+                    split = [int(x) for x in acc[:len(segs)]]
+                if k != "base":
+                    del out
+            del make, port, ref
+        total = sum(split)
+        res["cases"][codec] = {
+            "K": K, "equal_to_port": same,
+            "split": {"thread": "thread 0 of CTA 0", "cycles_total": total,
+                      "cycles_per_byte": total / K,
+                      "segments": [{"segment": segs[i], "cycles": c,
+                                    "per_byte": c / K,
+                                    "share": c / max(total, 1)}
+                                   for i, c in enumerate(split)]},
+            "ms": times,
+            "mean_ms": {k: sum(v) / len(v) for k, v in times.items()}}
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=str(build.CSRC))
@@ -2532,7 +2877,7 @@ def main() -> int:
     ap.add_argument("--kernel", choices=("decode", "model", "coder",
                                          *SPLIT_KERNELS, *LANE_SPLIT,
                                          *IO_KERNELS, "lane_bit_model",
-                                         "lane_bit_decode"),
+                                         "lane_bit_decode", *NIB_CASES),
                     default="decode")
     opt = ap.parse_args()
     if not torch.cuda.is_available():
@@ -2550,7 +2895,7 @@ def main() -> int:
                "geom": GEOM if opt.kernel in ("model", "coder")
                else "CodecConfig()" if opt.kernel in (
                    *LANE_SPLIT, *IO_KERNELS, "lane_bit_model",
-                   "lane_bit_decode")
+                   "lane_bit_decode", *NIB_CASES)
                else Geom().spec}
         probe = {"model": probe_model, "coder": probe_coder,
                  **dict.fromkeys(SPLIT_KERNELS, probe_split),
@@ -2559,7 +2904,8 @@ def main() -> int:
                     for k, v in LANE_SPLIT.items()},
                  **dict.fromkeys(IO_KERNELS, probe_io),
                  **dict.fromkeys(("lane_bit_model", "lane_bit_decode"),
-                                 probe_lane_bit)}[opt.kernel]
+                                 probe_lane_bit),
+                 **dict.fromkeys(NIB_CASES, probe_lane_nibble)}[opt.kernel]
         res = probe(opt, dev, res, work)
         text = json.dumps(res, indent=1)
         print(text)

@@ -261,19 +261,6 @@ __global__ void bit_fill_kernel(uint4* __restrict__ tables, size_t n4,
     tables[i] = q;
 }
 
-// A u32 read from device memory (read-only data) where `ok`, else 0, with
-// no branch: the loaded register is not touched until its first use, so
-// the read's latency waits there and not right after it.
-__device__ __forceinline__ uint32_t ld_u32_if(bool ok, const void* p) {
-  uint32_t v;
-  asm volatile(
-      "{\n .reg .pred q;\n setp.ne.u32 q, %1, 0;\n mov.u32 %0, 0;\n"
-      " @q ld.global.nc.u32 %0, [%2];\n}\n"
-      : "=r"(v)
-      : "r"(uint32_t(ok)), "l"(p));
-  return v;
-}
-
 // ---- L11: cols [K, L] u8 -> probs [8K, L] int32.
 template <class P, int kOrder>
 __global__ void __launch_bounds__(kBitSetup, 1)

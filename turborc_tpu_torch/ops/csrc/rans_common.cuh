@@ -4,8 +4,9 @@
 // table math, the coders' division by a reciprocal (div_magic), the
 // per-lane row layout in shared memory, the o0 share-span re-join, the
 // decoders' group-ordered word fetch from a ring of stream words staged in
-// shared memory (Ring, fetch_post, fetch_take), and the model passes' ring
-// of input bytes (model_stage).
+// shared memory (Ring, fetch_post, fetch_take), the model passes' ring
+// of input bytes (model_stage) and a predicated u32 read (ld_u32_if, L9
+// and L11).
 // Header-only; each source includes it into its own anonymous namespace.
 #pragma once
 
@@ -440,6 +441,19 @@ __device__ __forceinline__ void rejoin_batches_after(int t, const G& m,
     for (int h = m.srows; h < m.arows; h += kBatch)
       rejoin_batch<false>(b, h, m.arows, m.share, hi, start_hi);
   }
+}
+
+// A u32 read from device memory (read-only data) where `ok`, else 0, with
+// no branch: the loaded register is not touched until its first use, so
+// the read's latency waits there and not right after it.
+__device__ __forceinline__ uint32_t ld_u32_if(bool ok, const void* p) {
+  uint32_t v;
+  asm volatile(
+      "{\n .reg .pred q;\n setp.ne.u32 q, %1, 0;\n mov.u32 %0, 0;\n"
+      " @q ld.global.nc.u32 %0, [%2];\n}\n"
+      : "=r"(v)
+      : "r"(uint32_t(ok)), "l"(p));
+  return v;
 }
 
 }  // namespace

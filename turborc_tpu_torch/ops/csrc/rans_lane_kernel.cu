@@ -31,7 +31,8 @@
 // lane reads 0 at or past min(len, M) or past the W words (the JAX
 // package's zero-padded [L, M] matrix, for the lengths it accepts).
 //
-// L1, L3-L10 run a team of T threads a lane, L2 one thread a lane on
+// L1, L3-L10 run a team of T threads a lane (L10 a warp a lane, its two
+// half-warps alike), L2 one thread a lane on
 // CTAs of kCoderN lanes (below).  A CTA's threads past L run the loop on
 // dummy data and write nothing, so every barrier and shuffle has all its
 // threads.  A lane is a serial state machine; lanes are coupled only by the
@@ -1525,110 +1526,234 @@ lane_o1_decode_kernel(const uint16_t* __restrict__ words,
 }
 
 // ---- L9 / L10: the nibble codecs rc4 (id 41) and rc4c (id 40).  A byte
-// is two 4-bit symbols, hi then lo (slots 2t and 2t + 1), on L1 / L3's
-// team of kNibTeam threads a lane, one entry of the lane's one CDF16 a
-// thread in a register, kNibThreads a CTA; no lo rows, no re-join.  The
-// adaptive table (id 41) starts at cdf16.init and takes cdf_update at rate
-// kNibRate after every nibble, so it stays strictly increasing and needs
-// no repair (cdf_update's note); the static one (id 40) is the block's
-// cdf [17] (non-decreasing, cdf[0] = 0, cdf[16] = 2^15), read once.
-constexpr int kNibTeam = 16;     // threads a lane
-constexpr int kNibThreads = 128;  // threads a CTA
-constexpr int kNibLanes = kNibThreads / kNibTeam;
+// is two 4-bit symbols, hi then lo (slots 2t and 2t + 1), coded with one
+// CDF16 a lane: adaptive (id 41) from cdf16.init, cdf_update at rate
+// kNibRate after every nibble, so that it stays strictly increasing and
+// needs no repair (cdf_update's note), or static (id 40), the block's cdf
+// [17] (non-decreasing, cdf[0] = 0, cdf[16] = 2^15), read once.  Both
+// kernels run kNibLanes lanes a CTA (128 CTAs at 512 lanes).  A lane is
+// one serial chain; each design keeps the waits for other threads off it.
+constexpr int kNibLanes = 4;   // lanes a CTA
+constexpr int kNibTeam = 16;   // L9: threads a lane, one entry each
+constexpr int kNibModelThreads = kNibLanes * kNibTeam;
+constexpr int kNibDecodeThreads = kNibLanes * 32;  // L10: a warp a lane
 constexpr int kNibRate = 7;
-static_assert(kNibTeam == 16, "L9 / L10: one CDF16 entry a thread");
+// L9's rows of a lane: 16 steps x 2 nibbles x 17 entries, padded so that
+// the two lanes of a warp lie 16 banks apart
+constexpr int kNibRows = 560;
+static_assert(kNibRows >= 16 * 2 * 17 && kNibRows % 32 == 16, "L9 rows");
+constexpr int kNibRun = kTotal / (kNibDecodeThreads / 32);  // values a warp
+constexpr int kNibStaticSmem = kTotal * 4 + kTotal + 17 * 4;
+static_assert(kNibStaticSmem <= kSmemMax, "L10's static tables fit a CTA");
 
 // L9: cols [K, L] u8 -> probs [2K, L] int32 (rans_nibble.encode_adaptive's
-// scan).  L1's chunked bytes and slots: thread j holds byte t0 + j of the
-// chunk t0 and of the next, and the two slots of step t0 + j.
-__global__ void __launch_bounds__(kNibThreads)
+// scan).  Thread j of a lane's team of kNibTeam holds entry j of its CDF16
+// (entry 0 stays 0), two lanes a warp.  The symbols are known and the
+// table stays strictly increasing, so cdf_update's predicate c_j > low is
+// j > s: an entry's chain is a subtract, a shift and an add a nibble and
+// waits on no other thread.  Before each update every thread stores its
+// entry to the lane's rows in shared memory (a row a nibble of the half's
+// 16 steps, entry 16 = 2^15); after the half, thread j reads the slots of
+// step t0 + j there (low = c_s, next = c_{s+1}), so a nibble costs a
+// store and no shuffle (on an H100, lookups by shuffle ran 2.3x slower:
+// the warp issues a step's instructions alone on its scheduler).  Lane i of
+// a warp holds the CTA's 4 bytes of step c + i of a chunk of 32 (one u32
+// read, a chunk ahead, not used before the chunk's end), a step's by one
+// shuffle; the steps run in halves of 16 with no branch.
+__global__ void __launch_bounds__(kNibModelThreads)
 lane_nibble_model_kernel(const uint8_t* __restrict__ cols,
                          int* __restrict__ probs, int K, int L) {
-  constexpr int T = kNibTeam;
-  const int n = threadIdx.x / T, j = threadIdx.x % T;
-  const int l = blockIdx.x * kNibLanes + n;
-  const bool real = l < L;
-  int c[1] = {j << (15 - 4)};  // cdf16.init
-  const uint8_t* src = cols + (real ? l : 0) + size_t(j) * L;
-  int* out = probs + (real ? l : 0);
-  int cur = real && j < K ? src[0] : 0;
-  int nxt = real && T + j < K ? src[size_t(T) * L] : 0;
-  int sym_next = __shfl_sync(kFull, cur, 0, T);
-  int slot_h = 0, slot_l = 0;
-  for (int t = 0; t < K; ++t) {
-    const int sym = sym_next;
-    if ((t & (T - 1)) == T - 1) {
-      cur = nxt;
-      nxt = real && t + 1 + T + j < K ? src[size_t(t + 1 + T) * L] : 0;
+  const int n = threadIdx.x / kNibTeam, j = threadIdx.x % kNibTeam;
+  const int l0 = blockIdx.x * kNibLanes, l = l0 + n;
+  const bool real = l < L;  // the others stay for the shuffles
+  const bool full = l0 + kNibLanes <= L;  // every lane of the CTA real
+  const int lane = threadIdx.x & 31, ic = j * kIC;
+  int c = j << (15 - 4);  // cdf16.init
+  int* dst = probs + (real ? l : 0) + size_t(2 * j) * L;
+  const bool vec =
+      full && (reinterpret_cast<uintptr_t>(cols) & (kNibLanes - 1)) == 0;
+  auto chunk = [&](int c0) {
+    const int t = c0 + lane;
+    const uint8_t* p = cols + size_t(t < K ? t : 0) * L + l0;
+    if (vec) return ld_u32_if(t < K, p);
+    uint32_t w = 0;
+#pragma unroll
+    for (int k = 0; k < kNibLanes; ++k)
+      if (t < K && l0 + k < L) w |= uint32_t(p[k]) << (8 * k);
+    return w;
+  };
+  uint32_t cur = chunk(0), nxt = chunk(32);
+  // the table before nibble h of step u at rows[(2 u + h) 17 + i]
+  __shared__ int nib_rows[kNibLanes * kNibRows];
+  int* rows = nib_rows + n * kNibRows;
+  rows[j * 17 + 16] = kTotal;
+  rows[(16 + j) * 17 + 16] = kTotal;
+  auto update = [&](int s) {
+    c += (ic + (j > s ? kMixd : 0) - c) >> kNibRate;
+  };
+  // Steps t0 .. t0 + 15, their bytes at lanes base .. base + 15 of src;
+  // `guard`: a step past K or a lane past L stores nothing.
+  auto half = [&](int t0, uint32_t src, int base, auto guard) {
+#pragma unroll
+    for (int u = 0; u < 16; ++u) {
+      const int b = int(__shfl_sync(kFull, src, base + u) >> (8 * n)) & 255;
+      rows[2 * u * 17 + j] = c;
+      update(b >> 4);
+      rows[(2 * u + 1) * 17 + j] = c;
+      update(b & 15);
     }
-    sym_next = __shfl_sync(kFull, cur, (t + 1) & (T - 1), T);
-    int low_h, fr_h, low_l, fr_l;
-    team_lookup<T>(c, sym >> 4, low_h, fr_h);
-    team_update<T>(c, low_h, kNibRate, j);
-    team_lookup<T>(c, sym & 15, low_l, fr_l);
-    team_update<T>(c, low_l, kNibRate, j);
-    const bool take = j == (t & (T - 1));
-    slot_h = take ? (low_h << 16) | fr_h : slot_h;
-    slot_l = take ? (low_l << 16) | fr_l : slot_l;
-    if ((t & (T - 1)) == T - 1 || t == K - 1) {
-      const int tj = (t & ~(T - 1)) + j;
-      if (real && tj <= t) {
-        out[size_t(2 * tj) * L] = slot_h;
-        out[size_t(2 * tj + 1) * L] = slot_l;
-      }
+    __syncwarp();
+    // the slots of step t0 + j
+    const int b = int(__shfl_sync(kFull, src, base + j) >> (8 * n)) & 255;
+    const int* r = rows + 2 * j * 17;
+    const int hs = b >> 4, ls = 17 + (b & 15);
+    const int sh = (r[hs] << 16) | (r[hs + 1] - r[hs]);
+    const int sl = (r[ls] << 16) | (r[ls + 1] - r[ls]);
+    __syncwarp();  // read before the next half's stores
+    if (!decltype(guard)::value || (real && t0 + j < K)) {
+      int* o = dst + size_t(t0) * 2 * L;
+      o[0] = sh;
+      o[L] = sl;
     }
+  };
+  using No = std::false_type;
+  using Yes = std::true_type;
+  for (int c0 = 0; c0 < K; c0 += 32) {
+    const uint32_t nn = chunk(c0 + 64);
+    if (full && c0 + 32 <= K) {
+      half(c0, cur, 0, No());
+      half(c0 + 16, cur, 16, No());
+    } else {
+      half(c0, cur, 0, Yes());
+      half(c0 + 16, cur, 16, Yes());
+    }
+    cur = nxt;
+    nxt = nn;
+  }
+}
+
+// L10's static tables from cdf c (in shared memory): ent[v] = (freq << 16)
+// | (v - low) and sym_of[v] of the symbol of every value v.  Warp w walks
+// its run of kNibRun values 32 at a time, thread i from value w kNibRun +
+// i after a search of 4 halvings, moving its symbol up to the last s < 16
+// with c[s] <= v (at most 15 moves a thread).  For a non-decreasing c from
+// 0 to 2^15 that is the plain rule 15 - #{i < 16: c_i > v}, with freq >=
+// 1; for any other [17] ints the symbol stays in [0, 15], so every read
+// of c and of the tables stays inside them.
+__device__ __forceinline__ void nib_static_tables(const int* c, uint32_t* ent,
+                                                  uint8_t* sym_of) {
+  int v = (threadIdx.x >> 5) * kNibRun + (threadIdx.x & 31);
+  int lo = 0, hi = 16;
+#pragma unroll
+  for (int it = 0; it < 4; ++it) {
+    const int mid = (lo + hi) >> 1;
+    if (c[mid] <= v) lo = mid; else hi = mid;
+  }
+  int sym = lo, low = c[lo], nx = c[lo + 1];
+  for (int i = 0; i < kNibRun / 32; ++i, v += 32) {
+    while (sym < 15 && nx <= v) {
+      ++sym;
+      low = nx;
+      nx = c[sym + 1];
+    }
+    ent[v] = (uint32_t(nx - low) << 16) | uint32_t(v - low);
+    sym_of[v] = uint8_t(sym);
   }
 }
 
 // L10: lane streams (words, off, len; M = 2K + 2) -> bytes [K, L] u8,
 // adaptive (kStatic false: rans_nibble.decode_adaptive) or on the static
-// cdf17 (rans_nibble.decode_static: the symbol is 15 - #{i < 16: cdf_i >
-// value}, here #{i < 16: cdf_i <= value} - 1, at least 0, by one ballot).
-// L3's reader (TeamWords) and chunked bytes.
+// cdf17 (rans_nibble.decode_static).  A warp a lane; its two half-warps
+// hold the same values (thread i is entry j = i mod 16), so a redux.sync
+// over the warp and L6's word reader (O1Words: the words moved every 8
+// bytes, no branch on data) serve the lane.  The steps run in unrolled
+// runs of 8 bytes; the first half-warp stores the bytes every 16.
+// Adaptive: thread j holds the pair (hi, lo) = (c_j, c_{j-1}), thread 0
+// (2^15, c_15), standing for entry 16, and updates both entries itself, so
+// a search is one redux.sync: the min of (hi << 16 | lo) over hi > value
+// is (c_{s+1} << 16 | c_s) (the table is strictly increasing), and the
+// symbol s, the count of c_j <= value over j = 1..15, a ballot beside it.
+// Both candidates of an entry's update, c + ((i IC + MIXD - c) >> 7) and
+// c + ((i IC - c) >> 7), are computed while the search runs, and i > s
+// (c_i > low on a strictly increasing table) picks one.
+// Static: one shared-memory load a nibble, ent[v] of the value v (see
+// nib_static_tables, which every CTA runs first, 160 KB), gives the state
+// step, state' = freq (state >> 15) + (v - low); the symbol, sym_of[v],
+// is read beside it, off the chain.
 template <bool kStatic>
-__global__ void __launch_bounds__(kNibThreads)
+__global__ void __launch_bounds__(kNibDecodeThreads, 1)
 lane_nibble_decode_kernel(const uint16_t* __restrict__ words,
                           const long long* __restrict__ off,
                           const int* __restrict__ len,
                           const int* __restrict__ cdf17,
                           uint8_t* __restrict__ out, int K, int L,
                           long long W) {
-  constexpr int T = kNibTeam;
-  const int n = threadIdx.x / T, j = threadIdx.x % T;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint32_t* ent = reinterpret_cast<uint32_t*>(smem_raw);
+  uint8_t* sym_of = smem_raw + kTotal * 4;
+  int* cs = reinterpret_cast<int*>(smem_raw + kTotal * 5);
+  const int n = threadIdx.x >> 5, i = threadIdx.x & 31, j = i & 15;
   const int l = blockIdx.x * kNibLanes + n;
   const bool real = l < L;
-  const unsigned mask = team_mask<T>();
-  int c[1] = {kStatic ? cdf17[j] : j << (15 - 4)};
-  const int top = kStatic ? cdf17[16] : kTotal;  // entry 16
-  TeamWords w;
+  if constexpr (kStatic) {
+    if (threadIdx.x < 17) cs[threadIdx.x] = cdf17[threadIdx.x];
+    __syncthreads();
+    nib_static_tables(cs, ent, sym_of);
+    __syncthreads();
+  }
+  // adaptive: entries ih = j and il = j - 1 (thread 0: 16 and 15)
+  const int ih = j, il = (j - 1) & 15;
+  int hi = j ? j << (15 - 4) : kTotal;  // cdf16.init
+  int lo = il << (15 - 4);
+  uint32_t key = uint32_t(hi) << 16 | uint32_t(lo);
+  O1Words w;
   uint32_t state;
-  team_words_init<T>(w, words, off, len, W, 2 * K + 2, l, real, j, state);
+  o1_words_init(w, words, off, len, W, 2 * K + 2, l, real, j, state);
+  uint32_t value = state & (kTotal - 1);
   uint8_t* dst = out + (real ? l : 0);
   uint8_t mine = 0;  // the byte of step t0 + j of the chunk t0
-  for (int t = 0; t < K; ++t) {
-    int nib[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const uint32_t value = state & (kTotal - 1);
-      int s;
-      if constexpr (kStatic) {
-        s = __popc(__ballot_sync(kFull, uint32_t(c[0]) <= value) & mask) - 1;
-        s = s < 0 ? 0 : s;
-      } else {
-        s = team_search<T>(c, int(value), j, mask);
-      }
-      const int low = team_pick<T>(c, s);
-      const int nx = team_pick<T>(c, (s + 1) & 15);
-      const int freq = (s == 15 ? top : nx) - low;
-      state = uint32_t(freq) * (state >> 15) + value - uint32_t(low);
-      team_words_renorm<T>(w, state, j);
-      if constexpr (!kStatic) team_update<T>(c, low, kNibRate, j);
-      nib[h] = s;
+  // One nibble: its symbol, the state step, the update and the renorm.
+  auto nibble = [&]() {
+    int s;
+    if constexpr (kStatic) {
+      const uint32_t e = ent[value];
+      s = sym_of[value];
+      state = (e >> 16) * (state >> 15) + (e & 0xFFFFu);
+    } else {
+      const int th = ih * kIC - hi, tl = il * kIC - lo;
+      const int ha = hi + ((th + kMixd) >> kNibRate);
+      const int hb = hi + (th >> kNibRate);
+      const int la = lo + ((tl + kMixd) >> kNibRate);
+      const int lb = lo + (tl >> kNibRate);
+      const uint32_t kmin =
+          __reduce_min_sync(kFull, uint32_t(hi) > value ? key : ~0u);
+      s = __popc(__ballot_sync(kFull, uint32_t(hi) <= value) & 0xFFFEu);
+      const uint32_t low = kmin & 0xFFFFu;
+      state = ((kmin >> 16) - low) * (state >> 15) + value - low;
+      hi = j == 0 ? kTotal : ih > s ? ha : hb;
+      lo = il > s ? la : lb;
+      key = uint32_t(hi) << 16 | uint32_t(lo);
     }
-    if (j == (t & (T - 1))) mine = uint8_t((nib[0] << 4) | nib[1]);
-    if ((t & (T - 1)) == T - 1 || t == K - 1) {
-      const int tj = (t & ~(T - 1)) + j;
-      if (real && tj <= t) dst[size_t(tj) * L] = mine;
+    value = o1_renorm(w, state);
+    return s;
+  };
+  auto step = [&](int t) {
+    const int h = nibble();
+    const int b = (h << 4) | nibble();
+    mine = j == (t & 15) ? uint8_t(b) : mine;
+  };
+  for (int t0 = 0; t0 < K; t0 += 8) {
+    const int t1 = min(t0 + 8, K);
+    if (t1 == t0 + 8) {
+#pragma unroll
+      for (int u = 0; u < 8; ++u) step(t0 + u);
+    } else {
+      for (int t = t0; t < t1; ++t) step(t);
+    }
+    o1_words_move(w, j);
+    if ((t1 & 15) == 0 || t1 == K) {  // a chunk of 16 bytes
+      const int tj = ((t1 - 1) & ~15) + j;
+      if (real && i < 16 && tj < t1) dst[size_t(tj) * L] = mine;
     }
   }
 }
@@ -1839,27 +1964,35 @@ int trc_lane_o1_decode(const uint16_t* words, const long long* off,
 // L9: rc4's model.
 int trc_lane_nibble_model(const uint8_t* cols, int* probs, int K, int L,
                           cudaStream_t stream) {
+  // the byte reads run to K + 95, the slots to 2K
   if (K < 0 || K > INT_MAX / 2 - kNibTeam || !pow2(L, 1 << 30) ||
       size_t(2) * size_t(K) * size_t(L) > size_t(1) << 40)
     return int(cudaErrorInvalidValue);
-  lane_nibble_model_kernel<<<(L + kNibLanes - 1) / kNibLanes, kNibThreads,
-                             0, stream>>>(cols, probs, K, L);
+  lane_nibble_model_kernel<<<(L + kNibLanes - 1) / kNibLanes,
+                             kNibModelThreads, 0, stream>>>(cols, probs, K,
+                                                            L);
   return int(cudaGetLastError());
 }
 
-// L10: rc4's decode (cdf17 null) and rc4c's (cdf17 [17] int32).
+// L10: rc4's decode (cdf17 null) and rc4c's (cdf17 [17] int32; the
+// wrapper passes only a non-decreasing cdf from 0 to 2^15).
 int trc_lane_nibble_decode(const uint16_t* words, const long long* off,
                            const int* len, const int* cdf17, uint8_t* out,
                            int K, int L, int W, cudaStream_t stream) {
   if (K < 0 || K > (INT_MAX - 2) / 2 || W < 0 || !pow2(L, 1 << 30))
     return int(cudaErrorInvalidValue);
   const int grid = (L + kNibLanes - 1) / kNibLanes;
-  if (cdf17)
-    lane_nibble_decode_kernel<true><<<grid, kNibThreads, 0, stream>>>(
+  if (cdf17) {
+    if (const int e = allow_smem(lane_nibble_decode_kernel<true>,
+                                 kNibStaticSmem))
+      return e;
+    lane_nibble_decode_kernel<true>
+        <<<grid, kNibDecodeThreads, kNibStaticSmem, stream>>>(
+            words, off, len, cdf17, out, K, L, W);
+  } else {
+    lane_nibble_decode_kernel<false><<<grid, kNibDecodeThreads, 0, stream>>>(
         words, off, len, cdf17, out, K, L, W);
-  else
-    lane_nibble_decode_kernel<false><<<grid, kNibThreads, 0, stream>>>(
-        words, off, len, cdf17, out, K, L, W);
+  }
   return int(cudaGetLastError());
 }
 

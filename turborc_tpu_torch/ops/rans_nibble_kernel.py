@@ -24,11 +24,13 @@ reads the block's ``cdf`` [17] int32 (non-decreasing, cdf[0] = 0,
 cdf[16] = 2^15): the symbol of a value v is 15 - #{i < 16: cdf[i] > v},
 taken as at least 0.
 
-The kernels run a team of ``NIB_TEAM`` threads a lane, one table entry a
-thread, ``NIB_THREADS`` threads a CTA.  A wrapper validates its inputs,
-then runs the plain version when they lie on the CPU and launches the
-kernel when they lie on a CUDA device; there is no fallback from one to
-the other.  ``launches[name]`` counts kernel launches only.
+Both kernels run ``NIB_LANES`` lanes a CTA: L9 a team of ``NIB_TEAM``
+threads a lane, one table entry a thread, L10 a warp a lane
+(``nib_launch``).  A wrapper validates its inputs (L10's static cdf must
+be non-decreasing from 0 to 2^15, the tables the codec passes), then
+runs the plain version when they lie on the CPU and launches the kernel
+when they lie on a CUDA device; there is no fallback from one to the
+other.  ``launches[name]`` counts kernel launches only.
 """
 from __future__ import annotations
 
@@ -39,9 +41,9 @@ from turborc_tpu_torch.ops import rans
 from turborc_tpu_torch.ops import rans_lane_kernel as LK
 from turborc_tpu_torch.ops.rans_kernel import INT32_MAX, _check, launch
 
-# kNibTeam threads a lane, kNibThreads threads a CTA
+# kNibLanes lanes a CTA; L9: kNibTeam threads a lane; L10: a warp a lane
+NIB_LANES = 4
 NIB_TEAM = 16
-NIB_THREADS = 128
 
 launches = dict.fromkeys(("lane_nibble_model", "lane_nibble_decode",
                           "lane_nibble_static_decode"), 0)
@@ -52,9 +54,18 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def nib_launch(L: int) -> tuple[int, int]:
-    """(threads a CTA, CTAs) of L9 and L10 on L lanes."""
-    return NIB_THREADS, -(-L // (NIB_THREADS // NIB_TEAM))
+def nib_launch(L: int, decode: bool = False) -> tuple[int, int]:
+    """(threads a CTA, CTAs) of L9 (or, ``decode``, L10) on L lanes."""
+    return NIB_LANES * (32 if decode else NIB_TEAM), -(-L // NIB_LANES)
+
+
+def _check_cdf(cdf: torch.Tensor) -> None:
+    """L10's static cdf: non-decreasing from 0 to 2^15 (rc4c's, from 16
+    freqs summing 2^15); the kernel's symbol rule holds for these."""
+    c = cdf.to("cpu", torch.int64)
+    if c[0] != 0 or c[16] != cdf16.TOTAL or bool((c[1:] < c[:-1]).any()):
+        raise ValueError("cdf: expected a non-decreasing [17] cdf from 0 "
+                         "to 2^15")
 
 
 # ---------------------------------------------------------------------------
@@ -166,6 +177,7 @@ def lane_nibble_static_decode(words: torch.Tensor, lengths: torch.Tensor,
     [17] int32 -> bytes [K, L] uint8 (id 40)."""
     LK._check_streams(words, lengths, K)
     _check("cdf", cdf, torch.int32, (17,), words.device)
+    _check_cdf(cdf)
     if not words.is_cuda:
         return lane_nibble_static_decode_plain(words, lengths, K, cdf)
     out = torch.empty((K, lengths.shape[0]), dtype=torch.uint8,

@@ -14,9 +14,10 @@ L3, ``rans-static`` on L2 and L4, the order-1 ``rans-cdf-r1`` on L5, L2
 and L6 and ``rans-cdf-o1`` on L7, L2 and L8; the nibble codecs ``rc4``
 on L9, L2 and L10 and ``rc4c`` on L2 and L10's static instantiation; the
 bitwise byte-tree codecs ``rc-o0``, ``rcc-o1``, ``rc-o0-ss``,
-``rcc-o1-ss``, ``rc-o0-sf`` and ``rcc-o1-sf`` on L11, L2 and L12),
-checks every container against the golden hashes the JAX package wrote,
-then times the kernels.  The
+``rcc-o1-ss``, ``rc-o0-sf`` and ``rcc-o1-sf`` on L11, L2 and L12, the
+order-2 ``rcc2``, ``ansb`` on id 1's, and the W-bit trees ``rc-16`` and
+``rc{W}b`` on L11 and L12 at W bits), checks every container against the
+golden hashes the JAX package wrote, then times the kernels.  The
 decoders on a shared-memory ring of stream words (the o0 K1 and K5, the
 o1 K6, the bit-tree K8) are also held against their plain versions where
 the ring wraps and on corrupt streams, the placement K4 on edge cases of
@@ -40,7 +41,11 @@ all 256 bytes in turn, bytes whose depth-4 nodes are siblings, K of 1,
 7, 9 and 37, extreme CDFs and predictor rates, a random FSM table and
 corrupt streams, the bitwise wrappers must refuse an FSM past 32,768
 states and L10's static wrapper a cdf that is not non-decreasing from 0
-to 2^15.  With ``--before COMMIT``, L5-L12 are timed in turns against
+to 2^15; and L11 and L12 at every W from 2 to 16 and at order 2, at the
+main paths of ids 6, 142-152, 3 (16 lanes of 64 KB) and 66, then on
+elements 0 and 2^W - 1, cycling values, hi bytes in turn, runs, every
+byte, K of 1 and 37 and corrupt streams, with the refusals of W out of
+range, order 3 and tables past 4 GB (``lane-bitw-kernels-vs-plain``).  With ``--before COMMIT``, L5-L12 are timed in turns against
 those of a ``git archive COMMIT`` unpacked in ``_archive/COMMIT/``.  It imports no JAX
 and nothing of ``turborc_tpu``; the corpora under
 ``turborc_tpu/bench/_data/`` are read as files.
@@ -73,6 +78,7 @@ GOLDEN_X2 = ROOT / "turborc_tpu_torch" / "golden" / "o0p_x2.json"
 GOLDEN_LANE = ROOT / "turborc_tpu_torch" / "golden" / "lane.json"
 GOLDEN_LANE_O1 = ROOT / "turborc_tpu_torch" / "golden" / "lane_o1.json"
 GOLDEN_BIT = ROOT / "turborc_tpu_torch" / "golden" / "bit.json"
+GOLDEN_BIT_W = ROOT / "turborc_tpu_torch" / "golden" / "bit_w.json"
 BUDGET_S = 600
 BENCH_GEOM = "g64c8s8y8l32a4r4"
 BENCH_GEOM_X2 = BENCH_GEOM + "x2"
@@ -164,6 +170,20 @@ NIBBLE = {"rc4": ("lane_nibble_model", "lane_coder", "lane_nibble_decode"),
 BIT = {"rc-o0": (0, "s"), "rcc-o1": (1, "s"), "rc-o0-ss": (0, "ss"),
        "rcc-o1-ss": (1, "ss"), "rc-o0-sf": (0, "sf"), "rcc-o1-sf": (1, "sf")}
 BIT_KERNELS = ("lane_bit_model", "lane_coder", "lane_bit_decode")
+# The W-bit tree codecs, W each, on L11, L2 and L12 at W bits: rc-16 and
+# rc{W}b below 8 bits through the api (rc-16 two bytes an element), rc10b
+# and rc12b through their block API (512 lanes, step_quant 64) on u16
+# elements; then rcc2 (id 3), the byte tree at order 2, 16 lanes.
+BITW = {"rc-16": 16, "rc2b": 2, "rc3b": 3, "rc5b": 5, "rc6b": 6, "rc7b": 7,
+        "rc10b": 10, "rc12b": 12}
+BITW_BLOCK = ("rc10b", "rc12b")
+ORDER2 = "rcc2"
+# rcc2's kernels against their plain versions: 16 lanes, K = 4,096
+# (textbwt's first 64 KB); its main path is a 4 MB block, K = 262,144
+ORDER2_HELD = 1 << 16
+# What L11 / L12 replace at W bits (encoden_device, decoden_device)
+REPLACES_W = {"lane_bit_model": "turborc_tpu/codecs/rc_bit.py:224",
+              "lane_bit_decode": "turborc_tpu/codecs/rc_bit.py:251"}
 # H100 SXM peaks: HBM3 bytes/s, and the float32 rate outside the tensor
 # cores, used for 32-bit integer ops (taking the higher of the two rates
 # keeps this a lower bound).
@@ -249,9 +269,10 @@ def phase_build(before: str | None):
                     fn = fn.replace("lane_o1", "lane_o1r")  # id 59's
                 if fn == "lane_nibble_decode" and "ILb1E" in line:
                     fn = "lane_nibble_static_decode"  # id 40's
-                t = re.search(r"Pred(SS|SF|S)ELi(\d)E", line)
+                t = re.search(r"Pred(SS|SF|S)ELi(\d)ELi(\d+)E", line)
                 if fn.startswith("lane_bit") and t:
-                    fn = f"{fn}<{t.group(1).lower()},{t.group(2)}>"
+                    fn += (f"<{t.group(1).lower()},{t.group(2)}>"
+                           if t.group(3) == "8" else f"<w{t.group(3)}>")
             elif ("Used" in line or "stack frame" in line) and fn:
                 log(f"ptxas {fn}: {line.split(':', 1)[-1].strip()}")
     libs = {}
@@ -656,6 +677,8 @@ def _roundtrip(label: str, case: dict, needs: tuple, dev) -> dict:
     from turborc_tpu_torch.utils.config import CodecConfig
     phase(label)
     data = _corpus(case["file"], case.get("n"))
+    if "shift" in case:  # rc{W}b's bytes below 2^W
+        data = data >> case["shift"]
     geom = Geom.parse(case["geom"]) if case.get("geom") else None
     cfg = CodecConfig(codec=case.get("codec", "rans-cdf-o0-p"),
                       block_size=case["block_size"], geom=geom)
@@ -671,7 +694,8 @@ def _roundtrip(label: str, case: dict, needs: tuple, dev) -> dict:
     if back != data.tobytes():
         raise AssertionError(f"{label}: decompress(compress(x)) != x")
     sha = hashlib.sha256(comp).hexdigest()
-    if (len(comp), sha) != (case["length"], case["sha256"]):
+    if "sha256" in case and (len(comp), sha) != (case["length"],
+                                                 case["sha256"]):
         raise AssertionError(
             f"{label}: container {len(comp)} B sha256 {sha} differs from the "
             f"JAX golden {case['length']} B {case['sha256']}")
@@ -682,7 +706,46 @@ def _roundtrip(label: str, case: dict, needs: tuple, dev) -> dict:
                ratio=len(comp) / data.size,
                encode_s=t1 - t0, decode_s=t2 - t1, launches=counts,
                geom=(geom or Geom()).spec)
-    log(f"{label}: ok, container equals golden sha256 {sha[:16]}..., "
+    log(f"{label}: ok, container "
+        + ("equals golden" if "sha256" in case else "round-trips, no golden:")
+        + f" sha256 {sha[:16]}..., " + json.dumps(res))
+    return res
+
+
+def _block_roundtrip(label: str, case: dict, dev) -> dict:
+    """rc10b's or rc12b's block API on a golden "block" case's u16
+    elements (the api would fail their block crc, as the JAX package's
+    does), with every launch count set to 0 just before it and read just
+    after: the payload must equal the golden sha256, the decode the
+    elements, and L11, L2 and L12 must have launched."""
+    from turborc_tpu_torch.codecs import registry
+    phase(label)
+    el = _corpus(case["file"], case["n"]).view(case["view"]) >> case["shift"]
+    codec = registry.get(case["codec"])
+    shape = dict(lanes=case["lanes"], step_quant=case["step_quant"])
+    _reset_launches()
+    t0 = time.perf_counter()
+    pay = codec.encode_block(el, device=dev, **shape)
+    _sync()
+    t1 = time.perf_counter()
+    back = codec.decode_block(pay, el.size, device=dev, **shape)
+    _sync()
+    t2 = time.perf_counter()
+    counts = _launch_counts()
+    if back.dtype != el.dtype or not (back == el).all():
+        raise AssertionError(f"{label}: decode(encode(x)) != x")
+    sha = hashlib.sha256(pay).hexdigest()
+    if (len(pay), sha) != (case["length"], case["sha256"]):
+        raise AssertionError(
+            f"{label}: payload {len(pay)} B sha256 {sha} differs from the JAX "
+            f"golden {case['length']} B {case['sha256']}")
+    missing = [k for k in BIT_KERNELS if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels not launched: {missing}")
+    res = dict(codec=case["codec"], elements=int(el.size), comp=len(pay),
+               ratio=len(pay) / el.nbytes, encode_s=t1 - t0,
+               decode_s=t2 - t1, launches=counts)
+    log(f"{label}: ok, payload equals golden sha256 {sha[:16]}..., "
         + json.dumps(res))
     return res
 
@@ -1599,17 +1662,117 @@ def _held(label: str, jobs: list, kern: list, futures) -> tuple[dict, dict]:
     return err, ms
 
 
+def _bitw_elems(codec: str, x):
+    """A W-bit codec's main-path elements of the bytes x: rc-16's <u2
+    elements, rc{W}b's bytes shifted right by 8 - W or, at W > 8, x read
+    as <u2 and shifted right by 16 - W."""
+    W = BITW[codec]
+    if codec == "rc-16":
+        return x.view("<u2")
+    if codec in BITW_BLOCK:
+        return x.view("<u2") >> (16 - W)
+    return x >> (8 - W)
+
+
+def _bitw_cols(codec: str, x, dev):
+    """The W-bit codec's block of the bytes x on its main path (512 lanes;
+    step_quant 256, the default CodecConfig's, through the api, 64 at the
+    block API): (cols [K, L] on ``dev``, uint8 or int16 holding u16, K)."""
+    import numpy as np
+    import torch
+    from turborc_tpu_torch.codecs import blockio
+    from turborc_tpu_torch.utils.config import CodecConfig
+    W, cfg = BITW[codec], CodecConfig()
+    block, K = blockio.shape_block_elems(
+        _bitw_elems(codec, x), cfg.lanes,
+        64 if codec in BITW_BLOCK else cfg.step_quant,
+        np.uint8 if W <= 8 else np.uint16)
+    if W > 8:
+        block = block.view(np.int16)
+    return torch.from_numpy(block).to(dev).T.contiguous(), K
+
+
+def _ansb_cols(x, dev):
+    """ansb's one launch over the bytes x: its 64 KB sub-blocks, 4 lanes
+    each (K = 16,384 for a whole one), as (cols [K, 4 x sub-blocks] on
+    ``dev``, K); x a multiple of 64 KB."""
+    import numpy as np
+    import torch
+    from turborc_tpu_torch.codecs import blockio
+    from turborc_tpu_torch.codecs import rc_bit as RB
+    block = np.concatenate([
+        blockio.shape_block(x[o:o + RB.ANSB_BLOCK], RB.ANSB_LANES,
+                            RB.ANSB_STEP)[0]
+        for o in range(0, x.size, RB.ANSB_BLOCK)])
+    return torch.from_numpy(block).to(dev).T.contiguous(), block.shape[1]
+
+
+def _order2_cols(x, dev):
+    """rcc2's block of the bytes x: (cols [K, 16] on ``dev``, K)."""
+    import torch
+    from turborc_tpu_torch.codecs import blockio
+    from turborc_tpu_torch.codecs import rc_bit as RB
+    block, K = blockio.shape_block(x, RB.RCC2_LANES, 256)
+    return torch.from_numpy(block).to(dev).T.contiguous(), K
+
+
+def _bitw_full_shape(text4, dev) -> tuple[list, list, dict]:
+    """L11, L2 and L12 at each W of BITW on its main path's block of the
+    bytes ``text4`` (with L2 on rc-16's probs), at order 2 on rcc2's 16
+    lanes of their first 64 KB and at ansb's one launch over their 64 KB
+    sub-blocks; each decode must return the input.  Returns (plain jobs
+    for ``_full_jobs``: (plain name, output, arguments), each job's codec,
+    {codec: (cols' shape, K)})."""
+    import torch
+    from turborc_tpu_torch.codecs import blockio
+    from turborc_tpu_torch.ops import rans
+    from turborc_tpu_torch.ops import rans_bit_kernel as BK
+    from turborc_tpu_torch.ops import rans_lane_kernel as LK
+    s_ = _bit_pred("s", None, dev)
+    shapes = {c: _bitw_cols(c, text4, dev) for c in BITW}
+    shapes[ORDER2] = _order2_cols(text4[:ORDER2_HELD], dev)
+    shapes["ansb"] = _ansb_cols(text4, dev)
+    jobs, tags = [], []
+    for codec, (c, Kc) in shapes.items():
+        W, order = BITW.get(codec, 8), 2 if codec == ORDER2 else 0
+        i_ = torch.full((c.shape[1],), rans.ANS_LOW, dtype=torch.int32,
+                        device=dev)
+        probs = BK.lane_bit_model(c, order, s_, W)
+        st, ln = LK.lane_coder(probs, i_)
+        words = blockio.device_words(st, ln)
+        out = BK.lane_bit_decode(words, ln, Kc, order, s_, W)
+        if not torch.equal(out, c):
+            raise AssertionError(f"L12 {codec}: did not return the elements")
+        if codec in BITW:
+            jobs += [("lane_bitw_decode", out, [words, ln, Kc, W, "s"]),
+                     ("lane_bitw_model", probs, [c, W, "s"])]
+        else:
+            jobs += [("lane_bit_decode", out, [words, ln, Kc, order, "s"]),
+                     ("lane_bit_model", probs, [c, order, "s"])]
+        tags += [codec, codec]
+        if codec == "rc-16":
+            jobs.append(("lane_coder", (st, ln), [probs, i_]))
+            tags.append(codec)
+    return jobs, tags, {k: (tuple(c.shape), Kc)
+                        for k, (c, Kc) in shapes.items()}
+
+
 def phase_lane_new_full_shape(dev, pool) -> dict:
     """L9, both instantiations of L10, and L11 and L12 at every
     (predictor, order) of BIT, with L2 on L9's and id 1's probs, at the
     full shape: one 4 MB block of textbwt at the default CodecConfig (512
-    lanes, K = 8,192); the decodes must return the bytes.  Their plain
-    versions at the same shape go to the host workers of ``pool`` (the
-    decodes, the longest, first), which run them while the next phases
-    run on the card; ``phase_lane_nibble_kernels`` and
-    ``phase_lane_bit_kernels`` hold the kernels' outputs (kept on the
-    host) against them.  Returns {"nibble" | "bit": (jobs, outputs,
-    futures)}."""
+    lanes, K = 8,192); then L11 and L12 at each W of BITW on its main
+    path's block of the same 4 MB (``_bitw_cols``, with L2 on rc-16's
+    probs), at order 2 on rcc2's 16 lanes of its first 64 KB (K = 4,096)
+    and at ansb's one launch over its 64 sub-blocks (256 lanes, K =
+    16,384); the decodes must return the input.  Their plain versions at
+    the same shapes go to the host workers of ``pool`` (the decodes, the
+    longest, first), which run them while the next phases run on the
+    card; ``phase_lane_nibble_kernels``, ``phase_lane_bit_kernels`` and
+    ``phase_lane_bitw_kernels`` hold the kernels' outputs (kept on the
+    host) against them.  Returns {"nibble" | "bit" | "bitw": (jobs,
+    outputs, futures)}, with "bitw_tags" (each bitw job's codec) and
+    "bitw_shapes" ({codec: (cols' shape, K)})."""
     import torch
     from turborc_tpu_torch.codecs import blockio
     from turborc_tpu_torch.ops import rans
@@ -1617,7 +1780,8 @@ def phase_lane_new_full_shape(dev, pool) -> dict:
     from turborc_tpu_torch.ops import rans_lane_kernel as LK
     from turborc_tpu_torch.ops import rans_nibble_kernel as NK
     phase("lane-new-kernels-full-shape")
-    cols, K = _default_block(_corpus("textbwt_16777216.bin", 1 << 22), dev)
+    text4 = _corpus("textbwt_16777216.bin", 1 << 22)
+    cols, K = _default_block(text4, dev)
     L = cols.shape[1]
     init = torch.full((L,), rans.ANS_LOW, dtype=torch.int32, device=dev)
     probs = NK.lane_nibble_model(cols)
@@ -1648,14 +1812,20 @@ def phase_lane_new_full_shape(dev, pool) -> dict:
         if codec == "rc-o0":
             todo["bit"].append(("lane_coder", (st, ln), [probs, init]))
     todo["bit"].sort(key=lambda job: job[0] != "lane_bit_decode")
-    started = {}
-    for what in ("nibble", "bit"):
+    bitw, tags, shapes = _bitw_full_shape(text4, dev)
+    order = sorted(range(len(bitw)),
+                   key=lambda i: not bitw[i][0].endswith("_decode"))
+    todo["bitw"] = [bitw[i] for i in order]
+    started = {"bitw_tags": [tags[i] for i in order], "bitw_shapes": shapes}
+    for what in ("nibble", "bit", "bitw"):
         jobs, kern = _full_jobs(todo[what])
         started[what] = (jobs, kern, [pool.submit(_plain_job, job)
                                       for job in jobs])
     log(f"lane new kernels L={L} K={K} (full shape): L10 and L12 return the "
-        f"bytes; {sum(len(v[0]) for v in started.values())} plain versions "
-        "handed to the host workers")
+        f"bytes, and L12 the elements of the W-bit trees ({len(BITW)}), "
+        f"rcc2 and ansb; "
+        f"{sum(len(started[w][0]) for w in ('nibble', 'bit', 'bitw'))} "
+        "plain versions handed to the host workers")
     return dict(started, K=K, L=L)
 
 
@@ -1827,8 +1997,211 @@ def phase_lane_bit_kernels(dev, started: dict) -> dict:
     return dict(plain_ms=plain_ms, err=errs, K=K, L=L)
 
 
+# Cases of L11 and L12 at W bits, at every W in 2..16 (what, L, K):
+# lane 0 all 0, lane 1 all 2^W - 1, lane 2 cycling, the rest random
+# ("mixed", with corrupt streams); every value in turn; K = 1; at W = 16
+# also elements whose hi bytes alternate (the top row and two lo rows in
+# turn).
+BITW_EDGE = (("mixed", 16, 37), ("cycling", 4, 64), ("mixed", 4, 1))
+# Cases of L11 and L12 at order 2 (what, L, K): a run of one byte, every
+# byte in turn (each context new), textbwt with corrupt streams.
+ORDER2_EDGE = (("run", 4, 64), ("every byte", 2, 256), ("textbwt", 16, 37))
+
+
+def _bitw_edge(what: str, W: int, K: int, L: int, rng):
+    """BITW_EDGE's elements, [K, L] numpy (uint8, or int16 holding u16)."""
+    import numpy as np
+    top = 1 << W
+    if what == "cycling":
+        v = (np.arange(K)[:, None] + 37 * np.arange(L)) % top
+    elif what == "hi alternate":
+        v = (0x9A + 0x17 * (np.arange(K)[:, None] % 2)) << 8 | rng.integers(
+            0, 256, (K, L))
+    else:
+        v = rng.integers(0, top, (K, L))
+        v[:, 0] = 0
+        v[:, 1 % L] = top - 1
+        v[:, 2 % L] = np.arange(K) % top
+    v = v.astype(np.uint8 if W <= 8 else np.uint16)
+    return v if W <= 8 else v.view(np.int16)
+
+
+def _golden_input(case: dict):
+    """A golden case's input as tests/test_torch_golden_bit_w.py makes it:
+    a corpus slice (read as ``view`` and shifted right by ``shift`` where
+    the case says so) or seeded skewed bytes; a "block" case's seeded
+    elements over its W-bit alphabet (``W``), 0 and 2^W - 1 among
+    them."""
+    import numpy as np
+    rng = np.random.default_rng(case["seed"]) if "seed" in case else None
+    if "W" in case:
+        W = case["W"]
+        p = 1.0 / np.arange(1, (1 << W) + 1) ** 1.1
+        v = rng.choice(1 << W, case["n"], p=p / p.sum())
+        v[:3], v[3] = (1 << W) - 1, 0
+        return v.astype(np.uint8 if W <= 8 else np.uint16)
+    if "file" in case:
+        x = _corpus(case["file"], case.get("offset", 0) + case["n"])
+        x = x[case.get("offset", 0):]
+    else:
+        p = 1.0 / np.arange(1, 257) ** 1.3
+        x = rng.choice(256, size=case["n"], p=p / p.sum()).astype(np.uint8)
+    if case.get("view"):
+        x = x.view(case["view"])
+    return x >> case.get("shift", 0)
+
+
+def _bitw_small_golden(dev) -> int:
+    """Every small container and block payload of golden/bit_w.json
+    written on the card byte for byte and decoded (rc10b's and rc12b's
+    containers fail the block crc, as the JAX package's do, and their
+    payloads decode to the input through the block API); returns the
+    number of cases."""
+    import numpy as np
+    from turborc_tpu_torch import api
+    from turborc_tpu_torch.codecs import registry
+    from turborc_tpu_torch.container import format as fmt
+    from turborc_tpu_torch.utils.config import CodecConfig
+    doc = json.loads(GOLDEN_BIT_W.read_text())
+    for case in doc["small"]:
+        data = _golden_input(case)
+        cfg = CodecConfig(codec=case["codec"], lanes=case["lanes"],
+                          step_quant=case["step_quant"],
+                          block_size=case["block_size"])
+        blob = api.compress(data, cfg, device=dev)
+        if blob.hex() != case["hex"]:
+            raise AssertionError(f"small golden {case['name']}: the card's "
+                                 "container differs")
+        if case["codec"] not in BITW_BLOCK:
+            if api.decompress(blob, device=dev) != data.tobytes():
+                raise AssertionError(f"small golden {case['name']}: decode")
+            continue
+        try:
+            api.decompress(blob, device=dev)
+        except ValueError as e:
+            if "block crc mismatch" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"small golden {case['name']}: decompress "
+                                 "passed the crc of u16 elements")
+        payload = next(fmt.iter_blocks(blob, fmt.read_header(blob)[
+            "data_off"]))[0]
+        out = registry.get(case["codec"]).decode_block(
+            payload, data.size, lanes=case["lanes"],
+            step_quant=case["step_quant"], device=dev)
+        if not np.array_equal(out, data):
+            raise AssertionError(f"small golden {case['name']}: block decode")
+    for case in doc["block"]:
+        data = _golden_input(dict(case, W=BITW[case["codec"]]))
+        c = registry.get(case["codec"])
+        shape = dict(lanes=case["lanes"], step_quant=case["step_quant"])
+        pay = c.encode_block(data, device=dev, **shape)
+        out = c.decode_block(pay, data.size, device=dev, **shape)
+        if pay.hex() != case["hex"] or out.dtype != data.dtype or \
+                not np.array_equal(out, data):
+            raise AssertionError(f"block golden {case['name']}: differs")
+    return len(doc["small"]) + len(doc["block"])
+
+
+def phase_lane_bitw_kernels(dev, started: dict) -> dict:
+    """L11 and L12 at W bits and at order 2 against their plain versions,
+    exact (tolerance 0).  First the refusals on the card: W of 1 and 17,
+    order 3, a table past 4 GB (order 2 at 128 lanes, W = 16's decode at
+    16,384 lanes).  Then BITW_EDGE's elements at every W in 2..16 (and
+    the hi bytes alternating at W = 16) and ORDER2_EDGE's bytes, the
+    "mixed" K = 37 and textbwt cases also on corrupt streams
+    (``_corrupt``), against the plain versions on the CPU; then the full
+    shapes of ``phase_lane_new_full_shape`` (each W-bit codec's main
+    path, rcc2 at K = 4,096, ansb's 256 lanes) against the host workers'
+    plain results.  The small golden containers and payloads of
+    golden/bit_w.json are written and decoded on the card
+    (``_bitw_small_golden``).  Returns the full-shape errors and plain ms
+    by codec and kernel."""
+    import numpy as np
+    import torch
+    from turborc_tpu_torch.codecs import blockio
+    from turborc_tpu_torch.ops import rans
+    from turborc_tpu_torch.ops import rans_bit_kernel as BK
+    from turborc_tpu_torch.ops import rans_lane_kernel as LK
+    phase("lane-bitw-kernels-vs-plain")
+    text = _corpus("textbwt_16777216.bin", 1 << 20)
+    rng = np.random.default_rng(20261021)
+    gen = torch.Generator().manual_seed(20261021)
+    sc, sd = _bit_pred("s", None, "cpu"), _bit_pred("s", None, dev)
+    u8 = torch.zeros((4, 4), dtype=torch.uint8, device=dev)
+    w_ = torch.zeros((40,), dtype=torch.int16, device=dev)
+    n_ = torch.full((4,), 10, dtype=torch.int32, device=dev)
+    refused = 0
+    for what, call in (
+            ("W = 1", lambda: BK.lane_bit_model(u8, 0, sd, 1)),
+            ("W = 17", lambda: BK.lane_bit_decode(w_, n_, 4, 0, sd, 17)),
+            ("order 3", lambda: BK.lane_bit_model(u8, 3, sd)),
+            ("order 3 decode", lambda: BK.lane_bit_decode(w_, n_, 4, 3, sd)),
+            ("order 2 at 128 lanes", lambda: BK.lane_bit_model(
+                torch.zeros((0, 128), dtype=torch.uint8, device=dev), 2, sd)),
+            ("W = 16 at 16,384 lanes", lambda: BK.lane_bit_decode(
+                w_, torch.zeros((1 << 14,), dtype=torch.int32, device=dev),
+                0, 0, sd, 16))):
+        try:
+            call()
+        except ValueError:
+            refused += 1
+            continue
+        raise AssertionError(f"lane bitw: {what} ran")
+    log(f"lane bitw kernels: {refused} calls refused on the card (W of 1 "
+        "and 17, order 3, tables past 4 GB)")
+    log(f"lane bitw kernels: {_bitw_small_golden(dev)} small golden "
+        "containers and payloads of golden/bit_w.json written on the card "
+        "byte for byte and decoded")
+    cases = [(W, what, L_, K_) for W in BK.WIDTHS
+             for what, L_, K_ in BITW_EDGE]
+    cases.append((16, "hi alternate", 8, 40))
+    cases += [(8, what, L_, K_) for what, L_, K_ in ORDER2_EDGE]
+    n_cmp = 0
+    for i, (W, what, L_, K_) in enumerate(cases):
+        order2 = i >= len(cases) - len(ORDER2_EDGE)
+        order = 2 if order2 else 0
+        x = torch.from_numpy(
+            _edge_cols(what, K_, L_, rng, text) if order2
+            else _bitw_edge(what, W, K_, L_, rng))
+        i_ = torch.full((L_,), rans.ANS_LOW, dtype=torch.int32)
+        probs = BK.lane_bit_model(x, order, sc, W)
+        err = {"L11": _max_abs(BK.lane_bit_model(x.to(dev), order, sd, W),
+                               probs)}
+        st, n = LK.lane_coder(probs, i_)
+        w = blockio.device_words(st, n)
+        streams = {"sound": (w, n)}
+        if what in ("mixed", "textbwt") and K_ > 1:
+            streams.update(_corrupt(w, n, gen, "cpu"))
+        for bad, (bw, bn) in streams.items():
+            err[f"L12 {bad}"] = _max_abs(
+                BK.lane_bit_decode(bw.to(dev), bn.to(dev), K_, order, sd, W),
+                BK.lane_bit_decode(bw, bn, K_, order, sc, W))
+        if any(err.values()):
+            raise AssertionError(f"lane bitw W={W} order {order} {what} "
+                                 f"L={L_} K={K_}: kernel differs from plain: "
+                                 f"{err}")
+        n_cmp += len(err)
+    log(f"lane bitw kernels: equal to plain, tolerance 0 (max abs err 0 on "
+        f"{n_cmp} comparisons: W 2-16 on {len(BITW_EDGE)} cases each, W = 16 "
+        "on hi bytes in turn, order 2 on a run, every byte and textbwt; "
+        "sound and corrupt streams)")
+    jobs, kern, futures = started["bitw"]
+    full_err, ms = _held("lane-bitw-kernels-vs-plain", jobs, kern, futures)
+    plain_ms, errs = {}, {}
+    for (name, _), key, codec in zip(jobs, ms, started["bitw_tags"]):
+        k = name.replace("lane_bitw_", "lane_bit_")
+        plain_ms.setdefault(codec, {})[k] = ms[key]
+        errs.setdefault(codec, {})[k] = full_err[key]
+    log("lane bitw kernels (full shapes " + json.dumps(
+        started["bitw_shapes"]) + "): equal to plain, tolerance 0 (max abs "
+        f"err {errs}); plain ms on the host " + json.dumps(plain_ms))
+    return dict(plain_ms=plain_ms, err=errs, shapes=started["bitw_shapes"])
+
+
 def _lane_bound_ms(name: str, L: int, K: int, geom, n_seg: int,
-                   words: int, fsm_states: int = 0) -> tuple[float, str]:
+                   words: int, fsm_states: int = 0, W: int = 8,
+                   slots: int | None = None) -> tuple[float, str]:
     """``_bound_ms``'s rule for the lane kernels on L lanes and K bytes a
     lane: bytes each input read once and each output written once (the
     decoders read only the ``words`` u16 words the streams hold, and a
@@ -1840,12 +2213,14 @@ def _lane_bound_ms(name: str, L: int, K: int, geom, n_seg: int,
     start rows, an op an entry (112 rows a lane for id 59, read from
     its ``n_seg`` segment tables; 4,352 for id 64, from cdf16.init).  L9
     and L10 (ids 41, 40) do a lookup, an update (adaptive) and, decoding,
-    a search, a state step and a fetch a nibble; L11 and L12 (ids 1, 2,
-    101-104) ``BIT_STEP`` ops a binary decision, 8 a byte, and decoding a
+    a search, a state step and a fetch a nibble; L11 and L12 (ids 1-3,
+    6, 66, 101-104, 142-152) ``BIT_STEP`` ops a binary decision, W an
+    element (8 a byte; the elements u16 above W = 8), and decoding a
     state step and a fetch each, and read an FSM table of
-    ``fsm_states`` states (3 ints each) once; the order-1 tables are
-    working state, as L5-L8's rows are."""
-    S = 2 * K if name != "lane_static_decode" else K
+    ``fsm_states`` states (3 ints each) once; the order-1 and -2 tables
+    are working state, as L5-L8's rows are.  L2 codes ``slots`` slots a
+    lane (2K by default, K for L4's codec)."""
+    S = slots or (2 * K if name != "lane_static_decode" else K)
     tables = n_seg * (16 + 256) * 4
     streams = words * 2 + L * (8 + 4)
     o1 = {"lane_o1r": ("o1", 64 + 48, n_seg), "lane_o1": ("o1byte", 4352, 0)
@@ -1864,10 +2239,10 @@ def _lane_bound_ms(name: str, L: int, K: int, geom, n_seg: int,
         nbytes = streams + K * L + (17 * 4 if static else 0)
         ops = L * K * 2 * (LOOKUP + 30 + 6 + 6 + (0 if static else 80))
     elif name.startswith("lane_bit_"):
-        model = name == "lane_bit_model"
-        nbytes = (K * L + 8 * K * L * 4 if model else streams + K * L) \
-            + fsm_states * 3 * 4
-        ops = L * K * 8 * (BIT_STEP + (0 if model else 6 + 6))
+        model, E = name == "lane_bit_model", 1 if W <= 8 else 2
+        nbytes = (K * L * E + W * K * L * 4 if model
+                  else streams + K * L * E) + fsm_states * 3 * 4
+        ops = L * K * W * (BIT_STEP + (0 if model else 6 + 6))
     elif name == "lane_model":
         nbytes = K * L + 2 * K * L * 4 + tables
         ops = L * _lane_ops("o0", geom, K, False)
@@ -2066,7 +2441,8 @@ def _plain_job(job):
     from turborc_tpu_torch.ops import rans_nibble_kernel as NK
     torch.set_num_threads(1)
     name, args = job
-    mod = {"lane_coder": LK, "lane_bit": BK, "lane_nibble": NK}.get(
+    mod = {"lane_coder": LK, "lane_bit": BK, "lane_bitw": BK,
+           "lane_nibble": NK}.get(
         "_".join(name.split("_")[:2]) if name != "lane_coder" else name, LO)
     fn = getattr(mod, name + "_plain")
     args = [torch.from_numpy(a) if isinstance(a, np.ndarray) else a
@@ -2224,6 +2600,85 @@ def _lane_new_timing(dev, nib: dict, bit: dict) -> dict:
     return res
 
 
+def _lane_bitw_timing(dev, held: dict) -> dict:
+    """L11, L2 and L12 of each W-bit codec (BITW) on its main path's block
+    of 4 MB of textbwt (``_bitw_cols``), and of rcc2 on its 4 MB block (16
+    lanes, K = 262,144): a warm-up, then 3 timed calls on distinct
+    rotations (CUDA events around the wrapper; a cudaMalloc inside a span
+    fails the phase).  The plain ms and errors are those of
+    ``phase_lane_bitw_kernels`` (``held``: the plain versions at the W-bit
+    codecs' main paths, rcc2's at K = 4,096, on the host)."""
+    import numpy as np
+    import torch
+    from turborc_tpu_torch.codecs import blockio
+    from turborc_tpu_torch.ops import rans
+    from turborc_tpu_torch.ops import rans_bit_kernel as BK
+    from turborc_tpu_torch.ops import rans_lane_kernel as LK
+    from turborc_tpu_torch.utils.config import CodecConfig
+    text = _corpus("textbwt_16777216.bin")
+    B, res = CodecConfig().block_size, {}
+    s_ = _bit_pred("s", None, dev)
+    for codec in (*BITW, ORDER2):
+        W, order = BITW.get(codec, 8), 2 if codec == ORDER2 else 0
+        ms, grew = {k: [] for k in BIT_KERNELS}, 0
+        for r in range(4):  # rep 0 is the warm-up
+            x = np.roll(text, 7919 * (r + 1))[:B]
+            cols, K = (_order2_cols(x, dev) if codec == ORDER2
+                       else _bitw_cols(codec, x, dev))
+            L = cols.shape[1]
+            init = torch.full((L,), rans.ANS_LOW, dtype=torch.int32,
+                              device=dev)
+            probs, t_m, g_m = _events_ms(BK.lane_bit_model, cols, order, s_,
+                                         W)
+            (st, lens), t_c, g_c = _events_ms(LK.lane_coder, probs, init)
+            words = blockio.device_words(st, lens)
+            out, t_d, g_d = _events_ms(BK.lane_bit_decode, words, lens, K,
+                                       order, s_, W)
+            if not torch.equal(out, cols):
+                raise AssertionError(f"timing-lane {codec}: round trip")
+            if r:
+                grew += g_m + g_c + g_d
+                for k, t in zip(BIT_KERNELS, (t_m, t_c, t_d)):
+                    ms[k].append(t)
+            nwords = int(lens.to(torch.int64).sum())
+            del cols, probs, st, lens, words, out
+        if grew:
+            raise AssertionError(f"timing-lane {codec}: {grew} cudaMallocs "
+                                 "inside the timed spans")
+        res[codec] = dict(
+            ms={k: sum(v) / len(v) for k, v in ms.items()}, ms_reps=ms,
+            K=K, L=L, W=W, order=order, words=nwords,
+            plain_ms=held["plain_ms"][codec], err=held["err"][codec],
+            plain_shape=held["shapes"][codec],
+            bound={k: _lane_bound_ms(k, L, K, None, 0, nwords, W=W,
+                                     slots=W * K) for k in BIT_KERNELS})
+        log(f"timing-lane {codec} " + json.dumps(res[codec]))
+    return res
+
+
+def _lane_bitw_rows(timed: dict, launches: dict) -> list:
+    """The kernels-line rows of L11 and L12 at each W of BITW
+    (``lane_bit_model<w16>`` ...) and at order 2 (``<s,2>``), at their
+    codecs' main paths, with threads (a CTA), CTAs, the codec and the
+    shape of the plain run (rcc2's at K = 4,096)."""
+    from turborc_tpu_torch.ops import rans_bit_kernel as BK
+    rows = []
+    for codec, t in timed.items():
+        for k in ("lane_bit_model", "lane_bit_decode"):
+            threads, ctas = BK.bit_launch(t["L"], decode=k != "lane_bit_model",
+                                          W=t["W"])
+            bound, by = t["bound"][k]
+            rows.append(dict(
+                name=f"{k}<s,2>" if t["order"] else f"{k}<w{t['W']}>",
+                route="cuda", source=SOURCE[k],
+                replaces=REPLACES[k] if t["order"] else REPLACES_W[k],
+                launches=launches[codec][k], max_abs_err=t["err"][k],
+                ms=t["ms"][k], plain_ms=t["plain_ms"][k], bound_ms=bound,
+                bound_by=by, library_ms=None, codec=codec, threads=threads,
+                CTAs=ctas, plain_shape=t["plain_shape"]))
+    return rows
+
+
 def _lane_rows(timed: dict, launches: dict) -> list:
     """The kernels-line rows of L1-L4: L1-L3 at id 56's main path (the
     default codec), L4 at id 42's; L1, L3 and L4 with T (threads a lane),
@@ -2353,6 +2808,7 @@ def child(before: str | None) -> int:
         phase_lane_o1_kernels(dev)
         nib = phase_lane_nibble_kernels(dev, started)
         bit = phase_lane_bit_kernels(dev, started)
+        bitw = phase_lane_bitw_kernels(dev, started)
     golden, golden_r1 = _golden(GOLDEN), _golden(GOLDEN_R1)
     golden_rcp, golden_x2 = _golden(GOLDEN_RCP), _golden(GOLDEN_X2)
     main = _roundtrip("roundtrip-64MB-bench-geom",
@@ -2388,6 +2844,22 @@ def child(before: str | None) -> int:
         main_lane[codec] = _roundtrip(
             f"roundtrip-{codec}-{mb}MB-default-config", case,
             NIBBLE.get(codec, BIT_KERNELS), dev)["launches"]
+    for case in json.loads(GOLDEN_BIT_W.read_text())["large"]:
+        codec, mb = case["codec"], case["n"] >> 20
+        if case["kind"] == "block":
+            main_lane[codec] = _block_roundtrip(
+                f"roundtrip-{codec}-{mb}MB-block-api", case, dev)["launches"]
+        else:
+            size = f"{mb}MB" if mb else f"{case['n'] >> 10}KB"
+            main_lane[codec] = _roundtrip(
+                f"roundtrip-{codec}-{size}-default-config", case, BIT_KERNELS,
+                dev)["launches"]
+    # rcc2's main path, a whole 4 MB block (16 lanes, K = 262,144): no JAX
+    # golden at this size (its CPU encode takes days), the round trip only
+    main_lane[ORDER2] = _roundtrip(
+        f"roundtrip-{ORDER2}-4MB-default-config",
+        dict(codec=ORDER2, file="textbwt_16777216.bin", n=1 << 22,
+             block_size=1 << 22), BIT_KERNELS, dev)["launches"]
     bench, bench_x2 = Geom.parse(BENCH_GEOM), Geom.parse(BENCH_GEOM_X2)
     t0 = _time_path("timing", "o0", "textbwt_67108864.bin", bench, dev)
     t1 = _time_path("timing-o1", "o1", "realsrcbwt_16777216.bin", Geom(),
@@ -2397,6 +2869,8 @@ def child(before: str | None) -> int:
     tt = _time_path("timing-tree", "tree", "textbwt_16777216.bin", Geom(),
                     dev)
     tl = phase_lane_timing(dev, nib, bit)
+    phase("timing-lane-bitw")
+    tw = _lane_bitw_timing(dev, bitw)
     timed = phase_before_after(dev, before, before_libs)
     rows = (_rows(KERNELS["o0"], t0, bench, main["launches"])
             + _rows(("o1_model", "o1_decode"), t1, Geom(),
@@ -2406,7 +2880,8 @@ def child(before: str | None) -> int:
                     main_rcp["launches"])
             + _lane_rows(tl, main_lane)
             + _lane_o1_rows(tl, main_lane, timed)
-            + _lane_new_rows(tl, main_lane, timed))
+            + _lane_new_rows(tl, main_lane, timed)
+            + _lane_bitw_rows(tw, main_lane))
     log("card (nvidia-smi name, power.limit):")
     log(_smi())
     log(json.dumps({"kernels": rows}))

@@ -89,7 +89,9 @@ def test_constants_match_source():
     assert BK.bit_launch(512, decode=True) == (SETUP, 128)
     assert BK.bit_launch(2) == (SETUP, 1)
     # the kernels' index math as the mirrors copy it
-    for line in ("const int d = threadIdx.x >> 2, n = threadIdx.x & 3;",
+    for line in ("const int dt = int(threadIdx.x) / kN, n = int(threadIdx.x) "
+                 "% kN;",
+                 "constexpr int kN = 4 / int(sizeof(Elem<kW>));",
                  "const uint32_t* pair = brow + kPairAt + kPair * j3;",
                  "const Upd u3{brow + j3, pr.dnext1(v, p, b3)};",
                  "const Upd u4{brow + 8 + 2 * j3 + b3, pr.dnext1(v, p, b4)};",

@@ -134,24 +134,31 @@ def test_split_state_not_ported():
 def test_registry_has_only_the_flagship():
     """The registry holds the ported codecs, the per-lane scan codecs 42,
     56, 58, 59 and 64, the flagships 57 and 60, the dispatch between
-    them, 61, the bit-tree codec 8, the bitwise byte-tree codecs 1, 2
-    and 101-104 and the nibble codecs 41 and 40, and nothing else; the
-    default CodecConfig (id 56) round-trips through the api."""
+    them, 61, the bit-tree codec 8, the bitwise byte-tree codecs 1, 2, 3
+    and 101-104, ansb (66), the nibble codecs 41 and 40 and the W-bit
+    tree codecs 6 and 142-152, and nothing else; the default CodecConfig
+    (id 56) round-trips through the api."""
     assert registry.names() == ["rans-static", "rans-cdf-o0",
                                 "rans-cdf-o0-p", "rans-cdf-s8",
                                 "rans-cdf-r1", "rans-cdf-r1-p", "rans-auto",
                                 "rans-cdf-o1", "rc-p", "rc-o0", "rcc-o1",
                                 "rc-o0-ss", "rcc-o1-ss", "rc-o0-sf",
-                                "rcc-o1-sf", "rc4", "rc4c"]
+                                "rcc-o1-sf", "rcc2", "rc-16", "ansb", "rc4",
+                                "rc4c", "rc2b", "rc3b", "rc5b", "rc6b",
+                                "rc7b", "rc10b", "rc12b"]
     for cid, name in ((42, "rans-static"), (56, "rans-cdf-o0"),
                       (57, "rans-cdf-o0-p"), (58, "rans-cdf-s8"),
                       (59, "rans-cdf-r1"), (60, "rans-cdf-r1-p"),
                       (61, "rans-auto"), (64, "rans-cdf-o1"), (8, "rc-p"),
                       (1, "rc-o0"), (2, "rcc-o1"), (101, "rc-o0-ss"),
                       (102, "rcc-o1-ss"), (103, "rc-o0-sf"),
-                      (104, "rcc-o1-sf"), (41, "rc4"), (40, "rc4c")):
+                      (104, "rcc-o1-sf"), (41, "rc4"), (40, "rc4c"),
+                      (3, "rcc2"), (6, "rc-16"), (66, "ansb"),
+                      (142, "rc2b"), (143, "rc3b"), (145, "rc5b"),
+                      (146, "rc6b"), (147, "rc7b"), (150, "rc10b"),
+                      (152, "rc12b")):
         assert registry.get(cid) is registry.get(name)
-    for key in ("rcc2", 3, "rcx", 4):
+    for key in ("rcx", 4, "rc-32", 7):
         with pytest.raises(KeyError, match="not ported"):
             registry.get(key)
     data = TEXT[:3000].tobytes()

@@ -439,7 +439,8 @@ _LN = torch.full((8,), 5, dtype=torch.int32)
 
 
 @pytest.mark.parametrize("what,call", [
-    ("order 2", lambda: BK.lane_bit_model(_C, 2, bitpred.Simple())),
+    # order 2 runs on the Simple predictor only (id 3's)
+    ("order 2", lambda: BK.lane_bit_model(_C, 2, bitpred.DualSpeed(5, 8))),
     ("not a predictor", lambda: BK.lane_bit_model(_C, 0, "s")),
     ("cols dtype", lambda: BK.lane_bit_model(_C.to(torch.int32), 0,
                                              bitpred.Simple())),

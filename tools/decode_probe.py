@@ -2331,7 +2331,9 @@ BIT_SPLIT = {
                  1, 3, "int(H[0] + H[13])"),
                 ("u7 = Upd{half + 6 + 4 * b4 + 2 * b5 + b6, "
                  "pr.dnext1(v, p, b7)};", 1, 4, "int(u7.v)"),
-                ("    ctx = byte;", 1, 5, "byte")],
+                ("ctx = kOrder == 2 ? (byte << 8) | (ctx >> 8) : byte;", 1, 5,
+                 "byte")],
+        loop_head="for (int t = 0; t < steps; ++t) {",
         # order 0's loop (decode_o0), stamped too
         stamps_o0=[("const int b = st.bit(p);", 1, 0, "b"),
                    ("U = Upd{row + node, pr.dnext1(v, p, b)};", 1, 1,
@@ -2367,8 +2369,8 @@ BIT_SPLIT = {
             "pair-fixed": [("const uint32_t* pair = brow + kPairAt + kPair "
                             "* j3;", "const uint32_t* pair = brow + "
                             "kPairAt;")],
-            "rows-4": [("uint32_t* hrow = head + ctx * kHeadSlots;",
-                        "uint32_t* hrow = head + (ctx & 3) * kHeadSlots;"),
+            "rows-4": [("head + ctx * kHeadSlots;",
+                        "head + (ctx & 3) * kHeadSlots;"),
                        ("uint32_t* brow = body + ctx * kBodySlots;",
                         "uint32_t* brow = body + (ctx & 3) * kBodySlots;")]}),
 }
@@ -2381,7 +2383,8 @@ def _bit_ptxas(report: str, kernel: str) -> dict:
     for line in report.splitlines():
         if "Compiling entry function" in line \
                 or "Function properties for" in line:
-            t = re.search(rf"{kernel}_kernel\w*?Pred(SS|SF|S)ELi(\d)E", line)
+            t = re.search(rf"{kernel}_kernel\w*?Pred(SS|SF|S)ELi(\d)ELi8E",
+                          line)
             key = f"{t.group(1).lower()},{t.group(2)}" if t else None
             if key:
                 res.setdefault(key, {})

@@ -166,6 +166,17 @@ def shape_block(data: np.ndarray, lanes: int, step_quant: int):
     return padded.reshape(lanes, K), K
 
 
+def shape_block_elems(elems: np.ndarray, lanes: int, step_quant: int,
+                      dtype=np.int32):
+    """Pad (with 0) + reshape an integer element array into [lanes, K]
+    chunks of ``dtype``."""
+    n = elems.shape[0]
+    K = K_for(n, lanes, step_quant)
+    padded = np.zeros(lanes * K, dtype)
+    padded[:n] = elems
+    return padded.reshape(lanes, K), K
+
+
 def pack(streams: np.ndarray, lengths: np.ndarray) -> bytes:
     """[L, M] word matrix + [L] lengths -> payload bytes."""
     if lengths.max() > 0xFFFF:

@@ -8,11 +8,13 @@ order-1 ``rans-cdf-r1`` (id 59) and ``rans-cdf-o1`` (id 64), the
 flagships ``rans-cdf-o0-p`` (id 57) and ``rans-cdf-r1-p`` (id 60),
 ``rans-auto`` (id 61), which picks between them per block, the
 bit-tree codec ``rc-p`` (id 8), the nibble codecs ``rc4`` (id 41) and
-``rc4c`` (id 40) and the bitwise byte-tree codecs ``rc-o0`` (id 1),
-``rcc-o1`` (id 2) and their dual-speed (ids 101, 102) and FSM (ids
-103, 104) predictor variants.  The JAX package registers ids 57, 60
-and 8 only off the CPU.  A name or id the JAX package knows but the port
-does not raises KeyError.
+``rc4c`` (id 40), the bitwise byte-tree codecs ``rc-o0`` (id 1),
+``rcc-o1`` (id 2), ``rcc2`` (id 3, order 2) and their dual-speed (ids
+101, 102) and FSM (ids 103, 104) predictor variants, the bitwise ANS
+``ansb`` (id 66) and the W-bit tree codecs ``rc-16`` (id 6) and
+``rc{W}b`` (ids 142, 143, 145, 146, 147, 150, 152).  The JAX package
+registers ids 57, 60 and 8 only off the CPU.  A name or id the JAX
+package knows but the port does not raises KeyError.
 """
 from __future__ import annotations
 
@@ -70,10 +72,20 @@ _CODECS = (
     Codec(102, "rcc-o1-ss", rc_bit.rcc_ss_encode, rc_bit.rcc_ss_decode),
     Codec(103, "rc-o0-sf", rc_bit.rc_sf_encode, rc_bit.rc_sf_decode),
     Codec(104, "rcc-o1-sf", rc_bit.rcc_sf_encode, rc_bit.rcc_sf_decode),
+    # bitwise order 2, the full 2^16 byte-pair contexts, at most 16 lanes
+    Codec(3, "rcc2", rc_bit.rcc2_encode, rc_bit.rcc2_decode),
+    # bitwise order 0 over 16-bit symbols, a 16-level tree
+    Codec(6, "rc-16", rc_bit.rc16_encode, rc_bit.rc16_decode),
+    # bitwise ANS at the reference's design point: 4 interleaved states
+    # (lanes) over an order-0 byte tree, 64 KB sub-blocks
+    Codec(66, "ansb", rc_bit.ansb_encode, rc_bit.ansb_decode),
     # 4-bit symbols: a per-lane adaptive CDF16, a shared static one
     Codec(41, "rc4", rans_nibble.encode_block, rans_nibble.decode_block),
     Codec(40, "rc4c", rans_nibble.encode_block_static,
           rans_nibble.decode_block_static),
+    # W-bit symbol trees, W in 2, 3, 5, 6, 7, 10, 12 (u16 elements above 8)
+    *(Codec(140 + w, f"rc{w}b", *rc_bit.make_nbit_block_api(w))
+      for w in (2, 3, 5, 6, 7, 10, 12)),
 )
 _BY_NAME = {c.name: c for c in _CODECS}
 _BY_ID = {c.codec_id: c for c in _CODECS}

@@ -84,13 +84,20 @@ SIGNATURES = {
         "trc_lane_nibble_decode": [_P] * 5 + [_I] * 3 + [_P],
     },
     "rans_bit_kernel.cu": {
-        # L11: cols, probs, the order-1 tables (null at order 0), the FSM
-        # table (null but for sf); K, L, order, predictor, the two rates,
-        # the FSM's states and start state
+        # L11: cols, probs, the order-1 or -2 tables (null at order 0),
+        # the FSM table (null but for sf); K, L, order, predictor, the two
+        # rates, the FSM's states and start state
         "trc_lane_bit_model": [_P] * 4 + [_I] * 8 + [_P],
         # L12: words, offsets, lengths, output, the order-1 tables, the
-        # FSM table; K, L, W, order, predictor, rates, states, start
+        # FSM table; K, L, W (words), order, predictor, rates, states,
+        # start
         "trc_lane_bit_decode": [_P] * 6 + [_I] * 9 + [_P],
+        # L11 on a W-bit tree: cols, probs, the tables (null up to W =
+        # 12); K, L, W
+        "trc_lane_bitw_model": [_P] * 3 + [_I] * 3 + [_P],
+        # L12 on a W-bit tree: words, offsets, lengths, output, the
+        # tables; K, L, the words' count, W
+        "trc_lane_bitw_decode": [_P] * 5 + [_I] * 4 + [_P],
     },
 }
 SOURCES = tuple(SIGNATURES)
